@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's main path on one GPU and check it.
+"""Run the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py            # what the check runs: needs one card
 
 Phases, each of which raises on failure:
 
 1. print the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all at once) and print the build seconds;
 3. hold each kernel against its plain PyTorch version on the card at
    LLaMA-7B shapes, with the tolerances stated below, and time it beside
-   its plain version, a yardstick PyTorch call and its bound;
+   its plain version, a yardstick PyTorch call and its bound
+   (``binary_matmul`` and ``int4_matmul`` at the binary and int4 spans
+   of the fused QKV and of the down projection);
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
-   gives the same logits within tolerance;
-5. the main path: LLaMA-7B at full width and full depth (32 layers),
-   data-free PTQ1.61 with fused QKV / gate+up, served through the paged
-   chunked-prefill engine; every request must finish and every kernel's
-   launch count in that run must be above zero;
-6. print the ``kernels`` JSON line, then the result line.
+   gives the same logits within tolerance; and the calibrated pipeline
+   run on the card and on the CPU gives the same masks and packed bytes
+   and learned scales within tolerance;
+5. the data-free main path: LLaMA-7B at full width and full depth (32
+   layers), data-free PTQ1.61 with fused QKV / gate+up, served through
+   the paged chunked-prefill engine; every request must finish and every
+   kernel of the path must have launched in that run;
+6. the calibrated path: the same model quantized with calibrated
+   PTQ1.61 at ``repro_torch.launch.serve``'s defaults (Eq.-7 block loss
+   before and after learning, which must not rise), then served the same
+   way through the unfused packed projections;
+7. print the ``kernels`` JSON line, then the result line.
 
 It exits non-zero without CUDA, and when run outside a checkout of the
 repository.
@@ -52,6 +60,15 @@ ATT_RTOL, ATT_ATOL = 1e-2, 1e-2
 # small-input agreement, card (kernels) against CPU (plain), f32 model:
 # logits within 1e-2 of the reference's largest magnitude
 REF_RTOL = 1e-2
+# calibrated pipeline, card against CPU, f32: masks and packed bytes
+# exact.  Learned scales within 1e-4 relative: the card and the CPU sum
+# the gradients in another order, and the gap measured on an H100 was
+# 1.1e-6, about 90 times below; a run that did not learn stays about
+# lr·updates/|α| (above 1e-2) from the learned α's, and the check runs
+# that control and fails unless it exceeds the tolerance.  The block
+# losses, which average over every α, within 1e-3 relative.
+CAL_ALPHA_RTOL = 1e-4
+CAL_LOSS_RTOL = 1e-3
 
 
 def _fail(msg: str) -> None:
@@ -112,11 +129,11 @@ def bound_ms(nbytes: float, flops: float, peaks):
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions at LLaMA-7B shapes
 # ---------------------------------------------------------------------------
-def check_mixed_matmul(torch, cfg, timer, peaks, gen):
+def llama_projections(torch, cfg, gen):
+    """The four packed projections of one LLaMA-7B layer as the main path
+    quantizes them (data-free, QKV and gate+up fused)."""
     from repro_torch.core.qlinear import (QuantConfig, quantize_linear,
                                           quantize_linear_group)
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.mixed_matmul import mixed_matmul
     qcfg = QuantConfig(ratio=0.2, multiple=16)
     d, f = cfg.d_model, cfg.d_ff
     hd = cfg.n_heads * cfg.head_dim_
@@ -126,13 +143,18 @@ def check_mixed_matmul(torch, cfg, timer, peaks, gen):
         return (torch.randn((k, n), generator=gen, device="cuda")
                 / math.sqrt(k)).to(torch.bfloat16)
 
-    projs = {
+    return {
         "wqkv": quantize_linear_group([w(d, hd), w(d, kvd), w(d, kvd)],
                                       None, qcfg).inner,
         "wgu": quantize_linear_group([w(d, f), w(d, f)], None, qcfg).inner,
         "wo": quantize_linear(w(hd, d), None, qcfg),
         "wd": quantize_linear(w(f, d), None, qcfg),
     }
+
+
+def check_mixed_matmul(torch, projs, timer, peaks, gen):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mixed_matmul import mixed_matmul
     rows = []
     for m in (1, 8, 64):
         for name, q in projs.items():
@@ -164,6 +186,58 @@ def check_mixed_matmul(torch, cfg, timer, peaks, gen):
                 bound_ms=b, bound_by=by, bytes=nbytes)
             del dense
             rows.append(row)
+    return rows
+
+
+def check_spans(torch, projs, timer, peaks, gen):
+    """binary_matmul and int4_matmul on the binary and int4 spans of the
+    main path's wqkv and wd, at M = 1, 8 and 64."""
+    from repro_torch.core import pack
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binary_matmul import binary_matmul
+    from repro_torch.kernels.int4_matmul import int4_matmul
+    rows = {"binary_matmul": [], "int4_matmul": []}
+    for m in (1, 8, 64):
+        for name in ("wqkv", "wd"):
+            q = projs[name]
+            a_out = (q.alpha_s * q.alpha_r1).contiguous()
+            cases = {
+                "binary_matmul": (
+                    binary_matmul, ref.binary_matmul_ref, q.k_b,
+                    (q.bits, a_out, q.alpha_r2),
+                    lambda: pack.unpack_bits(q.bits, axis=-2,
+                                             dtype=torch.bfloat16),
+                    q.bits.numel() + (q.n + q.k_b) * 4),
+                "int4_matmul": (
+                    int4_matmul, ref.int4_matmul_ref, q.k_s,
+                    (q.w4, q.s4, q.z4),
+                    lambda: q.dequant_salient(torch.bfloat16),
+                    q.w4.numel() + 2 * q.k_s * 4),
+            }
+            for kname, (fn, plain, k, wargs, dense_fn, wbytes) in \
+                    cases.items():
+                x = torch.randn((m, k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                y = fn(x, *wargs)
+                y_ref = plain(x.float(), *wargs)
+                torch.cuda.synchronize()
+                err = (y.float() - y_ref).abs().max().item()
+                ok = torch.allclose(y.float(), y_ref, rtol=MM_RTOL,
+                                    atol=MM_ATOL)
+                row = {"proj": name, "M": m, "K": k, "N": q.n,
+                       "max_abs_err": err, "ok": bool(ok)}
+                if not ok:
+                    _fail(f"{kname} {row}")
+                dense = dense_fn()
+                nbytes = m * k * 2 + wbytes + m * q.n * 2
+                b, by = bound_ms(nbytes, 2.0 * m * k * q.n, peaks)
+                row.update(
+                    ms=timer.ms(lambda: fn(x, *wargs)),
+                    plain_ms=timer.ms(lambda: plain(x, *wargs)),
+                    library_ms=timer.ms(lambda: torch.matmul(x, dense)),
+                    bound_ms=b, bound_by=by, bytes=nbytes)
+                del dense
+                rows[kname].append(row)
     return rows
 
 
@@ -362,40 +436,102 @@ def check_small_reference(torch, registry):
     return worst
 
 
-# ---------------------------------------------------------------------------
-# Phase 5: the main path
-# ---------------------------------------------------------------------------
-def run_main_path(torch, registry, kernels, max_new: int = 32):
-    import numpy as np
-    from repro_torch.core.bits import model_bits
-    from repro_torch.core.pipeline import quantize_params_data_free
-    from repro_torch.core.qlinear import QuantConfig
+def check_small_calibrated(torch, registry):
+    """Calibrated PTQ1.61 of the reduced LLaMA config (2 layers, f32) on
+    the card and on the CPU from the same weights and segments."""
+    import dataclasses
+    from repro_torch.configs.base import Stage
+    from repro_torch.core.pipeline import quantize_model_ptq161
+    from repro_torch.core.qlinear import QLinear, QuantConfig
+    from repro_torch.core.select import map_tree
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.models import model as M
-    from repro_torch.runtime.engine import Engine
+    from repro_torch.models.param import tree_to
+    cfg = dataclasses.replace(registry.get("llama-7b").reduced(),
+                              stages=(Stage(("dense",), 2),))
+    qcfg = QuantConfig(ratio=0.2, multiple=16, steps=3)
+    p = tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32)
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    toks = [torch.from_numpy(t) for t, _ in
+            corpus.batches(1, 64, 4, split="calib")]
+    n_updates = qcfg.steps * len(toks)
+    outs = {}
+    for name, dev, qc in (("cpu", "cpu", qcfg), ("cuda", "cuda", qcfg),
+                          ("unlearned", "cpu", dataclasses.replace(
+                              qcfg, learn_scales=False))):
+        losses = []
+        q = quantize_model_ptq161(cfg, tree_to(p, dev),
+                                  [{"tokens": t.to(dev)} for t in toks],
+                                  qc, min_dim=32, block_losses=losses)
+        leaves = {}
+        map_tree(q, lambda path, x: leaves.__setitem__(path, x.map(
+            lambda t: t.cpu())) if isinstance(x, QLinear) else x)
+        outs[name] = (leaves, losses)
+    (a, la), (b, lb) = outs["cuda"], outs["cpu"]
+    c = outs["unlearned"][0]
+    if a.keys() != b.keys() or len(a) != 14:
+        _fail("calibrated: card and CPU quantized different projections")
+    for k in a:
+        if not torch.equal(a[k].perm, b[k].perm):
+            _fail(f"calibrated: perm differs at {k}")
+        for f in ("w4", "bits"):
+            if not torch.equal(getattr(a[k], f), getattr(b[k], f)):
+                _fail(f"calibrated: {f} differs at {k}")
 
+    def alpha_gap(u, v):
+        """Largest |u − v| / |v| over every learned α."""
+        return max((((getattr(u[k], f) - getattr(v[k], f)).abs()
+                     / getattr(v[k], f).abs()).max().item())
+                   for k in v for f in ("alpha_s", "alpha_r1", "alpha_r2"))
+    worst_rel, control_rel = alpha_gap(a, b), alpha_gap(c, b)
+    if not worst_rel <= CAL_ALPHA_RTOL:          # NaN fails too
+        _fail(f"calibrated: learned scales differ by {worst_rel} "
+              f"(relative) > {CAL_ALPHA_RTOL}")
+    if control_rel <= CAL_ALPHA_RTOL:
+        _fail(f"calibrated: unlearned scales are within {control_rel} of "
+              f"the learned ones; the α check cannot tell them apart")
+    for (ba, aa), (bb, ab) in zip(la, lb):
+        for x, y in ((ba, bb), (aa, ab)):
+            if abs(x - y) > CAL_LOSS_RTOL * abs(y):
+                _fail(f"calibrated: block loss {x} on the card vs {y}")
+    return {"projections": len(a), "updates": n_updates,
+            "alpha_max_rel_diff": worst_rel, "alpha_rtol": CAL_ALPHA_RTOL,
+            "unlearned_alpha_rel_diff": control_rel,
+            "block_losses_card": la, "block_losses_cpu": lb}
+
+
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: the data-free main path and the calibrated path
+# ---------------------------------------------------------------------------
+def llama_7b(registry):
     cfg = registry.get("llama-7b")
     print(f"[main] llama-7b d_model={cfg.d_model} heads={cfg.n_heads} "
           f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} "
           f"d_ff={cfg.d_ff} vocab={cfg.vocab} layers={cfg.n_layers}",
           flush=True)
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    qparams = quantize_params_data_free(
-        params, QuantConfig(ratio=0.2, multiple=16), min_dim=32, fuse=True)
-    del params
-    torch.cuda.synchronize()
-    t_quant = time.perf_counter() - t0
+    return cfg
+
+
+def check_bits(qparams, tag: str) -> float:
+    from repro_torch.core.bits import model_bits
     rep = model_bits(qparams)
     bits = rep["avg_bits_per_quantized_weight"]
-    print(f"[main] init {t_init:.1f}s, data-free fused quantization "
-          f"{t_quant:.1f}s: {bits:.4f} bits/weight over "
+    print(f"[{tag}] {bits:.4f} bits/weight over "
           f"{rep['quantized_weights']:,} weights", flush=True)
     if not 1.5 < bits < 1.75:
-        _fail(f"bits/weight {bits} outside (1.5, 1.75)")
+        _fail(f"{tag}: bits/weight {bits} outside (1.5, 1.75)")
+    return bits
+
+
+def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
+                  max_new: int = 32) -> dict:
+    """Serve 8 synthetic prompts of 200-400 tokens, 32 new tokens each,
+    through the paged chunked-prefill engine.  Every launch count is set
+    to 0 just before the run and read just after; each kernel of
+    ``path_kernels`` must have launched."""
+    import numpy as np
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.runtime.engine import Engine
 
     engine = Engine(cfg, qparams, n_slots=8, max_seq=512, seed=0,
                     page_size=16, prefill_chunk=64, device="cuda")
@@ -412,18 +548,19 @@ def run_main_path(torch, registry, kernels, max_new: int = 32):
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     if not all(r.done for r in reqs):
-        _fail("not every request finished")
+        _fail(f"{tag}: not every request finished")
     if any(len(r.out_tokens) != max_new for r in reqs):
-        _fail("a request stopped short of max_new")
+        _fail(f"{tag}: a request stopped short of max_new")
     if any(not (0 <= t < cfg.vocab) for r in reqs for t in r.out_tokens):
-        _fail("a generated token lies outside the vocabulary")
-    for name, n in launches.items():
-        if n <= 0:
-            _fail(f"kernel {name} was not launched on the main path")
+        _fail(f"{tag}: a generated token lies outside the vocabulary")
+    for name in path_kernels:
+        if launches[name] <= 0:
+            _fail(f"{tag}: kernel {name} was not launched on the path")
     snap = engine.metrics.snapshot()
     steps = snap["phase_step_s"]
     toks = sum(len(r.out_tokens) for r in reqs)
-    summary = {
+    print(f"[{tag} engine_metrics] " + json.dumps(snap), flush=True)
+    return {
         "layers": cfg.n_layers, "requests": len(reqs),
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "generated_tokens": toks, "wall_s": wall,
@@ -436,12 +573,107 @@ def run_main_path(torch, registry, kernels, max_new: int = 32):
         "prefill_chunk_ms": 1e3 * steps["prefill_chunk"]["mean_s"],
         "prefill_chunks": steps["prefill_chunk"]["count"],
         "preemptions": snap["preemptions"],
-        "bits_per_weight": bits, "quantize_s": t_quant,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
     }
-    print("[engine_metrics] " + json.dumps(snap), flush=True)
+
+
+def run_main_path(torch, registry, kernels, path_kernels) -> dict:
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.models import model as M
+
+    cfg = llama_7b(registry)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams = quantize_params_data_free(
+        params, QuantConfig(ratio=0.2, multiple=16), min_dim=32, fuse=True)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    print(f"[main] init {t_init:.1f}s, data-free fused quantization "
+          f"{t_quant:.1f}s", flush=True)
+    bits = check_bits(qparams, "main")
+    summary = serve_prompts(torch, cfg, qparams, kernels, path_kernels,
+                            "main")
+    summary.update(bits_per_weight=bits, quantize_s=t_quant)
     return summary
+
+
+def run_calibrated_path(torch, registry, kernels, path_kernels) -> dict:
+    """LLaMA-7B quantized with calibrated PTQ1.61 at the serve defaults
+    of ``repro_torch.launch.serve`` (4 segments of 64 tokens, 3 epochs,
+    ratio 0.2, multiple 16, min dim 32), then served."""
+    from repro_torch.core.pipeline import quantize_model_ptq161
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch.serve import parse_args
+    from repro_torch.models import model as M
+
+    d = parse_args([])
+    qcfg = QuantConfig(ratio=d.ratio, multiple=d.multiple, steps=d.opt_steps)
+    cfg = llama_7b(registry)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    calib = [{"tokens": torch.from_numpy(t).to("cuda")} for t, _ in
+             corpus.batches(1, d.calib_seq, d.calib_segments,
+                            split="calib")]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_model_ptq161(cfg, params, calib, qcfg,
+                                    min_dim=d.min_dim,
+                                    attn_chunk=d.attn_chunk,
+                                    block_losses=losses)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    print(f"[calibrated] {len(losses)} blocks quantized in {t_quant:.1f}s "
+          f"(block losses computed before and after learning included); "
+          f"Eq.-7 loss first block {losses[0][0]:.6f} -> "
+          f"{losses[0][1]:.6f}, last block {losses[-1][0]:.6f} -> "
+          f"{losses[-1][1]:.6f}", flush=True)
+    for name, (before, after) in (("first", losses[0]),
+                                  ("last", losses[-1])):
+        if not after <= before:
+            _fail(f"calibrated: learning raised the {name} block's loss "
+                  f"({before} -> {after})")
+    bits = check_bits(qparams, "calibrated")
+    summary = serve_prompts(torch, cfg, qparams, kernels, path_kernels,
+                            "calibrated")
+    summary.update(
+        bits_per_weight=bits, quantize_s=t_quant,
+        calibration={"segments": d.calib_segments, "seq": d.calib_seq,
+                     "steps": d.opt_steps, "ratio": d.ratio,
+                     "multiple": d.multiple,
+                     "reduced": "4 synthetic segments x 64 tokens, 3 "
+                                "epochs (the paper: 128 x 2048 WikiText2 "
+                                "tokens, 20 epochs)"},
+        block_loss_first=losses[0], block_loss_last=losses[-1],
+        blocks_improved=sum(a <= b for b, a in losses),
+        blocks=len(losses))
+    return summary
+
+
+def _entry(name, replaces, checked, rows, launches, shape):
+    """One kernel's entry of the ``kernels`` line: max error over every
+    shape ``checked``, times summed over ``rows``, launches per path."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": sum(n[name] for n in launches.values()),
+            "launches_by_path": {p: n[name] for p, n in launches.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "shape": shape}
 
 
 def main() -> int:
@@ -484,65 +716,79 @@ def main() -> int:
                 print(f"[ptxas] {src}: {line.strip()}", flush=True)
 
     from repro_torch.configs import registry
-    from repro_torch.kernels import mixed_matmul, paged_attention, \
-        paged_prefill
+    from repro_torch.kernels import (binary_matmul, int4_matmul,
+                                     mixed_matmul, paged_attention,
+                                     paged_prefill)
     kernels = {"mixed_matmul": mixed_matmul.KERNEL,
                "paged_attention": paged_attention.KERNEL,
-               "paged_prefill": paged_prefill.KERNEL}
+               "paged_prefill": paged_prefill.KERNEL,
+               "binary_matmul": binary_matmul.KERNEL,
+               "int4_matmul": int4_matmul.KERNEL}
+    # the serving path's kernels; binary_matmul and int4_matmul are ops
+    # exports that no path of the system calls (as in the JAX package)
+    path_kernels = ("mixed_matmul", "paged_attention", "paged_prefill")
 
     # -- 3. kernels against their plain versions --------------------------
     cfg = registry.get("llama-7b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
-    mm = check_mixed_matmul(torch, cfg, timer, peaks, gen)
+    projs = llama_projections(torch, cfg, gen)
+    mm = check_mixed_matmul(torch, projs, timer, peaks, gen)
     print("[mixed_matmul] " + json.dumps(mm), flush=True)
     pa = check_paged_attention(torch, cfg, timer, peaks, gen)
     print("[paged_attention] " + json.dumps(pa), flush=True)
     pf = check_paged_prefill(torch, cfg, timer, peaks, gen)
     print("[paged_prefill] " + json.dumps(pf), flush=True)
+    spans = check_spans(torch, projs, timer, peaks,
+                        torch.Generator(device="cuda").manual_seed(1))
+    for name, rows in spans.items():
+        print(f"[{name}] (tolerance rtol {MM_RTOL}, atol {MM_ATOL}) "
+              + json.dumps(rows), flush=True)
+    del projs, timer
 
     # -- 4. small-input agreement, card against CPU -----------------------
     worst = check_small_reference(torch, registry)
     print(f"[reference] reduced llama-7b, f32: card vs CPU logits agree "
           f"to {worst:.2e} (relative, limit {REF_RTOL})", flush=True)
+    cal = check_small_calibrated(torch, registry)
+    print("[reference] reduced llama-7b (2 layers), f32, calibrated on the "
+          "card and on the CPU: perm and packed bytes equal; "
+          + json.dumps(cal), flush=True)
 
-    # -- 5. the main path --------------------------------------------------
-    summary = run_main_path(torch, registry, kernels)
+    # -- 5. the data-free main path ---------------------------------------
+    summary = run_main_path(torch, registry, kernels, path_kernels)
     print("[main] " + json.dumps(summary), flush=True)
-    launches = summary["launches"]
 
-    # -- 6. the kernels line and the result --------------------------------
+    # -- 6. the calibrated path ---------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cal_summary = run_calibrated_path(torch, registry, kernels, path_kernels)
+    print("[calibrated] " + json.dumps(cal_summary), flush=True)
+
+    # -- 7. the kernels line and the result --------------------------------
+    launches = {"datafree": summary["launches"],
+                "calibrated": cal_summary["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
+    bm = spans["binary_matmul"]
+    im = spans["int4_matmul"]
     entries = [
-        {"name": "mixed_matmul", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/mixed_matmul.cu",
-         "replaces": "src/repro/kernels/mixed_matmul.py:158",
-         "launches": launches["mixed_matmul"],
-         "max_abs_err": max(r["max_abs_err"] for r in mm),
-         "ms": sum(r["ms"] for r in decode_mm),
-         "plain_ms": sum(r["plain_ms"] for r in decode_mm),
-         "bound_ms": sum(r["bound_ms"] for r in decode_mm),
-         "bound_by": "bytes" if all(r["bound_by"] == "bytes"
-                                    for r in decode_mm) else "operations",
-         "library_ms": sum(r["library_ms"] for r in decode_mm),
-         "shape": "one decode layer at M=8: wqkv+wgu+wo+wd"},
-        {"name": "paged_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-         "replaces": "src/repro/kernels/paged_attention.py:245",
-         "launches": launches["paged_attention"],
-         "max_abs_err": pa["max_abs_err"], "ms": pa["ms"],
-         "plain_ms": pa["plain_ms"], "bound_ms": pa["bound_ms"],
-         "bound_by": pa["bound_by"], "library_ms": pa["library_ms"],
-         "shape": "B=8 hkv=32 dh=128 ps=16, lens up to 1000"},
-        {"name": "paged_prefill", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/paged_prefill.cu",
-         "replaces": "src/repro/kernels/paged_prefill.py:258",
-         "launches": launches["paged_prefill"],
-         "max_abs_err": max(r["max_abs_err"] for r in pf),
-         "ms": pf[0]["ms"], "plain_ms": pf[0]["plain_ms"],
-         "bound_ms": pf[0]["bound_ms"], "bound_by": pf[0]["bound_by"],
-         "library_ms": pf[0]["library_ms"],
-         "shape": "C=64 over 192 context tokens, hkv=32 dh=128"},
+        _entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:158",
+               mm, decode_mm, launches,
+               "one decode layer at M=8: wqkv+wgu+wo+wd"),
+        _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",
+               [pa], [pa], launches,
+               "B=8 hkv=32 dh=128 ps=16, lens up to 1000"),
+        _entry("paged_prefill", "src/repro/kernels/paged_prefill.py:258",
+               pf, pf[:1], launches,
+               "C=64 over 192 context tokens, hkv=32 dh=128"),
+        _entry("binary_matmul", "src/repro/kernels/binary_matmul.py:75",
+               bm, [r for r in bm if r["M"] == 8], launches,
+               "M=8: binary spans of wqkv (K=3280, N=12288) + wd "
+               "(K=8800, N=4096); off the serving path"),
+        _entry("int4_matmul", "src/repro/kernels/int4_matmul.py:61",
+               im, [r for r in im if r["M"] == 8], launches,
+               "M=8: int4 spans of wqkv (K=816, N=12288) + wd "
+               "(K=2208, N=4096); off the serving path"),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,10 @@
 
 Per input channel asymmetric min/max quantization: one scale and one
 zero-point per salient channel.  q = clamp(round(w/s) + z, 0, 15);
-``torch.round`` rounds half to even, as ``jnp.round`` does.
+``torch.round`` rounds half to even, as ``jnp.round`` does.  Every
+division has a tensor divisor on the weight's device: PyTorch's CUDA
+division by a Python scalar multiplies by its reciprocal, which can
+land one ulp away from the true quotient and flip a code.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ def quantize_int4(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     wf = w.to(torch.float32)
     wmin = torch.amin(wf, dim=-1)
     wmax = torch.amax(wf, dim=-1)
-    scale = torch.clamp_min((wmax - wmin) / QMAX, 1e-8)
+    scale = torch.clamp_min((wmax - wmin) / torch.full_like(wmax, QMAX),
+                            1e-8)
     zero = torch.clamp(torch.round(-wmin / scale), 0, QMAX)
     q = torch.clamp(torch.round(wf / scale[..., None]) + zero[..., None],
                     0, QMAX)

@@ -18,7 +18,16 @@ gather.  :meth:`QLinear.__matmul_x__` goes through
 ``repro_torch.kernels.ops.mixed_matmul``: the CUDA kernel on a CUDA
 tensor (the gather happens inside the kernel), its plain PyTorch version
 on a CPU tensor.  :meth:`QLinear.__matmul_permuted__` is the dequantize-
-then-matmul path in the activation dtype, kept as an oracle.
+then-matmul path in the activation dtype, kept as an oracle; it runs
+through the QLinear's :class:`DequantView`.
+
+Scale learning (``core.blockwise``) needs gradients with respect to the
+α's, which the CUDA kernel does not give.  It runs on a
+:class:`DequantView` instead (:meth:`QLinear.dequant_view`): the int4
+matrix and the signs dequantized once, and the reference's
+``__matmul_permuted__`` product over them, in plain differentiable
+tensor code.  Only the calibration pipeline builds such views; what it
+returns, and what serving runs, are ``QLinear``s.
 
 :class:`QLinearGroup` stores several same-input projections (QKV,
 gate+up) as one quantized matrix concatenated along N, sharing one
@@ -37,11 +46,15 @@ from repro_torch.core import binarize, int4, pack, saliency as sal
 
 @dataclass(frozen=True)
 class QuantConfig:
-    """PTQ1.61 hyper-parameters (paper §4.1 defaults) used by the
-    data-free path."""
+    """PTQ1.61 hyper-parameters (paper §4.1 defaults)."""
 
     ratio: float = 0.2            # salient input-channel fraction
     multiple: int = 128           # k_s rounding
+    steps: int = 20               # block-wise optimization epochs
+    lr: float = 5e-4              # AdamW lr for scales (paper: 5e-4 / 1e-3)
+    lr_r: float = 1e-3            # lr for angular factors
+    cosine_loss: bool = True      # D_NLC term (Eq. 5-6)
+    learn_scales: bool = True     # Table-3 "Learnable Scalar" toggle
 
 
 FIELDS = ("perm", "w4", "s4", "z4", "bits", "alpha_s", "alpha_r1",
@@ -96,12 +109,54 @@ class QLinear:
     def __matmul_permuted__(self, xp: torch.Tensor) -> torch.Tensor:
         """Dequantize-then-matmul over already salient-first activations,
         in the activation dtype (the oracle path)."""
+        return self.dequant_view(xp.dtype).__matmul_permuted__(xp)
+
+    def dequant_view(self, dtype) -> "DequantView":
+        """The differentiable view for scale learning, with the int4
+        matrix and the signs dequantized once in ``dtype``."""
+        return DequantView(
+            self.perm, self.dequant_salient(dtype),
+            pack.unpack_bits(self.bits, axis=-2, dtype=dtype),
+            self.alpha_s, self.alpha_r1, self.alpha_r2, k_s=self.k_s)
+
+
+@dataclass
+class DequantView:
+    """A QLinear's forward over fixed dequantized weights with free α's:
+    ``x[.., perm]`` split at k_s, ``y = x_s @ w4deq + ((x_b·α_r2) @
+    sign)·(α_s·α_r1)`` in the dtype of ``w4deq``, as the reference's
+    ``QLinear.__matmul_permuted__`` computes it.  Gradients flow to the
+    α's through ordinary tensor ops."""
+
+    perm: torch.Tensor
+    w4deq: torch.Tensor           # (k_s, N) in the activation dtype
+    sign: torch.Tensor            # (k_b, N) ±1 in the activation dtype
+    alpha_s: torch.Tensor
+    alpha_r1: torch.Tensor
+    alpha_r2: torch.Tensor
+    k_s: int
+
+    def __matmul_x__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.__matmul_permuted__(x[..., self.perm.long()])
+
+    def __matmul_permuted__(self, xp: torch.Tensor) -> torch.Tensor:
         xs, xb = xp[..., :self.k_s], xp[..., self.k_s:]
-        y4 = xs @ self.dequant_salient(xp.dtype)
-        sign = pack.unpack_bits(self.bits, axis=-2, dtype=xp.dtype)
-        yb = (xb * self.alpha_r2.to(xp.dtype)) @ sign
-        yb = yb * (self.alpha_s * self.alpha_r1).to(xp.dtype)
-        return y4 + yb
+        y4 = xs @ self.w4deq.to(xp.dtype)
+        yb = (xb * self.alpha_r2.to(xp.dtype)) @ self.sign.to(xp.dtype)
+        return y4 + yb * (self.alpha_s * self.alpha_r1).to(xp.dtype)
+
+
+def scale_params(q) -> dict:
+    """The learnable subset for block-wise optimization (Eq. 7 argmin)
+    of a QLinear or its DequantView."""
+    return {"alpha_s": q.alpha_s, "alpha_r1": q.alpha_r1,
+            "alpha_r2": q.alpha_r2}
+
+
+def with_scales(q, s: dict):
+    return dataclasses.replace(q, alpha_s=s["alpha_s"],
+                               alpha_r1=s["alpha_r1"],
+                               alpha_r2=s["alpha_r2"])
 
 
 def quantize_linear(w: torch.Tensor, act_stat: Optional[torch.Tensor],

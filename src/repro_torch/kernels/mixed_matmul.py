@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel, I, P
+from repro_torch.kernels.build import CudaKernel, I, P, check_operands
 
 KERNEL = CudaKernel("mixed_matmul.cu", "mixed_matmul_launch",
                     [P] * 10 + [I] * 4 + [P])
@@ -31,28 +31,18 @@ def mixed_matmul(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
     if x.device.type == "cpu":
         return ref.mixed_matmul_ref(x, w4, s4, z4, bits, alpha_s, alpha_r1,
                                     alpha_r2, perm).to(torch.bfloat16)
-    m, k = x.shape
     k_s, n = w4.shape[0] * 2, bits.shape[1]
     k_b = bits.shape[0] * 8
-    _check(x.device.type == "cuda", f"unsupported device {x.device}")
-    _check(x.dtype == torch.bfloat16, f"x must be bf16, got {x.dtype}")
+    check_operands("mixed_matmul", x, {"w4": w4, "bits": bits},
+                   {"s4": (s4, k_s), "z4": (z4, k_s), "alpha_s": (alpha_s, n),
+                    "alpha_r1": (alpha_r1, n), "alpha_r2": (alpha_r2, k_b)})
+    m, k = x.shape
     _check(k_s + k_b == k, f"k_s+k_b={k_s}+{k_b} != K={k}")
-    _check(w4.dtype == torch.uint8 and bits.dtype == torch.uint8,
-           "packed weights must be uint8")
     _check(w4.shape[1] == n or k_s == 0, "w4 and bits disagree on N")
-    for name, t, size in (("s4", s4, k_s), ("z4", z4, k_s),
-                          ("alpha_s", alpha_s, n), ("alpha_r1", alpha_r1, n),
-                          ("alpha_r2", alpha_r2, k_b)):
-        _check(t.dtype == torch.float32 and tuple(t.shape) == (size,),
-               f"{name} must be f32 ({size},)")
     if perm is not None:
-        _check(perm.dtype == torch.int32 and tuple(perm.shape) == (k,),
-               "perm must be int32 (K,)")
-    tensors = (x, w4, s4, z4, bits, alpha_s, alpha_r1, alpha_r2) + (
-        () if perm is None else (perm,))
-    for t in tensors:
-        _check(t.is_contiguous() and t.device == x.device,
-               "all operands must be contiguous on one device")
+        _check(perm.dtype == torch.int32 and tuple(perm.shape) == (k,)
+               and perm.is_contiguous() and perm.device == x.device,
+               "perm must be contiguous int32 (K,) on x's device")
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return y

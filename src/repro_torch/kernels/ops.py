@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.binary_matmul import binary_matmul
+from repro_torch.kernels.int4_matmul import int4_matmul
 from repro_torch.kernels.mixed_matmul import mixed_matmul as _mixed
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill
@@ -25,4 +27,5 @@ def mixed_matmul(x: torch.Tensor, q) -> torch.Tensor:
     return y.reshape(lead + (q.n,)).to(x.dtype)
 
 
-__all__ = ["mixed_matmul", "paged_attention", "paged_prefill"]
+__all__ = ["binary_matmul", "int4_matmul", "mixed_matmul",
+           "paged_attention", "paged_prefill"]

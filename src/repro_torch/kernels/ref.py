@@ -8,6 +8,11 @@ held against.
 * ``mixed_matmul_ref`` — the fused PTQ1.61 linear: bf16 operands, int4
   weights dequantized in f32 and rounded to bf16, ``x_b·α_r2`` in f32
   rounded to bf16, f32 accumulation.
+* ``binary_matmul_ref`` — its binary span alone: ``x·α_in`` in f32
+  rounded to bf16, a dot with ±1 into an f32 accumulator, times
+  ``α_out``; returned in x.dtype.
+* ``int4_matmul_ref`` — its int4 span alone: ``(q−z)·s`` in f32 rounded
+  to bf16, x rounded to bf16, f32 accumulation; returned in x.dtype.
 * ``paged_attention_ref`` — the dense-gather read of
   ``repro.models.layers.attention_decode_paged``: gather each slot's
   pages, mask by implied key positions, softmax, cast the weights to the
@@ -48,6 +53,27 @@ def mixed_matmul_ref(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
     sign = pack.unpack_bits(bits, axis=-2, dtype=torch.float32)
     yb = xb.to(torch.float32) @ sign
     return y4 + yb * (alpha_s * alpha_r1)[None, :]
+
+
+def binary_matmul_ref(x: torch.Tensor, bits: torch.Tensor,
+                      alpha_out: torch.Tensor, alpha_in: torch.Tensor
+                      ) -> torch.Tensor:
+    """x (M, K); bits (K/8, N) u8; alpha_out (N,), alpha_in (K,) f32 ->
+    (M, N) in x.dtype (an f32 x yields the f32 accumulator)."""
+    xb = (x.to(torch.float32) * alpha_in[None, :]).to(torch.bfloat16)
+    sign = pack.unpack_bits(bits, axis=-2, dtype=torch.float32)
+    y = xb.to(torch.float32) @ sign
+    return (y * alpha_out[None, :]).to(x.dtype)
+
+
+def int4_matmul_ref(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
+                    z4: torch.Tensor) -> torch.Tensor:
+    """x (M, K); w4 (K/2, N) u8 nibbles; s4, z4 (K,) f32 per input
+    channel -> (M, N) in x.dtype."""
+    q = pack.unpack_nibbles(w4, axis=-2, dtype=torch.float32)
+    w = ((q - z4[:, None]) * s4[:, None]).to(torch.bfloat16)
+    y = x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
+    return y.to(x.dtype)
 
 
 def _softcap(s: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:

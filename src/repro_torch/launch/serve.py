@@ -1,9 +1,17 @@
-"""Serving launcher of the port: quantize a model with data-free PTQ1.61
-and serve a stream of requests through the paged, chunked-prefill
-engine.
+"""Serving launcher of the port: quantize a model with PTQ1.61 and serve
+a stream of requests through the paged, chunked-prefill engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \\
         --quantize datafree --fused --paged --chunked-prefill
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \\
+        --quantize calibrated --paged --chunked-prefill
+
+``--quantize datafree`` ranks channels by |w| with analytic scales;
+``--quantize calibrated`` runs the paper's method on
+``--calib-segments`` synthetic segments of ``--calib-seq`` tokens
+(activation-driven mask, ``--opt-steps`` epochs of block-wise scale
+learning) and serves one unfused packed projection per weight;
+``--fused`` is ignored for it, as in ``repro.launch.serve``.
 
 Runs on the GPU (``--device cuda``, the default) and raises when CUDA is
 absent; ``--device cpu`` runs the same path with the kernels' plain
@@ -27,7 +35,8 @@ import torch
 
 from repro_torch.configs import registry
 from repro_torch.core.bits import model_bits
-from repro_torch.core.pipeline import quantize_params_data_free
+from repro_torch.core.pipeline import (quantize_model_ptq161,
+                                       quantize_params_data_free)
 from repro_torch.core.qlinear import QuantConfig
 from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
 from repro_torch.models import model as M
@@ -46,13 +55,26 @@ def run(args) -> dict:
     params = M.init_params(cfg, args.seed, device)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=args.seed))
 
+    qcfg = QuantConfig(ratio=args.ratio, multiple=args.multiple,
+                       steps=args.opt_steps)
     t0 = time.time()
     if args.quantize == "none":
         qparams = params
+    elif args.quantize == "calibrated":
+        if args.fused:
+            print("[warn] --fused ignored for calibrated quantization "
+                  "(per-projection QLinears cannot be fused post-hoc)")
+        calib = [{"tokens": torch.from_numpy(t).to(device)} for t, _ in
+                 corpus.batches(1, args.calib_seq, args.calib_segments,
+                                split="calib")]
+        qparams = quantize_model_ptq161(cfg, params, calib, qcfg,
+                                        min_dim=args.min_dim,
+                                        attn_chunk=args.attn_chunk)
+        del params
     else:
-        qparams = quantize_params_data_free(
-            params, QuantConfig(ratio=0.2, multiple=16), min_dim=32,
-            fuse=args.fused)
+        qparams = quantize_params_data_free(params, qcfg,
+                                            min_dim=args.min_dim,
+                                            fuse=args.fused)
         del params
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -108,11 +130,24 @@ def parse_args(argv=None):
     p.add_argument("--arch", default="tiny-lm")
     p.add_argument("--reduced", action="store_true")
     p.add_argument("--quantize", default="datafree",
-                   choices=["none", "datafree"])
+                   choices=["none", "datafree", "calibrated"])
     p.add_argument("--fused", action="store_true",
                    help="N-fuse QKV / gate+up projections: fused packed "
                         "layouts for data-free quantization, fp concat "
-                        "fusion for --quantize none")
+                        "fusion for --quantize none (ignored for "
+                        "calibrated)")
+    p.add_argument("--ratio", type=float, default=0.2,
+                   help="salient input-channel fraction")
+    p.add_argument("--multiple", type=int, default=16,
+                   help="salient channel count rounding")
+    p.add_argument("--min-dim", type=int, default=32,
+                   help="smallest input dim that is quantized")
+    p.add_argument("--opt-steps", type=int, default=3,
+                   help="block-wise scale learning epochs (calibrated)")
+    p.add_argument("--calib-segments", type=int, default=4)
+    p.add_argument("--calib-seq", type=int, default=64)
+    p.add_argument("--attn-chunk", type=int, default=1024,
+                   help="key chunk of the calibration forward's attention")
     p.add_argument("--paged", action="store_true",
                    help="paged KV cache (required)")
     p.add_argument("--page-size", type=int, default=16)

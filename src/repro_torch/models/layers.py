@@ -1,7 +1,7 @@
-"""Transformer layers for the paged serving path (subset of
-``repro.models.layers``): norms, RoPE, the fused QKV projection, the
-gated MLP, and paged decode / chunked-prefill attention over the shared
-KV page pool.
+"""Transformer layers (subset of ``repro.models.layers``): norms, RoPE,
+the fused QKV projection, the gated MLP, full-sequence self-attention
+(the calibration forward), and paged decode / chunked-prefill attention
+over the shared KV page pool.
 
 All linear weights are (in_features, out_features) and every matmul
 goes through :func:`repro_torch.models.linear.dense`, so packed
@@ -24,6 +24,7 @@ from repro_torch.models.linear import dense
 from repro_torch.models.param import P
 
 Tree = Any
+NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
@@ -117,6 +118,88 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention (plain PyTorch, as the reference leaves it to XLA)
+# ---------------------------------------------------------------------------
+def _attend(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
+    """q (B, Sq, hq, dh), k/v (B, Sk, hkv, dh), mask (B or 1, Sq, Sk)
+    bool -> (B, Sq, hq, dh) f32.  Scores and softmax in f32; the weights
+    are cast to the V dtype before PV, with f32 sums."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    rep = hq // hkv
+    qr = q.reshape(b, sq, hkv, rep, dh).to(torch.float32)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qr, k.to(torch.float32))
+    s = s / math.sqrt(dh)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1).to(v.dtype).to(torch.float32)
+    o = torch.einsum("bhrqk,bkhd->bqhrd", w, v.to(torch.float32))
+    return o.reshape(b, sq, hq, dh)
+
+
+def _attend_chunked(q, k, v, q_pos, kv_pos, causal: bool,
+                    window: Optional[int], softcap: Optional[float],
+                    chunk: int) -> torch.Tensor:
+    """Streaming softmax over KV chunks of ``chunk`` keys (O(Sq·chunk)
+    memory).  Positions (B, Sq) / (B, Sk) int32; masking is positional,
+    and position -1 marks padding."""
+    b, sq, hq, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    if sk % chunk:
+        raise ValueError(f"key length {sk} is not a multiple of {chunk}")
+    qf = q.to(torch.float32).reshape(b, sq, hkv, rep, dh) / math.sqrt(dh)
+    m = torch.full((b, hkv, rep, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, rep, sq), device=q.device)
+    acc = torch.zeros((b, hkv, rep, sq, dh), device=q.device)
+    for c0 in range(0, sk, chunk):
+        kb = k[:, c0:c0 + chunk].to(torch.float32)
+        vb = v[:, c0:c0 + chunk].to(torch.float32)
+        pb = kv_pos[:, None, c0:c0 + chunk]
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qf, kb)
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        valid = pb <= q_pos[:, :, None] if causal else pb >= 0
+        valid = valid & (pb >= 0)
+        if window is not None:
+            valid = valid & (q_pos[:, :, None] - pb < window)
+        s = torch.where(valid[:, None, None, :, :], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", p,
+                                                   vb)
+        m = m_new
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
+
+
+def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                   positions: torch.Tensor, *, causal: bool = True,
+                   window: Optional[int] = None,
+                   attn_chunk: int = 1024) -> torch.Tensor:
+    """Self-attention over a whole sequence (the calibration forward).
+    x (B, S, D), positions (B, S) int32.  Sequences longer than
+    ``attn_chunk`` that it divides stream over key chunks."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    sk = k.shape[1]
+    if sk > attn_chunk and sk % attn_chunk == 0:
+        o = _attend_chunked(q, k, v, positions, positions, causal, window,
+                            cfg.logit_softcap, attn_chunk)
+    else:
+        qp, kp = positions[:, :, None], positions[:, None, :]
+        mask = kp <= qp if causal else torch.ones_like(kp <= qp)
+        mask = mask & (kp >= 0)
+        if window is not None:
+            mask = mask & (qp - kp < window)
+        o = _attend(q, k, v, mask, cfg.logit_softcap)
+    o = o.to(x.dtype).reshape(x.shape[:-1] + (-1,))
+    return dense(o, p["wo"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Transformer assembly for the paged serving path (dense subset of
-``repro.models.transformer``).
+"""Transformer assembly (dense subset of ``repro.models.transformer``):
+the full-sequence block forward of calibration, and the paged serving
+path.
 
 A stage's parameters are a list over its layers, each a tuple over the
 stage's block pattern.  Depth is a Python loop; the page pools
@@ -78,6 +79,23 @@ def fuse_params_for_decode(params: Tree) -> Tree:
 
 def _kind_window(cfg: ArchConfig, kind: str) -> Optional[int]:
     return cfg.attn_window if kind == "dense" else None
+
+
+# ---------------------------------------------------------------------------
+# Full sequence (calibration)
+# ---------------------------------------------------------------------------
+def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
+               positions: torch.Tensor, *, causal: bool = True,
+               attn_chunk: int = 1024) -> torch.Tensor:
+    """One block over a whole sequence: x (B, S, D), positions (B, S)
+    -> x + attention, then + MLP."""
+    _check_kind(kind)
+    h = L.attention_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
+                         positions, causal=causal,
+                         window=_kind_window(cfg, kind),
+                         attn_chunk=attn_chunk)
+    x = x + h
+    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,9 @@ that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: mixed_matmul rtol 2^-7, atol 1e-3 (both sides round the
-operands alike and accumulate in f32; the kernel rounds its output once
-to bf16).  Attention in f32 pools: 1e-4 (online softmax over key tiles
+Tolerances: mixed_matmul, binary_matmul and int4_matmul rtol 2^-7,
+atol 1e-3 (both sides round the operands alike and accumulate in f32;
+the kernel rounds its output once to bf16).  Attention in f32 pools: 1e-4 (online softmax over key tiles
 against the dense softmax); pool bytes exact except the dump page.
 """
 import numpy as np
@@ -17,6 +17,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.qlinear import QuantConfig, quantize_linear  # noqa: E402
+from repro_torch.kernels import binary_matmul as tbm  # noqa: E402
+from repro_torch.kernels import int4_matmul as tim  # noqa: E402
 from repro_torch.kernels import mixed_matmul as tmm  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
 from repro_torch.kernels import paged_prefill as tpf  # noqa: E402
@@ -56,6 +58,73 @@ def test_mixed_matmul_matches_plain(cuda, k, n, ratio):
         torch.testing.assert_close(
             tmm.mixed_matmul(xp, *args[1:]).float(),
             ref.mixed_matmul_ref(xp, *args[1:]), rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("k,n", [(64, 32), (3280, 200), (8800, 64),
+                                 (1000, 130)])
+def test_binary_matmul_matches_plain(cuda, k, n):
+    g = torch.Generator().manual_seed(k + n)
+    bits = torch.randint(0, 256, (k // 8, n), generator=g,
+                         dtype=torch.uint8).to(cuda)
+    a_out = (0.01 + torch.rand(n, generator=g)).to(cuda)
+    a_in = (0.5 + torch.rand(k, generator=g)).to(cuda)
+    for m in (1, 3, 8, 20, 64):
+        x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
+        before = tbm.KERNEL.launches
+        y = tbm.binary_matmul(x, bits, a_out, a_in)
+        assert tbm.KERNEL.launches == before + 1
+        assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+        torch.testing.assert_close(
+            y.float(), ref.binary_matmul_ref(x.float(), bits, a_out, a_in),
+            rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("k,n", [(64, 32), (816, 200), (2208, 64),
+                                 (1002, 130)])
+def test_int4_matmul_matches_plain(cuda, k, n):
+    g = torch.Generator().manual_seed(k + n)
+    w4 = torch.randint(0, 256, (k // 2, n), generator=g,
+                       dtype=torch.uint8).to(cuda)
+    s4 = (0.001 + 0.01 * torch.rand(k, generator=g)).to(cuda)
+    z4 = torch.randint(0, 16, (k,), generator=g).float().to(cuda)
+    for m in (1, 3, 8, 20, 64):
+        x = torch.randn(m, k, generator=g).to(torch.bfloat16).to(cuda)
+        before = tim.KERNEL.launches
+        y = tim.int4_matmul(x, w4, s4, z4)
+        assert tim.KERNEL.launches == before + 1
+        assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+        torch.testing.assert_close(
+            y.float(), ref.int4_matmul_ref(x.float(), w4, s4, z4),
+            rtol=2 ** -7, atol=1e-3)
+
+
+def test_span_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    bits = torch.zeros(8, 16, dtype=torch.uint8, device=cuda)
+    vec = torch.ones(64, device=cuda)
+    with pytest.raises(ValueError):        # f32 x: the kernel takes bf16
+        tbm.binary_matmul(torch.randn(2, 64, device=cuda), bits,
+                          torch.ones(16, device=cuda), vec)
+    with pytest.raises(ValueError):        # K of x does not match bits
+        tbm.binary_matmul(torch.randn(2, 72, device=cuda).to(torch.bfloat16),
+                          bits, torch.ones(16, device=cuda),
+                          torch.ones(72, device=cuda))
+    w4 = torch.zeros(32, 16, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):        # f64 scales
+        tim.int4_matmul(torch.randn(2, 64, device=cuda).to(torch.bfloat16),
+                        w4, vec.double(), vec)
+
+
+def test_quantization_bytes_on_the_card_match_the_cpu(cuda):
+    """The int4 codes and scales come out of the same f32 arithmetic on
+    the card as on the CPU (true divisions, no reciprocal)."""
+    g = torch.Generator().manual_seed(11)
+    w = (torch.randn(2048, 384, generator=g) / 45).to(torch.bfloat16)
+    stat = torch.rand(2048, generator=g)
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    a = quantize_linear(w, stat, qcfg)
+    b = quantize_linear(w.to(cuda), stat.to(cuda), qcfg)
+    for f in ("perm", "w4", "bits", "s4", "z4"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
 
 
 def _attention_case(rng, *, b, hkv, rep, dh, ps, lens, freed=()):

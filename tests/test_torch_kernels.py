@@ -4,10 +4,10 @@ tests run them), and the shared index maps.  The CUDA kernels themselves
 are held against the plain versions in ``tests/test_torch_cuda.py``.
 
 Tolerances:
-  * mixed_matmul: rtol = atol = 1e-5 on the f32 accumulators.  Both
-    sides round the operands to bf16 the same way and accumulate in f32;
-    only the order of the sums differs, while one wrong nibble or sign
-    bit moves an output by about 0.1.
+  * mixed_matmul, binary_matmul, int4_matmul: rtol = atol = 1e-5 on the
+    f32 accumulators.  Both sides round the operands to bf16 the same
+    way and accumulate in f32; only the order of the sums differs, while
+    one wrong nibble or sign bit moves an output by about 0.1.
   * paged attention / prefill: f32 throughout, atol 1e-5 (the page-tile
     online softmax against the dense softmax differs by f32 rounding).
 """
@@ -18,14 +18,20 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import pack as rpack  # noqa: E402
 from repro.core import qlinear as rql  # noqa: E402
+from repro.kernels import ref as rref  # noqa: E402
+from repro.kernels.binary_matmul import binary_matmul as r_binary  # noqa: E402
+from repro.kernels.int4_matmul import int4_matmul as r_int4  # noqa: E402
 from repro.kernels import autotune as rautotune  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels.mixed_matmul import mixed_matmul as r_mixed  # noqa: E402
 from repro.kernels.paged_attention import kv_block_index as r_kv_index  # noqa: E402
 from repro.kernels.paged_prefill import ctx_block_index as r_ctx_index  # noqa: E402
 from repro_torch import bridge  # noqa: E402
+from repro_torch.kernels import binary_matmul as tbm  # noqa: E402
 from repro_torch.kernels import index as tidx  # noqa: E402
+from repro_torch.kernels import int4_matmul as tim  # noqa: E402
 from repro_torch.kernels import mixed_matmul as tmm  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import paged_attention as tpa  # noqa: E402
@@ -107,6 +113,110 @@ def test_mixed_matmul_cpu_tensor_takes_plain_version():
     y = tops.mixed_matmul(torch.randn(2, 64), tq)
     assert y.shape == (2, 32) and y.dtype == torch.float32
     assert tmm.KERNEL.launches == before
+
+
+# ---------------------------------------------------------------------------
+# binary_matmul and int4_matmul
+# ---------------------------------------------------------------------------
+def _bf16_values(rng, shape):
+    """f32 array holding bf16 values: both sides then return their f32
+    accumulators."""
+    return np.array(jnp.asarray(rng.normal(size=shape), jnp.bfloat16)
+                    .astype(jnp.float32))
+
+
+def _binary_case(rng, k, n, pow2):
+    signs = rng.choice([-1.0, 1.0], size=(k, n)).astype(np.float32)
+    bits = np.array(rpack.pack_bits(jnp.asarray(signs), axis=-2))
+    if pow2:
+        a_in = 2.0 ** rng.integers(-2, 3, k)
+    else:
+        a_in = rng.uniform(0.5, 2.0, k)
+    a_out = rng.uniform(0.5, 2.0, n)
+    return bits, a_out.astype(np.float32), a_in.astype(np.float32)
+
+
+def _int4_case(rng, k, n, pow2):
+    q = rng.integers(0, 16, size=(k, n)).astype(np.uint8)
+    w4 = np.array(rpack.pack_nibbles(jnp.asarray(q), axis=-2))
+    if pow2:
+        s4 = 2.0 ** rng.integers(-7, -3, k)
+    else:
+        s4 = rng.uniform(0.01, 0.1, k)
+    z4 = rng.integers(0, 16, k).astype(np.float32)
+    return w4, s4.astype(np.float32), z4
+
+
+SPAN_SHAPES = [(1, 64, 32), (5, 128, 48), (16, 256, 96)]
+
+
+@pytest.mark.parametrize("m,k,n", SPAN_SHAPES)
+def test_binary_matmul_plain_matches_repro_kernel(m, k, n):
+    rng = np.random.default_rng(m * 1000 + k)
+    x = _bf16_values(rng, (m, k))
+    bits, a_out, a_in = _binary_case(rng, k, n, pow2=False)
+    y_r = r_binary(jnp.asarray(x), jnp.asarray(bits), jnp.asarray(a_out),
+                   jnp.asarray(a_in), bm=m, bn=n, bk=k, interpret=True)
+    y_t = tbm.binary_matmul(*map(torch.from_numpy, (x, bits, a_out, a_in)))
+    assert y_t.dtype == torch.float32 and y_r.dtype == jnp.float32
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_r), rtol=MM_RTOL,
+                               atol=MM_ATOL)
+    # bf16 in, bf16 out: the accumulator rounded once
+    y_b = tbm.binary_matmul(torch.from_numpy(x).to(torch.bfloat16),
+                            *map(torch.from_numpy, (bits, a_out, a_in)))
+    assert torch.equal(y_b, y_t.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m,k,n", SPAN_SHAPES)
+def test_int4_matmul_plain_matches_repro_kernel(m, k, n):
+    rng = np.random.default_rng(m * 1000 + k + 1)
+    x = _bf16_values(rng, (m, k))
+    w4, s4, z4 = _int4_case(rng, k, n, pow2=False)
+    y_r = r_int4(jnp.asarray(x), jnp.asarray(w4), jnp.asarray(s4),
+                 jnp.asarray(z4), bm=m, bn=n, bk=k, interpret=True)
+    y_t = tim.int4_matmul(*map(torch.from_numpy, (x, w4, s4, z4)))
+    assert y_t.dtype == torch.float32 and y_r.dtype == jnp.float32
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_r), rtol=MM_RTOL,
+                               atol=MM_ATOL)
+    y_b = tim.int4_matmul(torch.from_numpy(x).to(torch.bfloat16),
+                          *map(torch.from_numpy, (w4, s4, z4)))
+    assert torch.equal(y_b, y_t.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("m,k,n", SPAN_SHAPES)
+def test_span_plain_versions_match_repro_refs(m, k, n):
+    """``repro``'s refs skip the kernels' bf16 rounding of x·α_in and of
+    (q−z)·s.  With power-of-two α_in and s those products are exact in
+    bf16, so the two agree to summation order."""
+    rng = np.random.default_rng(m * 1000 + k + 2)
+    x = _bf16_values(rng, (m, k))
+    bits, a_out, a_in = _binary_case(rng, k, n, pow2=True)
+    np.testing.assert_allclose(
+        tref.binary_matmul_ref(*map(torch.from_numpy,
+                                    (x, bits, a_out, a_in))).numpy(),
+        np.asarray(rref.binary_matmul_ref(*map(jnp.asarray,
+                                               (x, bits, a_out, a_in)))),
+        rtol=MM_RTOL, atol=MM_ATOL)
+    w4, s4, z4 = _int4_case(rng, k, n, pow2=True)
+    np.testing.assert_allclose(
+        tref.int4_matmul_ref(*map(torch.from_numpy, (x, w4, s4, z4))).numpy(),
+        np.asarray(rref.int4_matmul_ref(*map(jnp.asarray, (x, w4, s4, z4)))),
+        rtol=MM_RTOL, atol=MM_ATOL)
+
+
+def test_span_kernels_are_ops_exports_and_cpu_takes_plain_version():
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_bf16_values(rng, (3, 64)))
+    bits, a_out, a_in = map(torch.from_numpy, _binary_case(rng, 64, 16,
+                                                           False))
+    w4, s4, z4 = map(torch.from_numpy, _int4_case(rng, 64, 16, False))
+    before = (tbm.KERNEL.launches, tim.KERNEL.launches)
+    assert torch.equal(tops.binary_matmul(x, bits, a_out, a_in),
+                       tref.binary_matmul_ref(x, bits, a_out, a_in))
+    assert torch.equal(tops.int4_matmul(x, w4, s4, z4),
+                       tref.int4_matmul_ref(x, w4, s4, z4))
+    assert (tbm.KERNEL.launches, tim.KERNEL.launches) == before
+    assert {"binary_matmul", "int4_matmul"} <= set(tops.__all__)
 
 
 # ---------------------------------------------------------------------------
