@@ -12,7 +12,11 @@ Phases, each of which raises on failure:
    LLaMA-7B shapes, with the tolerances stated below, and time it beside
    its plain version, a yardstick PyTorch call and its bound
    (``binary_matmul`` and ``int4_matmul`` at the binary and int4 spans
-   of the fused QKV and of the down projection);
+   of the fused QKV and of the down projection); hold the packed matmul
+   at ragged and one-sided shapes too, check that a repeated call gives
+   the same bits, print the host time of one call beside
+   ``torch.matmul``'s and the device time of each kernel a call
+   launches (gather, matmul, fold);
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
    gives the same logits within tolerance; and the calibrated pipeline
@@ -21,11 +25,14 @@ Phases, each of which raises on failure:
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
-   kernel of the path must have launched in that run;
+   kernel of the path must have launched in that run; then a few more
+   decode steps under ``torch.profiler``, whose kernel time over wall
+   time is the device-busy share of a decode step;
 6. the calibrated path: the same model quantized with calibrated
    PTQ1.61 at ``repro_torch.launch.serve``'s defaults (Eq.-7 block loss
-   before and after learning, which must not rise), then served the same
-   way through the unfused packed projections;
+   before and after learning, which must not rise), its first layer's 7
+   unfused projections held against the plain version and timed beside
+   the fused layer, then served the same way;
 7. print the ``kernels`` JSON line, then the result line.
 
 It exits non-zero without CUDA, and when run outside a checkout of the
@@ -95,18 +102,21 @@ def peaks_for(name: str):
 # ---------------------------------------------------------------------------
 class Timer:
     """Per-launch CUDA-event timing with the L2 cache flushed before
-    each launch (the main path finds its weights and pages cold)."""
+    each launch (the main path finds its weights and pages cold); the
+    median of ``iters`` launches.  The flush writes 512 MB, which keeps
+    the card busy for longer than the host takes to enqueue the timed
+    call, so the events time the card's work and not the host's."""
 
     def __init__(self, torch, iters: int = 20):
         self.torch = torch
         self.iters = iters
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
 
     def ms(self, fn) -> float:
         torch = self.torch
         for _ in range(3):
             fn()
-        total = 0.0
+        times = []
         for _ in range(self.iters):
             self.flush.zero_()
             e0 = torch.cuda.Event(enable_timing=True)
@@ -115,8 +125,9 @@ class Timer:
             fn()
             e1.record()
             e1.synchronize()
-            total += e0.elapsed_time(e1)
-        return total / self.iters
+            times.append(e0.elapsed_time(e1))
+        times.sort()
+        return 0.5 * (times[(self.iters - 1) // 2] + times[self.iters // 2])
 
 
 def bound_ms(nbytes: float, flops: float, peaks):
@@ -186,6 +197,170 @@ def check_mixed_matmul(torch, projs, timer, peaks, gen):
                 bound_ms=b, bound_by=by, bytes=nbytes)
             del dense
             rows.append(row)
+    return rows
+
+
+# Ragged and one-sided shapes the packing allows: (K, N, k_s) with k_s
+# even and k_b a multiple of 8, spans not multiples of the 16-channel
+# k-step, N not a multiple of 16, and empty spans.
+RAGGED = [(1032, 130, 208), (256, 96, 48), (4096, 200, 816), (128, 40, 24),
+          (64, 32, 0), (64, 32, 64), (8, 16, 0), (2, 16, 2), (3286, 130, 6)]
+
+
+def _packed_operands(torch, gen, k, n, k_s):
+    """Random packed operands of a (K, N) projection with k_s int4
+    channels (either span may be empty), and a permutation."""
+    k_b = k - k_s
+    u8 = dict(dtype=torch.uint8, device="cuda", generator=gen)
+    return dict(
+        w4=torch.randint(0, 256, (k_s // 2, n), **u8),
+        s4=0.001 + 0.01 * torch.rand(k_s, device="cuda", generator=gen),
+        z4=torch.randint(0, 16, (k_s,), device="cuda",
+                         generator=gen).float(),
+        bits=torch.randint(0, 256, (k_b // 8, n), **u8),
+        alpha_s=0.01 + torch.rand(n, device="cuda", generator=gen),
+        alpha_r1=0.5 + torch.rand(n, device="cuda", generator=gen),
+        alpha_r2=0.5 + torch.rand(k_b, device="cuda", generator=gen),
+        perm=torch.randperm(k, device="cuda", generator=gen).to(torch.int32))
+
+
+def check_ragged(torch, projs, gen):
+    """The packed matmul against its plain version at RAGGED shapes and
+    M = 3, 17, 100 (M = 100 takes two 64-row groups); binary_matmul and
+    int4_matmul at one-sided spans; two calls on the same inputs give the
+    same bits (split-K shapes of the main path)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binary_matmul import binary_matmul
+    from repro_torch.kernels.int4_matmul import int4_matmul
+    from repro_torch.kernels.mixed_matmul import mixed_matmul
+    worst = 0.0
+    cases = 0
+    for k, n, k_s in RAGGED:
+        ops = _packed_operands(torch, gen, k, n, k_s)
+        for m in (3, 17, 100):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            y = mixed_matmul(x, **ops)
+            y_ref = ref.mixed_matmul_ref(x, **ops)
+            torch.cuda.synchronize()
+            err = (y.float() - y_ref).abs().max().item()
+            if not torch.allclose(y.float(), y_ref, rtol=MM_RTOL,
+                                  atol=MM_ATOL):
+                _fail(f"mixed_matmul ragged K={k} N={n} k_s={k_s} M={m}: "
+                      f"max_abs_err {err}")
+            worst, cases = max(worst, err), cases + 1
+            xs = x[:, :k_s].contiguous()
+            xb = x[:, k_s:].contiguous()
+            a_out = (ops["alpha_s"] * ops["alpha_r1"]).contiguous()
+            spans = []
+            if k_s:
+                spans.append((int4_matmul(xs, ops["w4"], ops["s4"],
+                                          ops["z4"]),
+                              ref.int4_matmul_ref(xs.float(), ops["w4"],
+                                                  ops["s4"], ops["z4"])))
+            if k - k_s:
+                spans.append((binary_matmul(xb, ops["bits"], a_out,
+                                            ops["alpha_r2"]),
+                              ref.binary_matmul_ref(xb.float(), ops["bits"],
+                                                    a_out, ops["alpha_r2"])))
+            for got, want in spans:
+                err = (got.float() - want).abs().max().item()
+                if not torch.allclose(got.float(), want, rtol=MM_RTOL,
+                                      atol=MM_ATOL):
+                    _fail(f"span kernel ragged K={k} N={n} k_s={k_s} M={m}:"
+                          f" max_abs_err {err}")
+                worst, cases = max(worst, err), cases + 1
+    repeats = {}
+    for name, m in (("wo", 8), ("wd", 1), ("wqkv", 64)):
+        q = projs[name]
+        x = torch.randn((m, q.k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        args = (x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
+                q.alpha_r2)
+        same = torch.equal(mixed_matmul(*args, perm=q.perm),
+                           mixed_matmul(*args, perm=q.perm))
+        if not same:
+            _fail(f"mixed_matmul {name} M={m}: a repeated call gave other "
+                  "bits")
+        repeats[f"{name}/M={m}"] = same
+    return {"cases": cases, "max_abs_err": worst, "bit_identical": repeats,
+            "shapes": RAGGED, "M": [3, 17, 100]}
+
+
+def host_call_us(torch, fn, calls: int = 50, batches: int = 20) -> float:
+    """Host µs of one call, enqueue only: the median over ``batches`` of
+    ``calls`` calls each, the card synchronized between batches, so the
+    launch queue never fills and the host never waits for the card."""
+    for _ in range(10):
+        fn()
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    times.sort()
+    return 0.5 * (times[(batches - 1) // 2] + times[batches // 2])
+
+
+def host_us(torch, projs, gen):
+    """Host time of one call for mixed_matmul and for torch.matmul of the
+    same shape (wqkv, M = 8)."""
+    from repro_torch.kernels.mixed_matmul import mixed_matmul
+    q = projs["wqkv"]
+    x = torch.randn((8, q.k), generator=gen, device="cuda").to(torch.bfloat16)
+    dense = q.to_dense(torch.bfloat16)
+    fns = {"mixed_matmul": lambda: mixed_matmul(
+               x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
+               q.alpha_r2, perm=q.perm),
+           "torch.matmul": lambda: torch.matmul(x, dense)}
+    return {"shape": f"wqkv M=8 K={q.k} N={q.n}",
+            "us_per_call": {name: host_call_us(torch, fn)
+                            for name, fn in fns.items()}}
+
+
+def kernel_split_us(torch, projs, gen, calls: int = 10):
+    """Device µs per call of each CUDA kernel that one packed-matmul call
+    launches (the gather by perm, the matmul, the fold of split-K
+    partial sums), at the 12 fused shapes, from ``torch.profiler`` over
+    ``calls`` calls, each after the timer's L2 flush (whose kernel is
+    left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.mixed_matmul import mixed_matmul
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+
+    def kernel_events(fn, n):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type.name == "CUDA"]
+
+    skip = {e.name for e in kernel_events(lambda: None, 2)}
+    short = (("gather_kernel", "gather"), ("packed_matmul_kernel", "matmul"),
+             ("fold_kernel", "fold"))
+    rows = []
+    for m in (1, 8, 64):
+        for name, q in projs.items():
+            x = torch.randn((m, q.k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            per = {}
+            for e in kernel_events(lambda: mixed_matmul(
+                    x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
+                    q.alpha_r2, perm=q.perm), calls):
+                if e.name in skip:
+                    continue
+                key = next((v for k, v in short if k in e.name),
+                           e.name.split("(")[0])
+                per[key] = per.get(key, 0.0) + (e.time_range.end
+                                                 - e.time_range.start)
+            rows.append({"proj": name, "M": m,
+                         "us": {k: v / calls for k, v in per.items()}})
     return rows
 
 
@@ -560,7 +735,7 @@ def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
     steps = snap["phase_step_s"]
     toks = sum(len(r.out_tokens) for r in reqs)
     print(f"[{tag} engine_metrics] " + json.dumps(snap), flush=True)
-    return {
+    return engine, {
         "layers": cfg.n_layers, "requests": len(reqs),
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "generated_tokens": toks, "wall_s": wall,
@@ -576,6 +751,65 @@ def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
     }
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for st, en in sorted(intervals):
+        if cur_e is None or st > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
+    """Device-busy share of a data-free decode step at 8 slots: 8 prompts
+    of 256 tokens are admitted and prefilled; then ``steps`` engine ticks
+    (one batched decode step each) run twice, once timed on the host's
+    clock and once under torch.profiler for the CUDA kernels' intervals
+    (the profiler slows the host).  The share is the union of the kernel
+    intervals over the unprofiled wall time, both per step with the card
+    synchronized."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=1))
+    reqs = [engine.submit(corpus.document(20_000 + i, 256),
+                          max_new=2 * steps + 4) for i in range(8)]
+    while not all(r.out_tokens for r in reqs):
+        engine.tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.tick()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            engine.tick()
+        torch.cuda.synchronize()
+    engine.run()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    by_kind = {}
+    for e in kernels:
+        kind = ("mixed_matmul" if any(k in e.name for k in (
+                    "packed_matmul", "gather_kernel", "fold_kernel"))
+                else "paged_attention" if "paged_attention" in e.name
+                else "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (e.time_range.end
+                                                  - e.time_range.start)
+    busy_us = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in kernels])
+    return {"steps": steps, "slots": 8, "context_tokens": 256,
+            "wall_ms_per_step": wall_us / steps / 1e3,
+            "kernel_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / wall_us if kernels else None,
+            "kernel_ms_per_step_by_kind": {k: v / steps / 1e3
+                                           for k, v in by_kind.items()},
+            "kernels_per_step": len(kernels) / steps}
 
 
 def run_main_path(torch, registry, kernels, path_kernels) -> dict:
@@ -597,16 +831,23 @@ def run_main_path(torch, registry, kernels, path_kernels) -> dict:
     print(f"[main] init {t_init:.1f}s, data-free fused quantization "
           f"{t_quant:.1f}s", flush=True)
     bits = check_bits(qparams, "main")
-    summary = serve_prompts(torch, cfg, qparams, kernels, path_kernels,
-                            "main")
+    engine, summary = serve_prompts(torch, cfg, qparams, kernels,
+                                    path_kernels, "main")
     summary.update(bits_per_weight=bits, quantize_s=t_quant)
+    busy = decode_busy_share(torch, cfg, engine)
+    print(f"[main decode busy] {cfg.n_layers} layers: device-busy share "
+          f"{busy['device_busy_share']} of a decode step; "
+          + json.dumps(busy), flush=True)
+    summary["decode_busy"] = busy
     return summary
 
 
-def run_calibrated_path(torch, registry, kernels, path_kernels) -> dict:
+def run_calibrated_path(torch, registry, kernels, path_kernels, peaks
+                        ) -> dict:
     """LLaMA-7B quantized with calibrated PTQ1.61 at the serve defaults
     of ``repro_torch.launch.serve`` (4 segments of 64 tokens, 3 epochs,
-    ratio 0.2, multiple 16, min dim 32), then served."""
+    ratio 0.2, multiple 16, min dim 32); its first layer's 7 packed
+    projections held against the plain version and timed; then served."""
     from repro_torch.core.pipeline import quantize_model_ptq161
     from repro_torch.core.qlinear import QuantConfig
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
@@ -642,8 +883,18 @@ def run_calibrated_path(torch, registry, kernels, path_kernels) -> dict:
             _fail(f"calibrated: learning raised the {name} block's loss "
                   f"({before} -> {after})")
     bits = check_bits(qparams, "calibrated")
-    summary = serve_prompts(torch, cfg, qparams, kernels, path_kernels,
-                            "calibrated")
+    layer = {name: qparams["stages"][0][0][0][blk][name]
+             for blk, names in (("attn", ("wq", "wk", "wv", "wo")),
+                                ("mlp", ("wg", "wu", "wd")))
+             for name in names}
+    timer = Timer(torch)
+    cal_mm = check_mixed_matmul(torch, layer, timer, peaks,
+                                torch.Generator(device="cuda").manual_seed(2))
+    del timer
+    print("[calibrated mixed_matmul] " + json.dumps(cal_mm), flush=True)
+    _, summary = serve_prompts(torch, cfg, qparams, kernels, path_kernels,
+                               "calibrated")
+    summary["layer0_mixed_matmul"] = cal_mm
     summary.update(
         bits_per_weight=bits, quantize_s=t_quant,
         calibration={"segments": d.calib_segments, "seq": d.calib_seq,
@@ -658,11 +909,11 @@ def run_calibrated_path(torch, registry, kernels, path_kernels) -> dict:
     return summary
 
 
-def _entry(name, replaces, checked, rows, launches, shape):
+def _entry(name, replaces, checked, rows, launches, shape, source=None):
     """One kernel's entry of the ``kernels`` line: max error over every
     shape ``checked``, times summed over ``rows``, launches per path."""
     return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source or name}.cu",
             "replaces": replaces,
             "launches": sum(n[name] for n in launches.values()),
             "launches_by_path": {p: n[name] for p, n in launches.items()},
@@ -728,6 +979,11 @@ def main() -> int:
     # exports that no path of the system calls (as in the JAX package)
     path_kernels = ("mixed_matmul", "paged_attention", "paged_prefill")
 
+    print("[plan] resident packed-matmul blocks per SM by row tiles "
+          "(CUDA occupancy query): " + json.dumps(
+              {nt: mixed_matmul.resident_blocks(0, nt)
+               for nt in (1, 2, 4, 8)}), flush=True)
+
     # -- 3. kernels against their plain versions --------------------------
     cfg = registry.get("llama-7b")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -744,6 +1000,21 @@ def main() -> int:
     for name, rows in spans.items():
         print(f"[{name}] (tolerance rtol {MM_RTOL}, atol {MM_ATOL}) "
               + json.dumps(rows), flush=True)
+    ragged = check_ragged(torch, projs,
+                          torch.Generator(device="cuda").manual_seed(3))
+    print(f"[ragged] packed matmuls at ragged and one-sided shapes "
+          f"(tolerance rtol {MM_RTOL}, atol {MM_ATOL}), repeated calls "
+          "bit-identical: " + json.dumps(ragged), flush=True)
+    host = host_us(torch, projs, torch.Generator(device="cuda").manual_seed(4))
+    print("[host] " + json.dumps(host), flush=True)
+    split = kernel_split_us(torch, projs,
+                            torch.Generator(device="cuda").manual_seed(5))
+    for row in split:
+        q = projs[row["proj"]]
+        plan = mixed_matmul.launch_plan(row["M"], q.n, q.k, q.k_s, 0)[0]
+        row.update(splits=plan.splits, blocks=plan.blocks)
+    print("[split] device us per call of each kernel of a packed-matmul "
+          "call (profiler, L2 flushed): " + json.dumps(split), flush=True)
     del projs, timer
 
     # -- 4. small-input agreement, card against CPU -----------------------
@@ -762,8 +1033,17 @@ def main() -> int:
     # -- 6. the calibrated path ---------------------------------------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cal_summary = run_calibrated_path(torch, registry, kernels, path_kernels)
+    cal_summary = run_calibrated_path(torch, registry, kernels, path_kernels,
+                                      peaks)
     print("[calibrated] " + json.dumps(cal_summary), flush=True)
+    unfused = [r for r in cal_summary["layer0_mixed_matmul"] if r["M"] == 8]
+    print(f"[decode layer, M=8] mixed_matmul: fused (4 projections) "
+          f"{sum(r['ms'] for r in mm if r['M'] == 8) * 1e3:.1f} us, "
+          f"calibrated unfused (7 projections) "
+          f"{sum(r['ms'] for r in unfused) * 1e3:.1f} us; dense bf16 "
+          f"torch.matmul {sum(r['library_ms'] for r in mm if r['M'] == 8) * 1e3:.1f}"
+          f" / {sum(r['library_ms'] for r in unfused) * 1e3:.1f} us",
+          flush=True)
 
     # -- 7. the kernels line and the result --------------------------------
     launches = {"datafree": summary["launches"],
@@ -773,8 +1053,9 @@ def main() -> int:
     im = spans["int4_matmul"]
     entries = [
         _entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:158",
-               mm, decode_mm, launches,
-               "one decode layer at M=8: wqkv+wgu+wo+wd"),
+               mm + cal_summary["layer0_mixed_matmul"]
+               + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
+               launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",
                [pa], [pa], launches,
                "B=8 hkv=32 dh=128 ps=16, lens up to 1000"),
@@ -784,11 +1065,13 @@ def main() -> int:
         _entry("binary_matmul", "src/repro/kernels/binary_matmul.py:75",
                bm, [r for r in bm if r["M"] == 8], launches,
                "M=8: binary spans of wqkv (K=3280, N=12288) + wd "
-               "(K=8800, N=4096); off the serving path"),
+               "(K=8800, N=4096); off the serving path; the packed-matmul "
+               "body with the int4 span empty", source="mixed_matmul"),
         _entry("int4_matmul", "src/repro/kernels/int4_matmul.py:61",
                im, [r for r in im if r["M"] == 8], launches,
                "M=8: int4 spans of wqkv (K=816, N=12288) + wd "
-               "(K=2208, N=4096); off the serving path"),
+               "(K=2208, N=4096); off the serving path; the packed-matmul "
+               "body with the binary span empty", source="mixed_matmul"),
     ]
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

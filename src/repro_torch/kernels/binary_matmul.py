@@ -1,7 +1,9 @@
-"""Packed 1-bit matmul: wrapper of ``csrc/binary_matmul.cu``.
+"""Packed 1-bit matmul: the packed-matmul body of ``csrc/mixed_matmul.cu``
+with the int4 span empty.
 
 Twin of ``repro.kernels.binary_matmul`` (the Pallas TPU kernel).  On a
-CUDA tensor :func:`binary_matmul` launches the hand-written kernel; on a
+CUDA tensor :func:`binary_matmul` launches the hand-written kernel (x·α_in
+is staged as the binary span's x·α_r2, α_out is its output scale); on a
 CPU tensor it runs ``ref.binary_matmul_ref``.  A CUDA call the kernel
 cannot take raises.
 """
@@ -10,10 +12,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel, I, P, check_operands
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.mixed_matmul import (ARGTYPES, check_packed,
+                                              launch_packed)
 
-KERNEL = CudaKernel("binary_matmul.cu", "binary_matmul_launch",
-                    [P] * 5 + [I] * 3 + [P])
+KERNEL = CudaKernel("mixed_matmul.cu", "packed_matmul_launch", ARGTYPES)
 
 
 def binary_matmul(x: torch.Tensor, bits: torch.Tensor,
@@ -24,17 +27,8 @@ def binary_matmul(x: torch.Tensor, bits: torch.Tensor,
     f32."""
     if x.device.type == "cpu":
         return ref.binary_matmul_ref(x, bits, alpha_out, alpha_in)
-    m, k = x.shape
-    n = bits.shape[1]
-    check_operands("binary_matmul", x, {"bits": bits},
-                   {"alpha_out": (alpha_out, n), "alpha_in": (alpha_in, k)})
-    if bits.shape[0] * 8 != k:
-        raise ValueError(f"binary_matmul: bits span {bits.shape[0] * 8} "
-                         f"!= K={k}")
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    if m == 0:
-        return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    KERNEL.launch(x.data_ptr(), bits.data_ptr(), alpha_in.data_ptr(),
-                  alpha_out.data_ptr(), y.data_ptr(), m, n, k, stream)
-    return y
+    k, n = bits.shape[0] * 8, bits.shape[1]
+    check_packed("binary_matmul", x, k, n, (bits,),
+                 ((alpha_out, n), (alpha_in, k)))
+    return launch_packed(KERNEL, x, None, None, None, None, bits, alpha_out,
+                         None, alpha_in, n, 0)

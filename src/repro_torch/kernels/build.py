@@ -5,7 +5,7 @@ first use by ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own
 shared library, which is loaded with ``ctypes``.  Libraries land in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash
 of the source and flags, so an edited source rebuilds and an unchanged
-one is reused (the hash covers the shared ``csrc/*.cuh`` headers too).
+one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import: the CPU tests import every module, and a
@@ -41,8 +41,6 @@ def _nvcc() -> str:
 
 def _target(source: Path) -> Path:
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
@@ -122,6 +120,12 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def library(self) -> ctypes.CDLL:
+        """The loaded library (built on first use), for its other
+        entry points."""
+        self._load()
+        return self._lib
+
     def launch(self, *args) -> None:
         err = self._load()(*args)
         if err != 0:
@@ -134,27 +138,3 @@ class CudaKernel:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
-
-
-def check_operands(name: str, x, packed: Dict, vectors: Dict) -> None:
-    """Raise unless x is a contiguous bf16 (M, K) CUDA tensor, every
-    ``packed`` tensor a uint8 matrix and every ``vectors`` entry
-    ``(tensor, size)`` an f32 vector of that size, all contiguous on x's
-    device."""
-    import torch
-
-    def check(cond: bool, msg: str) -> None:
-        if not cond:
-            raise ValueError(f"{name}: {msg}")
-    check(x.device.type == "cuda", f"unsupported device {x.device}")
-    check(x.dtype == torch.bfloat16 and x.ndim == 2,
-          f"x must be bf16 (M, K), got {x.dtype} {tuple(x.shape)}")
-    for key, t in packed.items():
-        check(t.dtype == torch.uint8 and t.ndim == 2,
-              f"{key} must be uint8 (rows, N)")
-    for key, (t, size) in vectors.items():
-        check(t.dtype == torch.float32 and tuple(t.shape) == (size,),
-              f"{key} must be f32 ({size},)")
-    for t in [x, *packed.values(), *(v[0] for v in vectors.values())]:
-        check(t.is_contiguous() and t.device == x.device,
-              "all operands must be contiguous on one device")

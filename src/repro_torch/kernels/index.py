@@ -1,18 +1,129 @@
-"""The paged kernels' page index maps.
+"""Index math shared by the CUDA kernels and their plain versions.
 
-Twins of ``repro.kernels.paged_attention.kv_block_index`` and
-``repro.kernels.paged_prefill.ctx_block_index``: the page the TPU
-kernels' K/V BlockSpecs address at each grid step.  The plain versions
-in ``ref.py`` gather their pages through them, and the CUDA kernels'
-key loops visit exactly the positions of the pages they leave
-unclamped.  Each works on Python ints and on broadcastable int tensors
-alike.
+* ``kv_block_index`` and ``ctx_block_index``: twins of
+  ``repro.kernels.paged_attention.kv_block_index`` and
+  ``repro.kernels.paged_prefill.ctx_block_index``, the page the TPU
+  kernels' K/V BlockSpecs address at each grid step.  The plain
+  versions in ``ref.py`` gather their pages through them, and the CUDA
+  kernels' key loops visit exactly the positions of the pages they
+  leave unclamped.  Each works on Python ints and on broadcastable int
+  tensors alike.
+* ``packed_matmul_plan``: the launch plan of ``csrc/mixed_matmul.cu``
+  (row tile, column tiles, the split of K across blocks, workspace
+  size).  The launch code passes it to the kernel unchanged.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+# Channels per mma k-step; splits fall on k-step boundaries of each span,
+# which are packed-byte boundaries (even in the int4 span, multiples of 8
+# in the binary span).
+PACKED_KSTEP = 16
+# Most splits of K (the kernel's split table size): each adds an (M, N)
+# f32 partial sum that the fold reads back.
+PACKED_MAX_SPLITS = 16
+# Fewest k-steps a split of K is given.
+PACKED_MIN_STEPS = 4
+# Output columns per block (4 warps of two 16-column mma tiles).
+PACKED_BN = 128
+
+
+def packed_nt(m: int) -> int:
+    """8-row mma tiles per block for M rows: the least of 1, 2, 4, 8
+    that holds M (one block covers at most 64 rows)."""
+    return 1 if m <= 8 else 2 if m <= 16 else 4 if m <= 32 else 8
+
+
+class PackedPlan(NamedTuple):
+    """Launch plan of the packed matmul.
+
+    ``nt``: 8-row mma tiles per block, so a block covers ``8*nt`` rows;
+    ``row_groups``: blocks along M; ``col_tiles``: blocks along N;
+    ``n4``/``nb``: k-steps of the int4 and binary spans (each span's last
+    k-step zero-padded); ``bounds``: the splits of K, as cuts of the
+    k-step sequence int4 then binary (``bounds[i]:bounds[i+1]`` is split
+    i); ``ws_floats``: f32 workspace of the partial sums (0 for one
+    split of one span), laid out (split, part, M, N) with part 0 the
+    int4 sum and part 1 the binary sum; ``tiles``: output tiles
+    (``col_tiles * row_groups``); ``xg_elems``: bf16 workspace of x gathered
+    salient-first, (M, 16 * (n4 + nb))."""
+    nt: int
+    row_groups: int
+    col_tiles: int
+    n4: int
+    nb: int
+    bounds: Tuple[int, ...]
+    ws_floats: int
+    tiles: int
+    xg_elems: int
+
+    @property
+    def splits(self) -> int:
+        return len(self.bounds) - 1
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def spans(self, i: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """Channel ranges ``((a4, e4), (ab, eb))`` of split ``i`` within
+        the int4 and binary spans, before clipping at the span's end."""
+        lo, hi = self.bounds[i], self.bounds[i + 1]
+        s = PACKED_KSTEP
+        return ((min(lo, self.n4) * s, min(hi, self.n4) * s),
+                (max(lo - self.n4, 0) * s, max(hi - self.n4, 0) * s))
+
+
+def packed_matmul_plan(m: int, n: int, k: int, k_s: int, sms: int,
+                       per_sm: int) -> PackedPlan:
+    """Plan one launch of the packed matmul on a card with ``sms`` SMs,
+    each of which holds ``per_sm`` blocks of the kernel at this M's row
+    tile (``packed_nt(m)``) at once; the launch code asks the CUDA
+    runtime for that number.
+
+    Rows: one block covers up to 64 rows (``nt`` 8-row tiles, the least
+    that holds M), so every weight is unpacked once per block; M > 64
+    takes more row groups.  Columns: ``PACKED_BN`` per block.  K:
+    split across blocks so that a launch fills one wave of resident
+    blocks without exceeding it, each split at least ``PACKED_MIN_STEPS``
+    k-steps, at most ``PACKED_MAX_SPLITS``.
+    The cuts balance a cost per k-step: its packed bytes per column (8
+    int4, 2 binary) plus the activation bytes it stages and the mma
+    work, both of which grow with the rows."""
+    if not (0 <= k_s <= k and k_s % 2 == 0 and (k - k_s) % 8 == 0):
+        raise ValueError(f"packed_matmul_plan: k_s={k_s}, K={k} is not "
+                         "a packable split (k_s even, k_b a multiple of 8)")
+    nt = packed_nt(m)
+    rows = 8 * nt
+    row_groups = max(1, math.ceil(m / rows))
+    col_tiles = max(1, math.ceil(n / PACKED_BN))
+    n4 = math.ceil(k_s / PACKED_KSTEP)
+    nb = math.ceil((k - k_s) / PACKED_KSTEP)
+    total = n4 + nb
+    tiles = col_tiles * row_groups
+    slots = sms * per_sm
+    splits = max(1, min(slots // tiles, PACKED_MAX_SPLITS,
+                        total // PACKED_MIN_STEPS))
+    extra = rows // 4 + rows // 8
+    c4, cb = 8 + extra, 2 + extra
+    cost4 = n4 * c4
+    cost = cost4 + nb * cb
+    bounds = [0]
+    for i in range(1, splits):
+        target = cost * i / splits
+        if target <= cost4:
+            j = math.ceil(target / c4)
+        else:
+            j = n4 + math.ceil((target - cost4) / cb)
+        bounds.append(min(max(j, bounds[-1] + 1), total - (splits - i)))
+    bounds.append(total)
+    ws = splits * 2 * m * n if splits > 1 or (n4 and nb) else 0
+    return PackedPlan(nt, row_groups, col_tiles, n4, nb, tuple(bounds), ws,
+                      tiles, m * PACKED_KSTEP * total)
 
 
 def kv_block_index(bi, j, bt_flat, lens, *, ps: int, nblk: int,

@@ -6,18 +6,40 @@ launches the hand-written kernel; on a CPU tensor it runs
 ``ref.mixed_matmul_ref``.  Hopper needs no feasibility gate: the kernel
 takes every shape the packing allows (k_s even, k_b a multiple of 8),
 and a CUDA call it cannot take raises.
+
+The same kernel body runs ``binary_matmul`` and ``int4_matmul`` with one
+span empty; :func:`launch_packed` is the launch all three share.  Its
+host side is kept short: the launch plan (``index.packed_matmul_plan``)
+is computed once per shape, and the workspaces (split-K partial sums,
+gathered x) once per device and stream, grown when a larger shape needs
+more.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import struct
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel, I, P, check_operands
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.index import packed_matmul_plan, packed_nt
 
-KERNEL = CudaKernel("mixed_matmul.cu", "mixed_matmul_launch",
-                    [P] * 10 + [I] * 4 + [P])
+# one argument: the 64-bit words that packed_matmul_launch reads, as
+# bytes (the 12 pointers and the stream, then the shape and the plan)
+ARGTYPES = [ctypes.c_char_p]
+KERNEL = CudaKernel("mixed_matmul.cu", "packed_matmul_launch", ARGTYPES)
+_HEAD = struct.Struct("=13q")
+
+# (M, N, K, k_s, device index) -> (plan, its words packed: M, N, K, k_s,
+# then nt, row_groups, col_tiles, n4, nb, splits, bounds...)
+_PLANS: Dict[Tuple[int, ...], Tuple] = {}
+# (device index, raw stream) -> [split-K workspace f32, gathered x bf16]
+_SCRATCH: Dict[Tuple[int, int], list] = {}
+# device index -> SMs; (device index, nt) -> resident blocks per SM
+_SMS: Dict[int, int] = {}
+_PER_SM: Dict[Tuple[int, int], int] = {}
 
 
 def mixed_matmul(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
@@ -33,27 +55,121 @@ def mixed_matmul(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
                                     alpha_r2, perm).to(torch.bfloat16)
     k_s, n = w4.shape[0] * 2, bits.shape[1]
     k_b = bits.shape[0] * 8
-    check_operands("mixed_matmul", x, {"w4": w4, "bits": bits},
-                   {"s4": (s4, k_s), "z4": (z4, k_s), "alpha_s": (alpha_s, n),
-                    "alpha_r1": (alpha_r1, n), "alpha_r2": (alpha_r2, k_b)})
+    check_packed("mixed_matmul", x, k_s + k_b, n,
+                 (w4, bits) if k_s else (bits,),
+                 ((s4, k_s), (z4, k_s), (alpha_s, n), (alpha_r1, n),
+                  (alpha_r2, k_b)))
+    if perm is not None and (
+            perm.dtype != torch.int32 or perm.shape != (k_s + k_b,)
+            or not perm.is_contiguous()
+            or perm.get_device() != x.get_device()):
+        raise ValueError("mixed_matmul: perm must be contiguous int32 (K,) "
+                         "on x's device")
+    return launch_packed(KERNEL, x, perm, w4, s4, z4, bits, alpha_s,
+                         alpha_r1, alpha_r2, n, k_s)
+
+
+def check_packed(name: str, x: torch.Tensor, k: int, n: int,
+                 packed: Sequence[torch.Tensor],
+                 vectors: Sequence[Tuple[torch.Tensor, int]]) -> None:
+    """Raise ``ValueError`` unless x is a contiguous bf16 (M, k) CUDA
+    tensor, every ``packed`` tensor a contiguous uint8 (rows, n) matrix
+    and every ``vectors`` entry ``(tensor, size)`` a contiguous f32
+    vector of that size, all on x's card."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if (x.dtype != torch.bfloat16 or x.ndim != 2 or x.shape[1] != k
+            or not x.is_contiguous()):
+        raise ValueError(f"{name}: x must be contiguous bf16 (M, {k}), got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    dev = x.get_device()
+    for t in packed:
+        if (t.dtype != torch.uint8 or t.ndim != 2 or t.shape[1] != n
+                or not t.is_contiguous() or t.get_device() != dev):
+            raise ValueError(f"{name}: packed weights must be contiguous "
+                             f"uint8 (rows, {n}) on {x.device}")
+    for t, size in vectors:
+        if (t.dtype != torch.float32 or t.shape != (size,)
+                or not t.is_contiguous() or t.get_device() != dev):
+            raise ValueError(f"{name}: scales must be contiguous f32 "
+                             f"({size},) on {x.device}")
+
+
+def resident_blocks(dev: int, nt: int) -> int:
+    """Blocks of the packed-matmul kernel with ``nt`` row tiles that one
+    SM of card ``dev`` holds at once, as the CUDA runtime computes it
+    from the kernel's registers and shared memory (cached)."""
+    key = (dev, nt)
+    hit = _PER_SM.get(key)
+    if hit is None:
+        fn = KERNEL.library().packed_matmul_occupancy
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = fn(nt, ctypes.byref(blocks))
+        if err != 0 or blocks.value < 1:
+            raise RuntimeError(f"packed_matmul_occupancy(nt={nt}) failed: "
+                               f"CUDA error {err}, {blocks.value} blocks")
+        hit = _PER_SM[key] = blocks.value
+    return hit
+
+
+def launch_plan(m: int, n: int, k: int, k_s: int, dev: int):
+    """The cached plan of one shape on card ``dev`` and the words that
+    follow the pointers and the stream in the launch argument."""
+    key = (m, n, k, k_s, dev)
+    hit = _PLANS.get(key)
+    if hit is None:
+        sms = _SMS.get(dev)
+        if sms is None:
+            sms = _SMS[dev] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        plan = packed_matmul_plan(m, n, k, k_s, sms,
+                                  resident_blocks(dev, packed_nt(m)))
+        words = (m, n, k, k_s, plan.nt, plan.row_groups, plan.col_tiles,
+                 plan.n4, plan.nb, plan.splits) + plan.bounds
+        hit = _PLANS[key] = (plan, struct.pack(f"={len(words)}q", *words))
+    return hit
+
+
+def _scratch(plan, dev: int, stream: int):
+    """The workspaces of one stream, grown to fit ``plan``."""
+    s = _SCRATCH.get((dev, stream))
+    if s is None:
+        s = _SCRATCH[(dev, stream)] = [None, None]
+    device = f"cuda:{dev}"
+    if plan.ws_floats and (s[0] is None or s[0].numel() < plan.ws_floats):
+        s[0] = torch.empty(plan.ws_floats, dtype=torch.float32, device=device)
+    if plan.xg_elems and (s[1] is None or s[1].numel() < plan.xg_elems):
+        s[1] = torch.empty(plan.xg_elems, dtype=torch.bfloat16, device=device)
+    return s
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return 0 if t is None else t.data_ptr()
+
+
+def launch_packed(kernel: CudaKernel, x: torch.Tensor,
+                  perm: Optional[torch.Tensor], w4: Optional[torch.Tensor],
+                  s4: Optional[torch.Tensor], z4: Optional[torch.Tensor],
+                  bits: Optional[torch.Tensor],
+                  alpha_s: Optional[torch.Tensor],
+                  alpha_r1: Optional[torch.Tensor],
+                  alpha_r2: Optional[torch.Tensor], n: int,
+                  k_s: int) -> torch.Tensor:
+    """Launch the packed-matmul body on checked operands; a span that is
+    empty passes None for its tensors.  Returns y (M, N) bf16."""
     m, k = x.shape
-    _check(k_s + k_b == k, f"k_s+k_b={k_s}+{k_b} != K={k}")
-    _check(w4.shape[1] == n or k_s == 0, "w4 and bits disagree on N")
-    if perm is not None:
-        _check(perm.dtype == torch.int32 and tuple(perm.shape) == (k,)
-               and perm.is_contiguous() and perm.device == x.device,
-               "perm must be contiguous int32 (K,) on x's device")
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    if m == 0:
+    y = x.new_empty((m, n))
+    if m == 0 or n == 0:
         return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    KERNEL.launch(x.data_ptr(), None if perm is None else perm.data_ptr(),
-                  w4.data_ptr(), s4.data_ptr(), z4.data_ptr(),
-                  bits.data_ptr(), alpha_s.data_ptr(), alpha_r1.data_ptr(),
-                  alpha_r2.data_ptr(), y.data_ptr(), m, n, k, k_s, stream)
+    dev = x.get_device()
+    plan, words = launch_plan(m, n, k, k_s, dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws, xg = _scratch(plan, dev, stream)
+    kernel.launch(_HEAD.pack(x.data_ptr(), _ptr(perm), _ptr(w4), _ptr(s4),
+                             _ptr(z4), _ptr(bits), _ptr(alpha_s),
+                             _ptr(alpha_r1), _ptr(alpha_r2), y.data_ptr(),
+                             _ptr(ws), _ptr(xg), stream) + words)
     return y
-
-
-def _check(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(f"mixed_matmul: {msg}")

@@ -433,6 +433,34 @@ def test_quantize_model_ptq161_matches_repro(calibrated):
     assert all(after <= before for before, after in losses), losses
 
 
+def test_dequant_view_and_packed_product_differ_only_by_rounding():
+    """Scale learning runs through ``DequantView`` (f32 activations) and
+    serving through the packed product (``mixed_matmul``: x_b·α_r2
+    rounded to bf16).  With the int4 weights dequantized to bf16 on both
+    sides, they differ only by that rounding: at most 2^-9·|x_b·α_r2|
+    per term times |α_s·α_r1|, plus f32 summation order."""
+    rng = np.random.default_rng(11)
+    from repro_torch.kernels import ref as tref
+    k, n, m = 256, 48, 4
+    w = torch.from_numpy((rng.normal(size=(k, n)) / 16).astype(np.float32))
+    stat = torch.from_numpy(rng.random(k).astype(np.float32))
+    q = tql.quantize_linear(w.to(torch.bfloat16), stat,
+                            tql.QuantConfig(ratio=0.2, multiple=16))
+    # learned scales are arbitrary f32 values (a fresh α_r2 is all ones)
+    q = dataclasses.replace(q, alpha_r2=torch.from_numpy(
+        rng.uniform(0.5, 1.5, q.k_b).astype(np.float32)))
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        torch.bfloat16).float()
+    view = q.dequant_view(torch.bfloat16).__matmul_x__(x)
+    packed = tref.mixed_matmul_ref(x, q.w4, q.s4, q.z4, q.bits, q.alpha_s,
+                                   q.alpha_r1, q.alpha_r2, perm=q.perm)
+    xb = x[:, q.perm.long()][:, q.k_s:] * q.alpha_r2
+    a = (q.alpha_s * q.alpha_r1).abs()
+    bound = 2.0 ** -9 * xb.abs().sum(-1, keepdim=True) * a + 1e-5
+    assert torch.all((view - packed).abs() <= bound)
+    assert not torch.equal(view, packed)       # the rounding does show
+
+
 def test_calibrated_mask_follows_activations(calibrated, subject):
     """The calibrated mask comes from the quantized stream's statistics,
     not from |w|: at least one projection's perm differs from the

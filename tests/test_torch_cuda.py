@@ -32,18 +32,21 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qlinear(k, n, ratio, seed, device):
+def _qlinear(k, n, ratio, seed, device, multiple=16):
     g = torch.Generator().manual_seed(seed)
     w = (torch.randn(k, n, generator=g) / k ** 0.5).to(torch.bfloat16)
-    q = quantize_linear(w, None, QuantConfig(ratio=ratio, multiple=16))
+    q = quantize_linear(w, None, QuantConfig(ratio=ratio, multiple=multiple))
     return q.map(lambda t: t.to(device))
 
 
-@pytest.mark.parametrize("k,n,ratio", [(256, 96, 0.1875), (4096, 200, 0.2),
-                                       (11008, 64, 0.2)])
-def test_mixed_matmul_matches_plain(cuda, k, n, ratio):
-    q = _qlinear(k, n, ratio, seed=k, device=cuda)
-    for m in (1, 3, 8, 20, 64):
+@pytest.mark.parametrize("k,n,ratio,multiple", [
+    (256, 96, 0.1875, 16), (4096, 200, 0.2, 16), (11008, 64, 0.2, 16),
+    (1032, 130, 0.2, 8),           # k_s = 208, k_b = 824: a ragged k-step
+    (128, 40, 0.1875, 8),          # k_s = 24: int4 span not 16-aligned
+    (4096, 4096, 0.2, 16)])        # wo's shape: split K across blocks
+def test_mixed_matmul_matches_plain(cuda, k, n, ratio, multiple):
+    q = _qlinear(k, n, ratio, seed=k, device=cuda, multiple=multiple)
+    for m in (1, 3, 8, 17, 20, 64, 100):
         x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
         args = (x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
                 q.alpha_r2)
@@ -61,7 +64,7 @@ def test_mixed_matmul_matches_plain(cuda, k, n, ratio):
 
 
 @pytest.mark.parametrize("k,n", [(64, 32), (3280, 200), (8800, 64),
-                                 (1000, 130)])
+                                 (1000, 130), (8, 16)])
 def test_binary_matmul_matches_plain(cuda, k, n):
     g = torch.Generator().manual_seed(k + n)
     bits = torch.randint(0, 256, (k // 8, n), generator=g,
@@ -80,7 +83,7 @@ def test_binary_matmul_matches_plain(cuda, k, n):
 
 
 @pytest.mark.parametrize("k,n", [(64, 32), (816, 200), (2208, 64),
-                                 (1002, 130)])
+                                 (1002, 130), (2, 16)])
 def test_int4_matmul_matches_plain(cuda, k, n):
     g = torch.Generator().manual_seed(k + n)
     w4 = torch.randint(0, 256, (k // 2, n), generator=g,
@@ -96,6 +99,52 @@ def test_int4_matmul_matches_plain(cuda, k, n):
         torch.testing.assert_close(
             y.float(), ref.int4_matmul_ref(x.float(), w4, s4, z4),
             rtol=2 ** -7, atol=1e-3)
+
+
+def _random_packed(g, k_s, k_b, n, device):
+    """Random operands of the packed matmul with the given spans (either
+    may be empty)."""
+    return dict(
+        w4=torch.randint(0, 256, (k_s // 2, n), generator=g,
+                         dtype=torch.uint8).to(device),
+        s4=(0.001 + 0.01 * torch.rand(k_s, generator=g)).to(device),
+        z4=torch.randint(0, 16, (k_s,), generator=g).float().to(device),
+        bits=torch.randint(0, 256, (k_b // 8, n), generator=g,
+                           dtype=torch.uint8).to(device),
+        alpha_s=(0.01 + torch.rand(n, generator=g)).to(device),
+        alpha_r1=(0.5 + torch.rand(n, generator=g)).to(device),
+        alpha_r2=(0.5 + torch.rand(k_b, generator=g)).to(device))
+
+
+@pytest.mark.parametrize("k_s,k_b,n", [
+    (0, 64, 32), (64, 0, 32), (0, 8, 16), (2, 0, 16), (2, 8, 16),
+    (0, 4096, 4096), (4096, 0, 4096), (6, 3280, 130)])
+def test_mixed_matmul_one_sided_and_tiny_spans(cuda, k_s, k_b, n):
+    g = torch.Generator().manual_seed(k_s + 7 * k_b + n)
+    ops_ = _random_packed(g, k_s, k_b, n, cuda)
+    perm = torch.randperm(k_s + k_b, generator=g).to(torch.int32).to(cuda)
+    for m in (1, 8, 64):
+        x = torch.randn(m, k_s + k_b, generator=g).to(torch.bfloat16).to(cuda)
+        y = tmm.mixed_matmul(x, **ops_, perm=perm)
+        torch.testing.assert_close(
+            y.float(), ref.mixed_matmul_ref(x, **ops_, perm=perm),
+            rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("m", [1, 8, 64])
+def test_packed_matmuls_give_the_same_bits_twice(cuda, m):
+    """The split-K reduction sums the partials in split order: two calls
+    on the same inputs give identical bits."""
+    q = _qlinear(4096, 4096, 0.2, seed=5, device=cuda)
+    x = torch.randn(m, 4096, device=cuda).to(torch.bfloat16)
+    args = (x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1, q.alpha_r2)
+    y1 = tmm.mixed_matmul(*args, perm=q.perm)
+    y2 = tmm.mixed_matmul(*args, perm=q.perm)
+    assert torch.equal(y1, y2)
+    xb = x[:, :q.k_b].contiguous()
+    a_out = (q.alpha_s * q.alpha_r1).contiguous()
+    assert torch.equal(tbm.binary_matmul(xb, q.bits, a_out, q.alpha_r2),
+                       tbm.binary_matmul(xb, q.bits, a_out, q.alpha_r2))
 
 
 def test_span_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -157,7 +157,7 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "ab_kernels.py"]
     assert len(files) > 20
     for f in files:
         for mod in _imports(f):

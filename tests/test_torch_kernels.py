@@ -219,6 +219,30 @@ def test_span_kernels_are_ops_exports_and_cpu_takes_plain_version():
     assert {"binary_matmul", "int4_matmul"} <= set(tops.__all__)
 
 
+def test_span_plain_versions_are_mixed_with_one_span_empty():
+    """binary_matmul and int4_matmul run the packed-matmul body with one
+    span empty: their plain versions equal mixed_matmul's with k_s = 0
+    (output scale α_s·α_r1, input scale α_r2) and with k_b = 0."""
+    rng = np.random.default_rng(7)
+    m, k, n = 5, 96, 40
+    x = torch.from_numpy(_bf16_values(rng, (m, k)))
+    perm = torch.from_numpy(rng.permutation(k).astype(np.int32))
+    xp = x[:, perm.long()]
+    bits, a_s, a_in = map(torch.from_numpy, _binary_case(rng, k, n, False))
+    a_r1 = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    none = (torch.zeros((0, n), dtype=torch.uint8), torch.zeros(0),
+            torch.zeros(0))
+    torch.testing.assert_close(
+        tref.mixed_matmul_ref(x, *none, bits, a_s, a_r1, a_in, perm=perm),
+        tref.binary_matmul_ref(xp, bits, a_s * a_r1, a_in), rtol=0, atol=0)
+    w4, s4, z4 = map(torch.from_numpy, _int4_case(rng, k, n, False))
+    torch.testing.assert_close(
+        tref.mixed_matmul_ref(x, w4, s4, z4, torch.zeros((0, n),
+                                                         dtype=torch.uint8),
+                              a_s, a_r1, torch.zeros(0), perm=perm),
+        tref.int4_matmul_ref(xp, w4, s4, z4), rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # paged attention
 # ---------------------------------------------------------------------------
