@@ -18,7 +18,11 @@ version's and dense bf16 ``torch.matmul``'s ms; ``paged_attention``,
 ``chip_smoke.py``'s shapes; the host µs of one ``mixed_matmul`` call
 beside ``torch.matmul``'s; and the device µs of each CUDA kernel one
 packed-matmul call launches.  Every kernel call is also held against its
-plain version (``chip_smoke.py``'s checks and tolerances).
+plain version (``chip_smoke.py``'s checks and tolerances); the attention
+kernels' entries also carry the host µs of one call, the device µs of
+each kernel a call launches (the split kernel apart from the combine)
+and whether a repeated call gave the same bits.  ``--sweep-attention``
+times this tree's attention kernels under other split-plan knobs.
 """
 from __future__ import annotations
 
@@ -104,6 +108,44 @@ def sweep_row_tiles(torch, projs, timer, gen, caps=(8, 4, 2)):
     return rows
 
 
+def sweep_attention(torch, cfg, timer, peaks,
+                    knobs=((1, 1, 1), (2, 2, 1), (2, 1, 1), (4, 1, 1),
+                           (1, 4, 1), (2, 2, 2), (2, 2, 4))):
+    """The attention kernels of this tree under other plan knobs
+    (``index.ATT_WAVES``, ``index.ATT_MIN_TILES``,
+    ``index.PREFILL_WAVES``): each call held against its plain version
+    and timed (``chip_smoke.check_paged_attention`` / ``_prefill``)."""
+    from repro_torch.kernels import index
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pf
+    saved = (index.ATT_WAVES, index.ATT_MIN_TILES, index.PREFILL_WAVES)
+    rows = []
+    try:
+        for waves, min_tiles, pwaves in knobs:
+            index.ATT_WAVES, index.ATT_MIN_TILES = waves, min_tiles
+            index.PREFILL_WAVES = pwaves
+            pa._PLANS.clear()
+            pf._PLANS.clear()
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            a = cs.check_paged_attention(torch, cfg, timer, peaks, gen)
+            p = cs.check_paged_prefill(torch, cfg, timer, peaks, gen)
+            rows.append({"att_waves": waves, "att_min_tiles": min_tiles,
+                         "prefill_waves": pwaves,
+                         "attention_plan": pa.launch_plan(
+                             8, 32, 1, 128, 64, 16, True, 0)._asdict(),
+                         "prefill_plan": pf.launch_plan(
+                             64, 32, 32, 128, 32, 16, 0)._asdict(),
+                         "attention_ms": a["ms"],
+                         "attention_us": a["device_us"],
+                         "prefill_ms": [r["ms"] for r in p],
+                         "prefill_us": [r["device_us"] for r in p]})
+    finally:
+        index.ATT_WAVES, index.ATT_MIN_TILES, index.PREFILL_WAVES = saved
+        pa._PLANS.clear()
+        pf._PLANS.clear()
+    return rows
+
+
 def host_breakdown(torch, projs, gen):
     """Host µs of each step of one mixed_matmul call (wqkv, M = 8),
     each repeated alone (``chip_smoke.host_call_us``)."""
@@ -155,6 +197,9 @@ def main() -> int:
                     help="instead: time the packed matmul of this tree "
                          "under split caps and row-tile caps, and its "
                          "host steps")
+    ap.add_argument("--sweep-attention", action="store_true",
+                    help="instead: time this tree's attention kernels "
+                         "under other split-plan knobs")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -179,6 +224,11 @@ def main() -> int:
     cfg = registry.get("llama-7b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = cs.Timer(torch)
+    if args.sweep_attention:
+        print(json.dumps({"tag": args.tag, "card": smi,
+                          "sweep_attention": sweep_attention(
+                              torch, cfg, timer, peaks)}), flush=True)
+        return 0
     projs = cs.llama_projections(torch, cfg, gen)
     if args.sweep:
         print(json.dumps({"tag": args.tag, "card": smi,

@@ -16,7 +16,11 @@ Phases, each of which raises on failure:
    at ragged and one-sided shapes too, check that a repeated call gives
    the same bits, print the host time of one call beside
    ``torch.matmul``'s and the device time of each kernel a call
-   launches (gather, matmul, fold);
+   launches (gather, matmul, fold); for the two attention kernels, check
+   that a repeated bf16 call gives the same bits and print the host time
+   of one call and the device time of the kernel apart from its combine
+   of split partials; the ``[plan]`` line prints the attention kernels'
+   split plans at the serving shapes;
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
    gives the same logits within tolerance; and the calibrated pipeline
@@ -321,47 +325,88 @@ def host_us(torch, projs, gen):
                             for name, fn in fns.items()}}
 
 
-def kernel_split_us(torch, projs, gen, calls: int = 10):
-    """Device µs per call of each CUDA kernel that one packed-matmul call
-    launches (the gather by perm, the matmul, the fold of split-K
-    partial sums), at the 12 fused shapes, from ``torch.profiler`` over
-    ``calls`` calls, each after the timer's L2 flush (whose kernel is
-    left out)."""
+# CUDA kernel names -> the short names a split of device time reports
+KERNEL_PARTS = (("gather_kernel", "gather"), ("packed_matmul_kernel", "matmul"),
+                ("fold_kernel", "fold"), ("combine_splits_kernel", "combine"),
+                ("paged_attention_kernel", "attention"),
+                ("paged_prefill", "prefill"))
+
+
+def device_us(torch, fn, calls: int = 10) -> dict:
+    """Device µs per call of each CUDA kernel that one call of ``fn``
+    launches, by short name (``KERNEL_PARTS``), from ``torch.profiler``
+    over ``calls`` calls, each after the timer's L2 flush (whose kernel
+    is left out)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.mixed_matmul import mixed_matmul
     flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
 
-    def kernel_events(fn, n):
-        fn()
+    def kernel_events(f, n):
+        f()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 flush.zero_()
-                fn()
+                f()
             torch.cuda.synchronize()
         return [e for e in prof.events() if e.device_type.name == "CUDA"]
 
     skip = {e.name for e in kernel_events(lambda: None, 2)}
-    short = (("gather_kernel", "gather"), ("packed_matmul_kernel", "matmul"),
-             ("fold_kernel", "fold"))
+    per = {}
+    for e in kernel_events(fn, calls):
+        if e.name in skip:
+            continue
+        key = next((v for k, v in KERNEL_PARTS if k in e.name),
+                   e.name.split("(")[0])
+        per[key] = per.get(key, 0.0) + (e.time_range.end
+                                        - e.time_range.start)
+    return {k: v / calls for k, v in per.items()}
+
+
+def kernel_split_us(torch, projs, gen, calls: int = 10):
+    """Device µs per call of each CUDA kernel that one packed-matmul call
+    launches (the gather by perm, the matmul, the fold of split-K
+    partial sums), at the 12 fused shapes (``device_us``)."""
+    from repro_torch.kernels.mixed_matmul import mixed_matmul
     rows = []
     for m in (1, 8, 64):
         for name, q in projs.items():
             x = torch.randn((m, q.k), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            per = {}
-            for e in kernel_events(lambda: mixed_matmul(
+            rows.append({"proj": name, "M": m, "us": device_us(
+                torch, lambda: mixed_matmul(
                     x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
-                    q.alpha_r2, perm=q.perm), calls):
-                if e.name in skip:
-                    continue
-                key = next((v for k, v in short if k in e.name),
-                           e.name.split("(")[0])
-                per[key] = per.get(key, 0.0) + (e.time_range.end
-                                                 - e.time_range.start)
-            rows.append({"proj": name, "M": m,
-                         "us": {k: v / calls for k, v in per.items()}})
+                    q.alpha_r2, perm=q.perm), calls)})
     return rows
+
+
+def call_profile(torch, fn) -> dict:
+    """Host µs of one call, the device µs of each kernel it launches,
+    and whether a second call gives the same bits."""
+    torch.cuda.synchronize()
+    same = torch.equal(fn(), fn())
+    return {"host_us": host_call_us(torch, fn), "device_us": device_us(
+        torch, fn), "bit_identical": same}
+
+
+def attention_plans(torch, cfg) -> dict:
+    """The split plans of the attention kernels at the serving shapes
+    (8 slots, max_seq 512, pages of 16, prefill chunk 64) and at the
+    shapes ``check_paged_attention`` and ``check_paged_prefill`` use,
+    with the blocks an SM holds (CUDA occupancy query)."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pf
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    rep = hq // hkv
+    return {
+        "resident_blocks_per_sm": {
+            "paged_attention_bf16": pa.resident_blocks(0, True, rep, dh),
+            "paged_prefill_bf16": pf.resident_blocks(0, dh)},
+        "paged_attention": {
+            f"B=8 nblk={n}": pa.launch_plan(8, hkv, rep, dh, n, 16, True,
+                                            0)._asdict() for n in (32, 64)},
+        "paged_prefill": {
+            "C=64 nblk=32": pf.launch_plan(64, hq, hkv, dh, 32, 16,
+                                           0)._asdict()}}
 
 
 def check_spans(torch, projs, timer, peaks, gen):
@@ -470,8 +515,11 @@ def check_paged_attention(torch, cfg, timer, peaks, gen):
         bt >= 0).repeat_interleave(ps, dim=1)
     mask[7, 0] = True                               # SDPA needs a key
     qs = q.reshape(b, hq, 1, dh)
+    prof = call_profile(torch, lambda: paged_attention(q, kp, vp, bt, lens_t))
+    if not prof["bit_identical"]:
+        _fail("paged_attention: a repeated call gave other bits")
     return {"B": b, "hq": hq, "hkv": hkv, "dh": dh, "ps": ps,
-            "lens": lens, "max_abs_err": err,
+            "lens": lens, "max_abs_err": err, **prof,
             "ms": timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t)),
             "plain_ms": timer.ms(
                 lambda: ref.paged_attention_ref(q, kp, vp, bt, lens_t)),
@@ -545,9 +593,14 @@ def check_paged_prefill(torch, cfg, timer, peaks, gen):
         qi = torch.arange(c, device="cuda")[:, None] + start
         mask = (torch.arange(s, device="cuda")[None, :] <= qi)[None, None]
         qs = q.transpose(0, 1)[None]
+        prof = call_profile(torch, lambda: paged_prefill(
+            q, kn, vn, kk, vk, bt, btw, start, length, layer=1))
+        if not prof["bit_identical"]:
+            _fail(f"paged_prefill: a repeated call gave other bits "
+                  f"(start={start})")
         results.append({
             "C": c, "start": start, "length": length, "hq": hq, "hkv": hkv,
-            "dh": dh, "ps": ps, "max_abs_err": err,
+            "dh": dh, "ps": ps, "max_abs_err": err, **prof,
             "ms": timer.ms(lambda: paged_prefill(q, kn, vn, kk, vk, bt, btw,
                                                  start, length, layer=1)),
             "plain_ms": timer.ms(lambda: ref.paged_prefill_ref(
@@ -797,7 +850,8 @@ def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
     for e in kernels:
         kind = ("mixed_matmul" if any(k in e.name for k in (
                     "packed_matmul", "gather_kernel", "fold_kernel"))
-                else "paged_attention" if "paged_attention" in e.name
+                else "paged_attention" if any(k in e.name for k in (
+                    "paged_attention", "combine_splits"))
                 else "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + (e.time_range.end
                                                   - e.time_range.start)
@@ -979,13 +1033,15 @@ def main() -> int:
     # exports that no path of the system calls (as in the JAX package)
     path_kernels = ("mixed_matmul", "paged_attention", "paged_prefill")
 
+    cfg = registry.get("llama-7b")
     print("[plan] resident packed-matmul blocks per SM by row tiles "
           "(CUDA occupancy query): " + json.dumps(
               {nt: mixed_matmul.resident_blocks(0, nt)
-               for nt in (1, 2, 4, 8)}), flush=True)
+               for nt in (1, 2, 4, 8)})
+          + "; attention split plans: "
+          + json.dumps(attention_plans(torch, cfg)), flush=True)
 
     # -- 3. kernels against their plain versions --------------------------
-    cfg = registry.get("llama-7b")
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
     projs = llama_projections(torch, cfg, gen)

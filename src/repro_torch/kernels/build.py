@@ -4,8 +4,8 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled on
 first use by ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own
 shared library, which is loaded with ``ctypes``.  Libraries land in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash
-of the source and flags, so an edited source rebuilds and an unchanged
-one is reused.
+of the source, the ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.
 :func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import: the CPU tests import every module, and a
@@ -41,6 +41,8 @@ def _nvcc() -> str:
 
 def _target(source: Path) -> Path:
     h = hashlib.sha256(source.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # what a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -11,6 +11,11 @@
 * ``packed_matmul_plan``: the launch plan of ``csrc/mixed_matmul.cu``
   (row tile, column tiles, the split of K across blocks, workspace
   size).  The launch code passes it to the kernel unchanged.
+* ``paged_attention_plan`` and ``paged_prefill_plan``: the split of the
+  key positions across blocks of ``csrc/paged_attention.cu`` and of the
+  bf16 kernel of ``csrc/paged_prefill.cu``; ``attention_split_keys`` and
+  ``prefill_split_keys`` give the live keys a block of a split visits,
+  as the kernels compute them.
 """
 from __future__ import annotations
 
@@ -173,3 +178,118 @@ def ctx_block_index(j, bt_read, start, *, ps: int, nblk: int,
                                          last)
     jj = min(max(j, first), last)
     return max(int(bt_read[jj]), 0)
+
+
+# Key positions per tile of the decode kernel (kKT in paged_attention.cu).
+ATT_KT = 32
+# The decode plan asks for this many waves of resident blocks over B x hkv
+# x splits: a batch's contexts rarely fill the table, and the splits past
+# a slot's length exit at once.
+ATT_WAVES = 2
+# Fewest key tiles a decode split covers: each split adds a partial that
+# the combine reads back.
+ATT_MIN_TILES = 2
+# Query rows (chunk row x head in the GQA group, flattened) per block of
+# the bf16 prefill kernel: 4 warps of one 16-row mma tile each.
+PREFILL_ROWS = 64
+# Waves of resident blocks the prefill plan asks for.
+PREFILL_WAVES = 1
+
+
+def prefill_key_tile(dh: int) -> int:
+    """Key positions per tile of the bf16 prefill kernel: 64, or 32 when
+    the head dim pads to 256 (the f32 output tile then fills the
+    registers)."""
+    return 64 if dh <= 128 else 32
+
+
+class SplitPlan(NamedTuple):
+    """Launch plan of a split attention kernel.
+
+    ``splits``: blocks along the key positions per (row tile, kv head);
+    split i covers positions ``[i*span, (i+1)*span)``; ``span``: a
+    multiple of ``tile`` key positions; ``row_tiles``: query-row tiles
+    per kv head (1 for decode); ``tile``: key positions per tile;
+    ``blocks``: the grid's size.  Each split writes an f32 partial
+    (m, l, acc) per query row, which a second kernel combines in split
+    order; one split writes the output itself."""
+    splits: int
+    span: int
+    row_tiles: int
+    tile: int
+    blocks: int
+
+    def keys(self, i: int) -> Tuple[int, int]:
+        return i * self.span, (i + 1) * self.span
+
+    def ws_floats(self, rows: int, dh: int) -> int:
+        """f32 workspace of the partials for ``rows`` query rows: (m, l)
+        (splits, rows, 2) padded to 16 bytes, then acc (splits, rows,
+        dh); none for one split."""
+        if self.splits == 1:
+            return 0
+        return -(-self.splits * rows * 2 // 4) * 4 + self.splits * rows * dh
+
+
+def _split(positions: int, tile: int, groups: int, slots: int,
+           waves: int, min_tiles: int) -> Tuple[int, int]:
+    tiles = max(1, math.ceil(positions / tile))
+    want = max(1, math.ceil(waves * slots / groups))
+    span_tiles = min(max(tiles // want, min_tiles, 1), tiles)
+    return math.ceil(tiles / span_tiles), span_tiles * tile
+
+
+def paged_attention_plan(b: int, hkv: int, nblk: int, ps: int, sms: int,
+                         per_sm: int) -> SplitPlan:
+    """Plan one decode launch over B slots of ``nblk`` pages of ``ps``
+    keys on a card with ``sms`` SMs, each holding ``per_sm`` blocks of
+    the kernel (the launch code asks the CUDA runtime).  The table's
+    ``nblk * ps`` positions are cut into spans of whole ``ATT_KT`` tiles,
+    at least ``ATT_MIN_TILES`` each, so that ``B * hkv * splits`` reaches
+    ``ATT_WAVES`` waves of resident blocks where the table allows."""
+    splits, span = _split(nblk * ps, ATT_KT, b * hkv, sms * per_sm,
+                          ATT_WAVES, ATT_MIN_TILES)
+    return SplitPlan(splits, span, 1, ATT_KT, b * hkv * splits)
+
+
+def paged_prefill_plan(c: int, hq: int, hkv: int, dh: int, nblk: int,
+                       ps: int, sms: int, per_sm: int) -> SplitPlan:
+    """Plan one launch of the bf16 prefill kernel for a chunk of ``c``
+    tokens.  A kv head's ``c * hq/hkv`` query rows go in tiles of
+    ``PREFILL_ROWS``; the key positions ``[0, nblk*ps + c)`` (context and
+    chunk) in spans of whole tiles, as few tiles a span as fill
+    ``PREFILL_WAVES`` waves of ``sms * per_sm`` resident blocks.  Nothing here reads ``start``:
+    the splits past a chunk's last key exit at once."""
+    row_tiles = math.ceil(c * (hq // hkv) / PREFILL_ROWS)
+    tile = prefill_key_tile(dh)
+    splits, span = _split(nblk * ps + c, tile, hkv * row_tiles,
+                          sms * per_sm, PREFILL_WAVES, 1)
+    return SplitPlan(splits, span, row_tiles, tile,
+                     hkv * row_tiles * splits)
+
+
+def attention_split_keys(plan: SplitPlan, i: int, length: int,
+                         window: Optional[int]) -> Tuple[int, int]:
+    """Key positions ``[lo, hi)`` that split ``i`` of a decode slot of
+    ``length`` live keys visits (empty when ``lo >= hi``: the split
+    writes a neutral partial).  Pages of -1 inside are masked."""
+    first = max(length - window, 0) if window else 0
+    a, e = plan.keys(i)
+    return max(a, first), min(e, length)
+
+
+def prefill_split_keys(plan: SplitPlan, i: int, rt: int, c: int, rep: int,
+                       start: int, length: int,
+                       window: Optional[int]) -> Tuple[int, int]:
+    """Key positions ``[lo, hi)`` that split ``i`` of query-row tile
+    ``rt`` visits for a chunk of ``c`` rows at ``start`` with ``length``
+    live tokens: the tile's chunk rows ``c_lo..c_hi`` see context from
+    ``start + c_lo + 1 - window`` (or 0) up to the chunk's key
+    ``start + min(c_hi + 1, length)``.  Per-row causality, the window and
+    pages of -1 are masked inside."""
+    r_lo = rt * PREFILL_ROWS
+    c_lo = r_lo // rep
+    c_hi = min((r_lo + PREFILL_ROWS - 1) // rep, c - 1)
+    first = max(start + c_lo + 1 - window, 0) if window else 0
+    a, e = plan.keys(i)
+    return max(a, first), min(e, start + min(c_hi + 1, length))

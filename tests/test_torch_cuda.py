@@ -10,6 +10,10 @@ Tolerances: mixed_matmul, binary_matmul and int4_matmul rtol 2^-7,
 atol 1e-3 (both sides round the operands alike and accumulate in f32;
 the kernel rounds its output once to bf16).  Attention in f32 pools: 1e-4 (online softmax over key tiles
 against the dense softmax); pool bytes exact except the dump page.
+Attention in bf16: rtol = atol = 1e-2, chip_smoke's ATT_RTOL/ATT_ATOL
+(the kernels round probabilities to bf16 per key tile and split,
+relative to the split's running max; the plain version per page tile or
+once); two calls on the same inputs give the same bits.
 """
 import numpy as np
 import pytest
@@ -197,7 +201,11 @@ def _attention_case(rng, *, b, hkv, rep, dh, ps, lens, freed=()):
 
 @pytest.mark.parametrize("rep,window,softcap,dh", [
     (1, None, None, 128), (2, None, None, 16), (2, 9, 30.0, 16),
-    (4, None, None, 64)])
+    (4, None, None, 64),
+    (2, None, None, 40),           # dh not a multiple of 16: 16-byte rows
+    (1, 9, None, 20),              # nor of 8: element loads, padded rows
+    (8, None, None, 64),           # two passes of 4 GQA rows
+    (1, None, None, 320)])         # 2 (bf16) / 3 (f32) chunks a lane
 def test_paged_attention_matches_plain(cuda, rep, window, softcap, dh):
     rng = np.random.default_rng(rep * 7 + dh)
     arrs = _attention_case(rng, b=5, hkv=2, rep=rep, dh=dh, ps=4,
@@ -259,6 +267,109 @@ def test_paged_prefill_matches_plain(cuda, start, length, masked, rep,
         window=window)
     assert torch.equal(o2[:length], o[:length])
     assert torch.equal(kk2[:, :-1], kk[:, :-1])
+
+
+@pytest.mark.parametrize("lens,freed,window", [
+    ([1000, 300, 0, 77], ((0, 20),), None),     # LLaMA-shaped, many splits
+    ([1000, 300, 0, 77], (), 200),              # a window over many splits
+    ([0, 0, 0, 640], (), None)])                # rows whose splits are empty
+def test_paged_attention_llama_shape_over_splits(cuda, lens, freed, window):
+    """rep 1, dh 128, ps 16 as LLaMA-7B decodes, with contexts over many
+    of the plan's splits: f32 to 1e-4, bf16 to 1e-2 with the same bits
+    on a second call, zeros (no NaN) for rows of length 0."""
+    from repro_torch.kernels import paged_attention as mod
+    rng = np.random.default_rng(len(freed) + (window or 0))
+    arrs = _attention_case(rng, b=4, hkv=4, rep=1, dh=128, ps=16, lens=lens,
+                           freed=freed)
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    plan = mod.launch_plan(4, 4, 1, 128, args[3].shape[1], 16, False, 0)
+    assert plan.splits > 1 and plan.span < max(lens)
+    o = tpa.paged_attention(*args, window=window)
+    torch.testing.assert_close(
+        o, ref.paged_attention_ref(*args, window=window), rtol=1e-4,
+        atol=1e-4)
+    b16 = [a.to(torch.bfloat16) if a.is_floating_point() else a
+           for a in args]
+    o16 = tpa.paged_attention(*b16, window=window)
+    torch.testing.assert_close(
+        o16, ref.paged_attention_ref(*b16, window=window), rtol=1e-2,
+        atol=1e-2)
+    assert torch.equal(o16, tpa.paged_attention(*b16, window=window))
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert torch.all(o[i] == 0) and torch.all(o16[i] == 0)
+    assert not torch.isnan(o16).any()
+
+
+def _prefill_arrays(rng, *, c, hkv, rep, dh, ps, nblk, pool_pages, start,
+                    length, masked):
+    """numpy operands of one prefill chunk; chunk page ``masked`` (or
+    None) is a shared block (writable row -1)."""
+    kp = rng.normal(size=(2, pool_pages + 1, ps, hkv, dh)).astype(np.float32)
+    vp = rng.normal(size=kp.shape).astype(np.float32)
+    n_pages = -(-(start + length) // ps)
+    bt = np.full((nblk,), -1, np.int32)
+    bt[:n_pages] = rng.permutation(pool_pages)[:n_pages]
+    btw = bt.copy()
+    if masked is not None:
+        btw[start // ps + masked] = -1
+    return dict(q=3 * rng.normal(size=(c, hkv * rep, dh)).astype(np.float32),
+                kn=rng.normal(size=(c, hkv, dh)).astype(np.float32),
+                vn=rng.normal(size=(c, hkv, dh)).astype(np.float32),
+                kp=kp, vp=vp, bt=bt, btw=btw)
+
+
+@pytest.mark.parametrize("c,hkv,rep,dh,ps,start,length,masked,window", [
+    (64, 4, 1, 128, 16, 192, 64, 1, None),   # LLaMA-shaped, keys over splits
+    (64, 4, 1, 128, 16, 208, 37, None, None),  # a key tile straddles start
+    (64, 4, 1, 128, 16, 0, 64, None, 48),    # first chunk, window
+    (32, 2, 4, 64, 8, 96, 25, 0, None),      # GQA: rows (token, head)
+    (16, 2, 8, 64, 4, 40, 16, None, 30),     # rep 8, softcap below
+    (32, 2, 2, 40, 8, 64, 32, None, None),   # dh 40: padded to 64
+    (16, 2, 1, 20, 4, 12, 9, None, None),    # dh 20: element loads
+    (32, 2, 2, 256, 8, 48, 30, None, None)]) # dh 256: 32-key tiles
+def test_paged_prefill_bf16_tensor_core_tiles(cuda, c, hkv, rep, dh, ps,
+                                              start, length, masked, window):
+    """The bf16 kernel (tensor-core tiles, keys split across blocks)
+    against the plain version: outputs to 1e-2, pool bytes exact, the
+    shared page untouched; the same bits on a second call and with
+    start / length as device scalars."""
+    from repro_torch.kernels import paged_prefill as mod
+    rng = np.random.default_rng(c + dh + start)
+    nblk, pool_pages = (start + c) // ps + 4, (start + c) // ps + 6
+    a = _prefill_arrays(rng, c=c, hkv=hkv, rep=rep, dh=dh, ps=ps, nblk=nblk,
+                        pool_pages=pool_pages, start=start, length=length,
+                        masked=masked)
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+    for k in ("q", "kn", "vn", "kp", "vp"):
+        t[k] = t[k].to(torch.bfloat16)
+    softcap = 20.0 if rep == 8 else None
+    kw = dict(layer=1, window=window, softcap=softcap)
+    plan = mod.launch_plan(c, hkv * rep, hkv, dh, nblk, ps, 0)
+    kk, vk = t["kp"].clone(), t["vp"].clone()
+    kr, vr = t["kp"].clone(), t["vp"].clone()
+    o = tpf.paged_prefill(t["q"], t["kn"], t["vn"], kk, vk, t["bt"],
+                          t["btw"], start, length, **kw)
+    o_ref = ref.paged_prefill_ref(t["q"], t["kn"], t["vn"], kr, vr, t["bt"],
+                                  t["btw"], start, length, **kw)
+    torch.testing.assert_close(o[:length], o_ref[:length], rtol=1e-2,
+                               atol=1e-2)
+    assert not torch.isnan(o).any()
+    assert torch.equal(kk[:, :-1], kr[:, :-1])
+    assert torch.equal(vk[:, :-1], vr[:, :-1])
+    if masked is not None:
+        page = int(a["bt"][start // ps + masked])
+        assert torch.equal(kk[:, page], t["kp"][:, page])
+    o2 = tpf.paged_prefill(t["q"], t["kn"], t["vn"], kk, vk, t["bt"],
+                           t["btw"], start, length, **kw)
+    assert torch.equal(o2, o)
+    o3 = tpf.paged_prefill(
+        t["q"], t["kn"], t["vn"], kk, vk, t["bt"], t["btw"],
+        torch.tensor(start, dtype=torch.int32, device=cuda),
+        torch.tensor(length, dtype=torch.int32, device=cuda), **kw)
+    assert torch.equal(o3[:length], o[:length])
+    if c == 64 and dh == 128:
+        assert plan.splits > 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
