@@ -20,24 +20,37 @@ Phases, each of which raises on failure:
    that a repeated bf16 call gives the same bits and print the host time
    of one call and the device time of the kernel apart from its combine
    of split partials; the ``[plan]`` line prints the attention kernels'
-   split plans at the serving shapes;
+   split plans at the serving shapes.  The packed matmul is also held
+   and timed at the other row counts the paths give it (``PATH_ROWS``:
+   4-slot decode, whole-prompt buckets, the loss's 1024 rows;
+   ``[mixed_matmul M=...]``);
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
-   gives the same logits within tolerance; and the calibrated pipeline
-   run on the card and on the CPU gives the same masks and packed bytes
-   and learned scales within tolerance;
+   gives the same logits within tolerance; the calibrated pipeline run
+   on the card and on the CPU gives the same masks and packed bytes and
+   learned scales within tolerance; the contiguous whole-prompt engine
+   gives the same greedy tokens on the card and the CPU, and on the card
+   whole-prompt and chunked prefill give the same tokens;
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
    kernel of the path must have launched in that run; then a few more
    decode steps under ``torch.profiler``, whose kernel time over wall
-   time is the device-busy share of a decode step;
+   time is the device-busy share of a decode step.  The same weights are
+   then served with whole-prompt prefill on the contiguous backend
+   (``[whole]``) and on the paged one (``[whole-paged]``), and their
+   ``forward_loss`` on 2 x 512 tokens must be finite (``[loss]``);
 6. the calibrated path: the same model quantized with calibrated
    PTQ1.61 at ``repro_torch.launch.serve``'s defaults (Eq.-7 block loss
    before and after learning, which must not rise), its first layer's 7
    unfused projections held against the plain version and timed beside
    the fused layer, then served the same way;
-7. print the ``kernels`` JSON line, then the result line.
+7. ``repro_torch.launch.serve.run`` at the reference's defaults (the
+   contiguous backend, whole-prompt prefill) on LLaMA-7B
+   (``[serve-default]``): every request must finish;
+8. check that every (M, K, N) the packed matmul launched at in phases
+   5-7 was held against its plain version in phase 3 or 6, then print
+   the ``kernels`` JSON line and the result line.
 
 It exits non-zero without CUDA, and when run outside a checkout of the
 repository.
@@ -80,6 +93,12 @@ REF_RTOL = 1e-2
 # losses, which average over every α, within 1e-3 relative.
 CAL_ALPHA_RTOL = 1e-4
 CAL_LOSS_RTOL = 1e-3
+# Row counts of the packed matmul on the driven paths besides the
+# M = 1, 8, 64 of the kernel check: 4-slot decode and bucket-16 prefill
+# of serve's defaults, whole-prompt buckets 256 and 512, and the 2 x 512
+# tokens of the loss.  Each is held against the plain version, and the
+# shapes the paths launch must all have been checked.
+PATH_ROWS = (4, 16, 256, 512, 1024)
 
 
 def _fail(msg: str) -> None:
@@ -167,11 +186,11 @@ def llama_projections(torch, cfg, gen):
     }
 
 
-def check_mixed_matmul(torch, projs, timer, peaks, gen):
+def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64)):
     from repro_torch.kernels import ref
     from repro_torch.kernels.mixed_matmul import mixed_matmul
     rows = []
-    for m in (1, 8, 64):
+    for m in ms:
         for name, q in projs.items():
             x = torch.randn((m, q.k), generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -664,6 +683,68 @@ def check_small_reference(torch, registry):
     return worst
 
 
+# Engine modes of the small agreement: the contiguous whole-prompt engine
+# on the CPU and on the card, and whole-prompt against chunked prefill
+# on the card (paged, f32 pools).
+SMALL_WHOLE = dict(prefill_buckets=(16, 64))
+SMALL_ENGINE_RUNS = {
+    "contiguous/cpu": ("cpu", SMALL_WHOLE),
+    "contiguous/cuda": ("cuda", SMALL_WHOLE),
+    "paged-whole/cuda": ("cuda", dict(SMALL_WHOLE, paged=True,
+                                      page_size=8)),
+    "paged-chunked/cuda": ("cuda", dict(paged=True, page_size=8,
+                                        chunked_prefill=True,
+                                        prefill_chunk=16)),
+}
+
+
+def small_engine_tokens(torch, names=tuple(SMALL_ENGINE_RUNS)) -> dict:
+    """Greedy tokens of the reduced LLaMA config in f32, data-free fused,
+    served by the engine in each mode ``names`` of SMALL_ENGINE_RUNS: 6
+    prompts of 7-60 tokens, 8 new tokens each, 3 slots, max_seq 128.
+    Every request must finish."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.models import model as M
+    from repro_torch.models.param import tree_to
+    from repro_torch.runtime.engine import Engine
+    cfg = registry.get("llama-7b").reduced()
+    p = quantize_params_data_free(
+        tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32),
+        QuantConfig(ratio=0.25, multiple=16), min_dim=32, fuse=True)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in (7, 16, 33, 60, 12, 45)]
+    toks = {}
+    for name in names:
+        dev, kw = SMALL_ENGINE_RUNS[name]
+        eng = Engine(cfg, tree_to(p, dev), n_slots=3, max_seq=128,
+                     cache_dtype=torch.float32, device=dev, **kw)
+        reqs = [eng.submit(x, max_new=8) for x in prompts]
+        eng.run()
+        if not all(r.done for r in reqs):
+            _fail(f"small engines: {name} left a request unfinished")
+        toks[name] = [r.out_tokens for r in reqs]
+    return toks
+
+
+def check_small_engines(torch) -> dict:
+    """The contiguous whole-prompt engine gives the same greedy tokens on
+    the card and on the CPU, and on the card whole-prompt and chunked
+    prefill give the same tokens (``small_engine_tokens``)."""
+    toks = small_engine_tokens(torch)
+    if toks["contiguous/cuda"] != toks["contiguous/cpu"]:
+        _fail("small engines: contiguous whole-prompt greedy tokens differ "
+              f"between the card and the CPU: {toks}")
+    if toks["paged-chunked/cuda"] != toks["paged-whole/cuda"]:
+        _fail("small engines: whole-prompt and chunked prefill give other "
+              f"greedy tokens on the card: {toks}")
+    return {"requests": len(toks["contiguous/cpu"]), "max_new": 8,
+            "tokens": toks}
+
+
 def check_small_calibrated(torch, registry):
     """Calibrated PTQ1.61 of the reduced LLaMA config (2 layers, f32) on
     the card and on the CPU from the same weights and segments."""
@@ -751,18 +832,29 @@ def check_bits(qparams, tag: str) -> float:
     return bits
 
 
+# Engine modes of the serving phases: the main path (paged, chunked
+# prefill), and whole-prompt prefill on the contiguous and the paged
+# backend, with buckets that hold every prompt of ``serve_prompts``.
+CHUNKED = dict(paged=True, chunked_prefill=True, page_size=16,
+               prefill_chunk=64)
+WHOLE = dict(paged=False, chunked_prefill=False,
+             prefill_buckets=(64, 256, 512))
+WHOLE_PAGED = dict(WHOLE, paged=True, page_size=16)
+
+
 def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
-                  max_new: int = 32) -> dict:
+                  engine_kw, max_new: int = 32) -> dict:
     """Serve 8 synthetic prompts of 200-400 tokens, 32 new tokens each,
-    through the paged chunked-prefill engine.  Every launch count is set
-    to 0 just before the run and read just after; each kernel of
-    ``path_kernels`` must have launched."""
+    at 8 slots and max_seq 512, through the engine in the mode
+    ``engine_kw``.  Every launch count is set to 0 just before the run
+    and read just after; each kernel of ``path_kernels`` must have
+    launched."""
     import numpy as np
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.runtime.engine import Engine
 
     engine = Engine(cfg, qparams, n_slots=8, max_seq=512, seed=0,
-                    page_size=16, prefill_chunk=64, device="cuda")
+                    device="cuda", **engine_kw)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
     rng = np.random.default_rng(0)
     prompts = [corpus.document(10_000 + i, int(rng.integers(200, 400)))
@@ -788,8 +880,9 @@ def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
     steps = snap["phase_step_s"]
     toks = sum(len(r.out_tokens) for r in reqs)
     print(f"[{tag} engine_metrics] " + json.dumps(snap), flush=True)
-    return engine, {
+    summary = {
         "layers": cfg.n_layers, "requests": len(reqs),
+        "backend": engine.backend.name,
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "generated_tokens": toks, "wall_s": wall,
         "tokens_per_s": toks / wall,
@@ -798,12 +891,28 @@ def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
         "tbt_p50_s": snap.get("tbt_p50_s"), "tbt_p95_s": snap.get("tbt_p95_s"),
         "decode_step_ms": 1e3 * steps["decode"]["mean_s"],
         "decode_steps": steps["decode"]["count"],
-        "prefill_chunk_ms": 1e3 * steps["prefill_chunk"]["mean_s"],
-        "prefill_chunks": steps["prefill_chunk"]["count"],
         "preemptions": snap["preemptions"],
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
     }
+    if "prefill_chunk" in steps:
+        summary.update(
+            prefill_chunk_ms=1e3 * steps["prefill_chunk"]["mean_s"],
+            prefill_chunks=steps["prefill_chunk"]["count"])
+    else:
+        # the engine times each bucket's first call apart from the rest
+        # (it builds nothing: the kernels were built in phase 2)
+        shapes = snap["shape_step_s"]
+        buckets = sorted({int(key.split("@")[1]) for key in shapes
+                          if key.startswith("prefill")})
+        summary["prefill_ms_by_bucket"] = {
+            b: {"first_ms": 1e3 * shapes[f"prefill_compile@{b}"]["mean_s"],
+                "count": 1 + shapes.get(f"prefill@{b}", {}).get("count", 0),
+                "mean_ms_after_first": (1e3 * shapes[f"prefill@{b}"]
+                                        ["mean_s"] if f"prefill@{b}"
+                                        in shapes else None)}
+            for b in buckets}
+    return engine, summary
 
 
 def _union_us(intervals) -> float:
@@ -817,6 +926,24 @@ def _union_us(intervals) -> float:
         else:
             cur_e = max(cur_e, en)
     return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def _kernel_time(prof):
+    """Kernel intervals of a ``torch.profiler`` run: the length of their
+    union (µs), µs by kind, and the number of kernels."""
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    by_kind = {}
+    for e in kernels:
+        kind = ("mixed_matmul" if any(k in e.name for k in (
+                    "packed_matmul", "gather_kernel", "fold_kernel"))
+                else "paged_attention" if any(k in e.name for k in (
+                    "paged_attention", "combine_splits"))
+                else "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + (e.time_range.end
+                                                  - e.time_range.start)
+    busy = _union_us([(e.time_range.start, e.time_range.end)
+                      for e in kernels])
+    return busy, by_kind, len(kernels)
 
 
 def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
@@ -845,25 +972,50 @@ def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
             engine.tick()
         torch.cuda.synchronize()
     engine.run()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    by_kind = {}
-    for e in kernels:
-        kind = ("mixed_matmul" if any(k in e.name for k in (
-                    "packed_matmul", "gather_kernel", "fold_kernel"))
-                else "paged_attention" if any(k in e.name for k in (
-                    "paged_attention", "combine_splits"))
-                else "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + (e.time_range.end
-                                                  - e.time_range.start)
-    busy_us = _union_us([(e.time_range.start, e.time_range.end)
-                         for e in kernels])
+    busy_us, by_kind, n = _kernel_time(prof)
     return {"steps": steps, "slots": 8, "context_tokens": 256,
             "wall_ms_per_step": wall_us / steps / 1e3,
             "kernel_ms_per_step": busy_us / steps / 1e3,
-            "device_busy_share": busy_us / wall_us if kernels else None,
+            "device_busy_share": busy_us / wall_us if n else None,
             "kernel_ms_per_step_by_kind": {k: v / steps / 1e3
                                            for k, v in by_kind.items()},
-            "kernels_per_step": len(kernels) / steps}
+            "kernels_per_step": n / steps}
+
+
+def prefill_busy_share(torch, cfg, qparams, buckets=(256, 512),
+                       calls: int = 3) -> dict:
+    """Device-busy share of one whole-prompt prefill (``model.prefill``,
+    batch 1, a full bucket of tokens, max_seq 512) per bucket: ``calls``
+    prefills timed on the host's clock, each ending synchronized, then
+    ``calls`` more under torch.profiler; kernel union over wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    out = {}
+    for b in buckets:
+        gen = torch.Generator(device="cuda").manual_seed(b)
+        batch = {"tokens": torch.randint(1, cfg.vocab, (1, b), generator=gen,
+                                         device="cuda", dtype=torch.int32)}
+
+        def fn():
+            M.prefill(cfg, qparams, batch, 512)
+            torch.cuda.synchronize()
+
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+        busy_us, by_kind, n = _kernel_time(prof)
+        out[b] = {"wall_ms": wall_us / calls / 1e3,
+                  "kernel_ms": busy_us / calls / 1e3,
+                  "device_busy_share": busy_us / wall_us,
+                  "kernel_ms_by_kind": {k: v / calls / 1e3
+                                        for k, v in by_kind.items()},
+                  "kernels": n / calls}
+    return out
 
 
 def run_main_path(torch, registry, kernels, path_kernels) -> dict:
@@ -886,14 +1038,82 @@ def run_main_path(torch, registry, kernels, path_kernels) -> dict:
           f"{t_quant:.1f}s", flush=True)
     bits = check_bits(qparams, "main")
     engine, summary = serve_prompts(torch, cfg, qparams, kernels,
-                                    path_kernels, "main")
+                                    path_kernels, "main", CHUNKED)
     summary.update(bits_per_weight=bits, quantize_s=t_quant)
     busy = decode_busy_share(torch, cfg, engine)
     print(f"[main decode busy] {cfg.n_layers} layers: device-busy share "
           f"{busy['device_busy_share']} of a decode step; "
           + json.dumps(busy), flush=True)
     summary["decode_busy"] = busy
-    return summary
+    return summary, cfg, qparams
+
+
+def run_whole_prompt_paths(torch, cfg, qparams, kernels) -> dict:
+    """The main phase's data-free model served again with whole-prompt
+    prefill, on the contiguous backend and on the paged one."""
+    out = {}
+    for tag, kw, path in (("whole", WHOLE, ("mixed_matmul",)),
+                          ("whole-paged", WHOLE_PAGED,
+                           ("mixed_matmul", "paged_attention"))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine, out[tag] = serve_prompts(torch, cfg, qparams, kernels, path,
+                                         tag, kw)
+        out[tag]["decode_busy"] = decode_busy_share(torch, cfg, engine)
+        print(f"[{tag}] " + json.dumps(out[tag]), flush=True)
+        del engine
+    busy = prefill_busy_share(torch, cfg, qparams)
+    print("[whole prefill busy] device-busy share of one whole-prompt "
+          "prefill by bucket: " + json.dumps(busy), flush=True)
+    out["prefill_busy"] = busy
+    return out
+
+
+def run_loss(torch, cfg, qparams) -> dict:
+    """``forward_loss`` of the quantized model on 2 x 512 tokens of the
+    synthetic corpus (validation split); the loss must be finite."""
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.models import model as M
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    toks, tgts = next(corpus.batches(2, 512, 1, split="valid"))
+    batch = {"tokens": torch.from_numpy(toks).to("cuda"),
+             "targets": torch.from_numpy(tgts).to("cuda")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(M.forward_loss(cfg, qparams, batch))
+    dt = time.perf_counter() - t0
+    if not math.isfinite(loss):
+        _fail(f"loss: forward_loss gave {loss}")
+    return {"tokens": list(toks.shape), "loss": loss,
+            "ln_vocab": math.log(cfg.vocab), "wall_s": dt}
+
+
+def run_serve_default(torch, kernels) -> dict:
+    """``repro_torch.launch.serve.run`` at the reference's defaults (the
+    contiguous backend, whole-prompt prefill, buckets (16, 64) at
+    max_seq 128): LLaMA-7B data-free with fused projections, 8 new
+    tokens per request; it builds and quantizes its own weights."""
+    from repro_torch.launch.serve import parse_args, run
+    for k in kernels.values():
+        k.launches = 0
+    out = run(parse_args(["--arch", "llama-7b", "--quantize", "datafree",
+                          "--fused", "--max-new", "8"]))
+    launches = {name: k.launches for name, k in kernels.items()}
+    if not out["all_done"]:
+        _fail("serve-default: not every request finished")
+    if out["cache_backend"] != "contiguous":
+        _fail(f"serve-default: backend {out['cache_backend']}")
+    if launches["mixed_matmul"] <= 0:
+        _fail("serve-default: kernel mixed_matmul was not launched")
+    m = out["engine_metrics"]
+    return {"requests": out["requests"],
+            "generated_tokens": out["generated_tokens"],
+            "tokens_per_s": out["tokens_per_s"],
+            "bits_per_weight": out["bits_per_weight"],
+            "cache_backend": out["cache_backend"],
+            "ttft_mean_s": m["ttft_mean_s"], "tbt_p50_s": m["tbt_p50_s"],
+            "phase_step_s": m["phase_step_s"], "launches": launches}
 
 
 def run_calibrated_path(torch, registry, kernels, path_kernels, peaks
@@ -947,7 +1167,7 @@ def run_calibrated_path(torch, registry, kernels, path_kernels, peaks
     del timer
     print("[calibrated mixed_matmul] " + json.dumps(cal_mm), flush=True)
     _, summary = serve_prompts(torch, cfg, qparams, kernels, path_kernels,
-                               "calibrated")
+                               "calibrated", CHUNKED)
     summary["layer0_mixed_matmul"] = cal_mm
     summary.update(
         bits_per_weight=bits, quantize_s=t_quant,
@@ -1047,6 +1267,19 @@ def main() -> int:
     projs = llama_projections(torch, cfg, gen)
     mm = check_mixed_matmul(torch, projs, timer, peaks, gen)
     print("[mixed_matmul] " + json.dumps(mm), flush=True)
+    # the other row counts the driven paths give the packed matmul
+    mm_rows = check_mixed_matmul(
+        torch, projs, timer, peaks,
+        torch.Generator(device="cuda").manual_seed(6), ms=PATH_ROWS)
+    for m in PATH_ROWS:
+        rows = [r for r in mm_rows if r["M"] == m]
+        print(f"[mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
+              f"{MM_ATOL}) one fused layer: kernel "
+              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
+              f"torch.matmul "
+              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
+              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
+              + json.dumps(rows), flush=True)
     pa = check_paged_attention(torch, cfg, timer, peaks, gen)
     print("[paged_attention] " + json.dumps(pa), flush=True)
     pf = check_paged_prefill(torch, cfg, timer, peaks, gen)
@@ -1081,10 +1314,23 @@ def main() -> int:
     print("[reference] reduced llama-7b (2 layers), f32, calibrated on the "
           "card and on the CPU: perm and packed bytes equal; "
           + json.dumps(cal), flush=True)
+    eng_small = check_small_engines(torch)
+    print("[reference] reduced llama-7b, f32, greedy tokens: contiguous "
+          "whole-prompt engine equal on the card and the CPU, whole-prompt "
+          "equal to chunked prefill on the card; "
+          + json.dumps(eng_small), flush=True)
 
-    # -- 5. the data-free main path ---------------------------------------
-    summary = run_main_path(torch, registry, kernels, path_kernels)
+    # -- 5. the data-free main path, then whole-prompt prefill -------------
+    # from here on the packed matmul counts its launches by (M, K, N)
+    mixed_matmul.KERNEL.shapes.clear()
+    summary, cfg, qparams = run_main_path(torch, registry, kernels,
+                                          path_kernels)
     print("[main] " + json.dumps(summary), flush=True)
+    whole = run_whole_prompt_paths(torch, cfg, qparams, kernels)
+    loss = run_loss(torch, cfg, qparams)
+    print("[loss] forward_loss of the data-free LLaMA-7B: "
+          + json.dumps(loss), flush=True)
+    del qparams
 
     # -- 6. the calibrated path ---------------------------------------------
     torch.cuda.empty_cache()
@@ -1092,6 +1338,11 @@ def main() -> int:
     cal_summary = run_calibrated_path(torch, registry, kernels, path_kernels,
                                       peaks)
     print("[calibrated] " + json.dumps(cal_summary), flush=True)
+
+    # -- 7. the serve entry point at the reference's defaults ---------------
+    torch.cuda.empty_cache()
+    serve_default = run_serve_default(torch, kernels)
+    print("[serve-default] " + json.dumps(serve_default), flush=True)
     unfused = [r for r in cal_summary["layer0_mixed_matmul"] if r["M"] == 8]
     print(f"[decode layer, M=8] mixed_matmul: fused (4 projections) "
           f"{sum(r['ms'] for r in mm if r['M'] == 8) * 1e3:.1f} us, "
@@ -1101,15 +1352,31 @@ def main() -> int:
           f" / {sum(r['library_ms'] for r in unfused) * 1e3:.1f} us",
           flush=True)
 
-    # -- 7. the kernels line and the result --------------------------------
+    # -- 8. every packed-matmul shape of the paths was checked; the kernels
+    # line and the result ---------------------------------------------------
+    checked = {(r["M"], r["K"], r["N"]) for r in
+               mm + mm_rows + cal_summary["layer0_mixed_matmul"]}
+    launched = dict(mixed_matmul.KERNEL.shapes)
+    unchecked = sorted(set(launched) - checked)
+    if unchecked:
+        _fail("mixed_matmul launched on the paths at (M, K, N) never held "
+              f"against its plain version: {unchecked}")
+    by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
+        launched.items())}
+    print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
+          "at in phases 5-7 was held against its plain version in phase 3 "
+          "or 6; launches by shape: " + json.dumps(by_shape), flush=True)
     launches = {"datafree": summary["launches"],
-                "calibrated": cal_summary["launches"]}
+                "calibrated": cal_summary["launches"],
+                "whole": whole["whole"]["launches"],
+                "whole-paged": whole["whole-paged"]["launches"],
+                "serve-default": serve_default["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
     entries = [
         _entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:158",
-               mm + cal_summary["layer0_mixed_matmul"]
+               mm + mm_rows + cal_summary["layer0_mixed_matmul"]
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from collections import Counter
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -101,13 +102,15 @@ class CudaKernel:
 
     ``launch`` calls the C function (which launches on the given stream
     and returns ``cudaGetLastError()``), raises if that is not 0, and
-    only then adds one to ``launches``."""
+    only then adds one to ``launches`` and, when the wrapper names the
+    launch's ``shape``, one to ``shapes[shape]``."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = CSRC / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.shapes: Counter = Counter()
         self._fn = None
         self._lib = None
 
@@ -128,13 +131,15 @@ class CudaKernel:
         self._load()
         return self._lib
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, shape: Optional[tuple] = None) -> None:
         err = self._load()(*args)
         if err != 0:
             msg = self._lib.kernel_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {err} "
                                f"({msg})")
         self.launches += 1
+        if shape is not None:
+            self.shapes[shape] += 1
 
 
 P = ctypes.c_void_p

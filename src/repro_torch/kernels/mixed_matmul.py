@@ -159,7 +159,8 @@ def launch_packed(kernel: CudaKernel, x: torch.Tensor,
                   alpha_r2: Optional[torch.Tensor], n: int,
                   k_s: int) -> torch.Tensor:
     """Launch the packed-matmul body on checked operands; a span that is
-    empty passes None for its tensors.  Returns y (M, N) bf16."""
+    empty passes None for its tensors.  Returns y (M, N) bf16.  The
+    launch is counted under its shape (M, K, N)."""
     m, k = x.shape
     y = x.new_empty((m, n))
     if m == 0 or n == 0:
@@ -171,5 +172,6 @@ def launch_packed(kernel: CudaKernel, x: torch.Tensor,
     kernel.launch(_HEAD.pack(x.data_ptr(), _ptr(perm), _ptr(w4), _ptr(s4),
                              _ptr(z4), _ptr(bits), _ptr(alpha_s),
                              _ptr(alpha_r1), _ptr(alpha_r2), y.data_ptr(),
-                             _ptr(ws), _ptr(xg), stream) + words)
+                             _ptr(ws), _ptr(xg), stream) + words,
+                  shape=(m, k, n))
     return y

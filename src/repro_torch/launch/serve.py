@@ -1,8 +1,8 @@
 """Serving launcher of the port: quantize a model with PTQ1.61 and serve
-a stream of requests through the paged, chunked-prefill engine.
+a stream of requests through the continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \\
-        --quantize datafree --fused --paged --chunked-prefill
+        --quantize datafree --fused
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-7b \\
         --quantize calibrated --paged --chunked-prefill
 
@@ -13,16 +13,34 @@ a stream of requests through the paged, chunked-prefill engine.
 learning) and serves one unfused packed projection per weight;
 ``--fused`` is ignored for it, as in ``repro.launch.serve``.
 
+By default, as in ``repro.launch.serve``, requests are served from the
+contiguous ring caches with whole-prompt prefill, prompts left-padded to
+the buckets ``(max_seq // 8, max_seq // 2)``.  ``--paged`` serves from
+the shared page pool (``--page-size`` tokens a page, ``--pool-pages`` in
+all); ``--chunked-prefill`` (paged only) advances prefills
+``--prefill-chunk`` tokens per tick, interleaved with decode.
+
+Event-loop options (the engine's typed event API):
+
+* ``--stream`` prints every token the tick it is emitted;
+* ``--cancel-after-s N`` cancels the longest-running in-flight request
+  once N seconds of serving have passed; the JSON output records the
+  cancelled rids and the pages each cancellation freed;
+* ``--priority a,b,c`` cycles the listed priority classes over the
+  requests (realtime / standard / batch); per-class TTFT and TBT land in
+  the engine metrics;
+* ``--deadline-s`` sets each request's admission deadline.
+
 Runs on the GPU (``--device cuda``, the default) and raises when CUDA is
 absent; ``--device cpu`` runs the same path with the kernels' plain
 PyTorch versions.  There is no kernel switch: on the card every packed
-projection, decode attention and prefill chunk goes through its CUDA
-kernel.  ``--paged`` and ``--chunked-prefill`` are required: the port
-has no contiguous backend and no whole-prompt prefill yet.
+projection, paged decode attention and prefill chunk goes through its
+CUDA kernel.  Not ported yet: ``--share-prefix`` and
+``--prefix-retain``.
 
 The JSON output carries the same engine metrics as ``repro.launch.serve``
-(tokens/s, TTFT, TBT p50/p95, queue depth, page utilization, per-phase
-step times).
+(tokens/s, TTFT, TBT p50/p95 overall and per class, queue depth, page
+utilization, per-phase step times).
 """
 from __future__ import annotations
 
@@ -41,13 +59,53 @@ from repro_torch.core.qlinear import QuantConfig
 from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
 from repro_torch.models import model as M
 from repro_torch.runtime.engine import Engine, resolve_device
+from repro_torch.runtime.events import FinishEvent, TokenEvent
+
+
+def _drive(engine: Engine, *, stream: bool, cancel_after_s=None):
+    """Event-API consumer over ``Engine.run(on_tick=...)``: drain the
+    queue after every tick, print tokens when streaming, and fire the
+    cancellation once its time has come.  Returns the cancellation
+    receipts."""
+    q = engine.event_queue()
+    cancelled = []
+    state = {"did_cancel": False, "t0": time.time()}
+
+    def after_tick():
+        if cancel_after_s is not None and not state["did_cancel"] and \
+                time.time() - state["t0"] >= cancel_after_s:
+            active = engine.running()
+            if active:
+                # longest-running = earliest submitted still in a slot
+                _, victim = min(active, key=lambda sr: sr[1].rid)
+                engine.cancel(victim.rid)
+                state["did_cancel"] = True
+        while q:
+            ev = q.popleft()
+            if isinstance(ev, TokenEvent) and stream:
+                print(f"[stream] rid={ev.rid} idx={ev.index} "
+                      f"tok={ev.token}", flush=True)
+            elif isinstance(ev, FinishEvent) and ev.reason == "cancelled":
+                cancelled.append({"rid": ev.rid, "tick": ev.tick,
+                                  "tokens_before_cancel": ev.n_tokens,
+                                  "freed_pages": ev.freed_pages})
+                if stream:
+                    print(f"[cancel] rid={ev.rid} freed_pages="
+                          f"{ev.freed_pages}", flush=True)
+
+    engine.run(on_tick=after_tick)
+    after_tick()        # events of the final tick's teardown
+    return cancelled
 
 
 def run(args) -> dict:
-    if not (args.paged and args.chunked_prefill):
-        raise SystemExit("repro_torch serves with --paged --chunked-prefill "
-                         "only: the contiguous backend and whole-prompt "
-                         "prefill are not ported yet")
+    if args.chunked_prefill and not args.paged:
+        raise SystemExit("--chunked-prefill requires --paged "
+                         "(chunks scatter into pool pages)")
+    classes = [c.strip() for c in args.priority.split(",") if c.strip()]
+    if not classes:
+        raise SystemExit("--priority needs at least one class name "
+                         "(e.g. --priority realtime,batch)")
     device = resolve_device(args.device)
     cfg = registry.get(args.arch)
     if args.reduced:
@@ -87,20 +145,33 @@ def run(args) -> dict:
               f"bits/weight over {rep['quantized_weights']:,} weights")
 
     engine = Engine(cfg, qparams, n_slots=args.slots, max_seq=args.max_seq,
-                    seed=args.seed, page_size=args.page_size,
-                    pool_pages=args.pool_pages,
+                    prefill_buckets=(args.max_seq // 8, args.max_seq // 2),
+                    seed=args.seed, paged=args.paged,
+                    page_size=args.page_size, pool_pages=args.pool_pages,
+                    chunked_prefill=args.chunked_prefill,
                     prefill_chunk=args.prefill_chunk,
                     fuse_projections=args.fused and args.quantize == "none",
-                    device=device)
+                    attn_chunk=args.attn_chunk, device=device)
+    for c in classes:
+        if not engine.scheduler.has_class(c):
+            raise SystemExit(f"unknown priority class {c!r}; configured: "
+                             f"{sorted(engine.scheduler.cfg.class_weights)}")
     rng = np.random.default_rng(args.seed)
     reqs = []
     for i in range(args.requests):
         plen = int(rng.integers(4, args.max_seq // 4))
         reqs.append(engine.submit(corpus.document(10_000 + i, plen),
                                   max_new=args.max_new,
-                                  temperature=args.temperature))
+                                  temperature=args.temperature,
+                                  deadline_s=args.deadline_s,
+                                  priority=classes[i % len(classes)]))
     t0 = time.time()
-    engine.run()
+    if args.stream or args.cancel_after_s is not None:
+        cancelled = _drive(engine, stream=args.stream,
+                           cancel_after_s=args.cancel_after_s)
+    else:
+        engine.run()
+        cancelled = []
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -111,6 +182,8 @@ def run(args) -> dict:
         "wall_s": dt,
         "tokens_per_s": toks / max(dt, 1e-9),
         "all_done": all(r.done for r in reqs),
+        "cancelled": cancelled,
+        "priority_classes": classes,
         "quantize_mode": args.quantize,
         "quantize_s": t_quant,
         "bits_per_weight": bits,
@@ -147,17 +220,29 @@ def parse_args(argv=None):
     p.add_argument("--calib-segments", type=int, default=4)
     p.add_argument("--calib-seq", type=int, default=64)
     p.add_argument("--attn-chunk", type=int, default=1024,
-                   help="key chunk of the calibration forward's attention")
+                   help="key chunk of whole-sequence attention (the "
+                        "calibration forward, whole-prompt prefill)")
     p.add_argument("--paged", action="store_true",
-                   help="paged KV cache (required)")
+                   help="paged KV cache (block tables + shared page pool)")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--pool-pages", type=int, default=None,
                    help="total pages in the pool (default: slots * "
                         "max_seq / page size)")
     p.add_argument("--chunked-prefill", action="store_true",
-                   help="advance prefills a chunk per tick (required)")
+                   help="advance prefills a chunk per tick, interleaved "
+                        "with decode (paged mode only)")
     p.add_argument("--prefill-chunk", type=int, default=64,
                    help="prompt tokens per chunk (multiple of --page-size)")
+    p.add_argument("--stream", action="store_true",
+                   help="print every token the tick it is emitted")
+    p.add_argument("--cancel-after-s", type=float, default=None,
+                   help="after N seconds of serving, cancel the longest-"
+                        "running in-flight request")
+    p.add_argument("--priority", default="standard",
+                   help="comma list of priority classes cycled across "
+                        "requests (realtime/standard/batch)")
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="per-request admission deadline in seconds")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--slots", type=int, default=4)
     p.add_argument("--max-seq", type=int, default=128)

@@ -1,13 +1,18 @@
 """Transformer layers (subset of ``repro.models.layers``): norms, RoPE,
 the fused QKV projection, the gated MLP, full-sequence self-attention
-(the calibration forward), and paged decode / chunked-prefill attention
+(the calibration forward and whole-prompt prefill), decode against the
+contiguous ring caches, and paged decode / chunked-prefill attention
 over the shared KV page pool.
 
 All linear weights are (in_features, out_features) and every matmul
 goes through :func:`repro_torch.models.linear.dense`, so packed
 ``QLinear`` / ``QLinearGroup`` weights drop in.  Tensors are updated in
-place where the JAX package returned new arrays: the page pools are
-written where they lie.
+place where the JAX package returned new arrays: the page pools and
+ring caches are written where they lie.
+
+Decode ring caches are ``window`` slots per decode row with a parallel
+int32 absolute-position array (``"p"``, -1 = empty) for the masks: slot
+``pos % window`` holds position ``pos``.
 """
 from __future__ import annotations
 
@@ -121,7 +126,8 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence attention (plain PyTorch, as the reference leaves it to XLA)
+# Full-sequence attention and the ring caches (plain PyTorch, as the
+# reference leaves both to XLA)
 # ---------------------------------------------------------------------------
 def _attend(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     """q (B, Sq, hq, dh), k/v (B, Sk, hkv, dh), mask (B or 1, Sq, Sk)
@@ -179,13 +185,25 @@ def _attend_chunked(q, k, v, q_pos, kv_pos, causal: bool,
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh)
 
 
+def make_cache(cfg: ArchConfig, batch: int, window: int, n_layers: int,
+               dtype=torch.bfloat16, device="cpu") -> Dict[str, torch.Tensor]:
+    """KV ring buffers for one layer stack: k/v ``(L, B, W, hkv, dh)``
+    and positions ``"p"`` ``(L, B, W)`` int32, all zeros."""
+    shape = (n_layers, batch, window, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "p": torch.zeros(shape[:3], dtype=torch.int32, device=device)}
+
+
 def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                    positions: torch.Tensor, *, causal: bool = True,
-                   window: Optional[int] = None,
-                   attn_chunk: int = 1024) -> torch.Tensor:
-    """Self-attention over a whole sequence (the calibration forward).
-    x (B, S, D), positions (B, S) int32.  Sequences longer than
-    ``attn_chunk`` that it divides stream over key chunks."""
+                   window: Optional[int] = None, attn_chunk: int = 1024,
+                   cache_window: Optional[int] = None):
+    """Self-attention over a whole sequence (the calibration forward and
+    whole-prompt prefill).  x (B, S, D), positions (B, S) int32, -1 for
+    padding (never attended).  Sequences longer than ``attn_chunk``
+    that it divides stream over key chunks.  With ``cache_window``, also
+    returns the decode ring cache built from the K/V computed here."""
     q, k, v = _project_qkv(cfg, p, x, positions)
     sk = k.shape[1]
     if sk > attn_chunk and sk % attn_chunk == 0:
@@ -199,7 +217,59 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             mask = mask & (qp - kp < window)
         o = _attend(q, k, v, mask, cfg.logit_softcap)
     o = o.to(x.dtype).reshape(x.shape[:-1] + (-1,))
-    return dense(o, p["wo"])
+    out = dense(o, p["wo"])
+    if cache_window is None:
+        return out
+    return out, ring_cache_from_kv(k, v, positions, cache_window)
+
+
+def ring_cache_from_kv(k: torch.Tensor, v: torch.Tensor,
+                       positions: torch.Tensor, window: int
+                       ) -> Dict[str, torch.Tensor]:
+    """Ring cache from prefill K/V (B, S, hkv, dh) and positions (B, S):
+    keep the last ``window`` slots (padding them with position -1 when
+    S < window) and order them so that slot = position % window.  Ties
+    among padding slots keep their order (stable sort), so the bytes
+    equal the reference's."""
+    s = k.shape[1]
+    if s >= window:
+        k_c, v_c, p_c = k[:, -window:], v[:, -window:], positions[:, -window:]
+    else:
+        pad = window - s
+        k_c = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v_c = F.pad(v, (0, 0, 0, 0, 0, pad))
+        p_c = F.pad(positions, (0, pad), value=-1)
+    order = torch.argsort(torch.remainder(p_c, window), dim=1, stable=True)
+    rows = order[:, :, None, None].expand(-1, -1, k_c.shape[2], k_c.shape[3])
+    return {"k": torch.gather(k_c, 1, rows), "v": torch.gather(v_c, 1, rows),
+            "p": torch.gather(p_c, 1, order)}
+
+
+def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                     pos: torch.Tensor, cache: Tree, *, layer: int,
+                     window: Optional[int] = None):
+    """Single-token decode against the stacked ring caches.
+
+    x (B, 1, D); pos (B,) absolute position of the new token; cache
+    {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)}.  The new K/V and its
+    position are written in place at ``[layer, b, pos % W]``; then the
+    row attends every slot whose position is live and not in the future.
+    """
+    b = x.shape[0]
+    q, k, v = _project_qkv(cfg, p, x, pos[:, None])
+    ck, cv, cp = cache["k"], cache["v"], cache["p"]
+    bi = torch.arange(b, device=x.device)
+    slot = torch.remainder(pos, ck.shape[2]).long()
+    ck[layer, bi, slot] = k[:, 0].to(ck.dtype)
+    cv[layer, bi, slot] = v[:, 0].to(cv.dtype)
+    cp[layer, bi, slot] = pos.to(cp.dtype)
+    qp, kp = pos[:, None, None], cp[layer][:, None, :]
+    mask = (kp <= qp) & (kp >= 0)
+    if window is not None:
+        mask = mask & (qp - kp < window)
+    o = _attend(q, ck[layer], cv[layer], mask, cfg.logit_softcap)
+    o = o.to(x.dtype).reshape(b, 1, -1)
+    return dense(o, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +299,36 @@ def paged_key_positions(block_tables: torch.Tensor, page_size: int
                          device=block_tables.device)[None, :])
     kp = torch.where(block_tables[:, :, None] >= 0, kp[None], -1)
     return kp.reshape(b, nblk * page_size)
+
+
+def scatter_pages(pool: Dict[str, torch.Tensor], k: torch.Tensor,
+                  v: torch.Tensor, positions: torch.Tensor,
+                  bt_row: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Scatter prefill K/V into pool pages, every layer at once, in place.
+
+    pool {"k", "v"} (L, P+1, ps, hkv, dh); k/v (L, S, hkv, dh) at the
+    token ``positions`` (S,) int32; bt_row (nblk,) the owning request's
+    (writable) block table.  Rows at position -1 or in an unassigned
+    block (entry -1) are dropped, as the reference's out-of-range
+    scatter drops them: they are aimed at the dump page and write back
+    what it already holds, so every byte of the pool, dump page
+    included, is the reference's, and nothing is read back to the host.
+    """
+    dump, ps = pool["k"].shape[1] - 1, pool["k"].shape[2]
+    t = positions.long()
+    tc = t.clamp_min(0)
+    blk = torch.clamp(torch.div(tc, ps, rounding_mode="floor"), 0,
+                      bt_row.shape[0] - 1)
+    page = bt_row.long()[blk]
+    valid = (t >= 0) & (page >= 0)
+    page = torch.where(valid, page, dump)
+    slot = tc % ps
+    for name, src in (("k", k), ("v", v)):
+        dst = pool[name]
+        src = torch.where(valid[None, :, None, None], src.to(dst.dtype),
+                          dst[:, page, slot])
+        dst[:, page, slot] = src
+    return pool
 
 
 def attention_decode_paged(cfg: ArchConfig, p: Tree, x: torch.Tensor,

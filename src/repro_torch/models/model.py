@@ -1,12 +1,15 @@
-"""Model facade for the paged serving path (subset of
-``repro.models.model``): parameter declaration, embedding and head,
-paged caches, one paged decode step and one chunked paged prefill step.
+"""Model facade (dense subset of ``repro.models.model``): parameter
+declaration, embedding and head, the causal-LM loss, whole-prompt
+prefill and decode over the contiguous ring caches, and the paged
+serving path (page pools, one paged decode step, one chunked paged
+prefill step, and the splice of a whole-prompt prefill into pages).
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
@@ -15,6 +18,7 @@ from repro_torch.models.linear import dense
 from repro_torch.models.param import P, materialize
 
 Tree = Any
+XENT_CHUNK = 512
 
 
 def declare_params(cfg: ArchConfig) -> Tree:
@@ -46,17 +50,122 @@ def _head_weight(cfg: ArchConfig, params: Tree):
     return params["lm_head"]
 
 
+def _mask_pad(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Padded vocabulary entries -> the f32 minimum."""
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    keep = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
+    return torch.where(keep, logits.to(torch.float32),
+                       torch.finfo(torch.float32).min)
+
+
 def logits_fn(cfg: ArchConfig, params: Tree, x: torch.Tensor
               ) -> torch.Tensor:
     """Final norm and the head, a plain matmul in the activation dtype;
     padded vocabulary entries are masked to the f32 minimum."""
     x = L.apply_norm(cfg, params["final_norm"], x)
-    logits = dense(x, _head_weight(cfg, params))
-    if cfg.vocab_padded == cfg.vocab:
-        return logits
-    keep = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
-    return torch.where(keep, logits.to(torch.float32),
-                       torch.finfo(torch.float32).min)
+    return _mask_pad(cfg, dense(x, _head_weight(cfg, params)))
+
+
+def softmax_xent_chunked(cfg: ArchConfig, params: Tree, x: torch.Tensor,
+                         targets: torch.Tensor, chunk: int = XENT_CHUNK
+                         ) -> torch.Tensor:
+    """Mean cross entropy of the head over x (B, S, D) against targets
+    (B, S), targets < 0 masked out, without forming (B, S, V) logits:
+    sequence chunks of ``chunk`` positions, each recomputed in the
+    backward pass (activation checkpointing)."""
+    b, s, _ = x.shape
+    x = L.apply_norm(cfg, params["final_norm"], x)
+    w = _head_weight(cfg, params)
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s
+
+    def chunk_loss(xx, tt):
+        logits = _mask_pad(cfg, dense(xx, w).to(torch.float32))
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, tt.clamp_min(0).long()[..., None])
+        mask = (tt >= 0).to(torch.float32)
+        return torch.sum((lse - picked[..., 0]) * mask), torch.sum(mask)
+
+    loss = torch.zeros((), device=x.device)
+    cnt = torch.zeros((), device=x.device)
+    for c0 in range(0, s, chunk):
+        l_c, n_c = checkpoint(chunk_loss, x[:, c0:c0 + chunk],
+                              targets[:, c0:c0 + chunk], use_reentrant=False)
+        loss, cnt = loss + l_c, cnt + n_c
+    return loss / torch.clamp_min(cnt, 1.0)
+
+
+def _backbone_inputs(cfg: ArchConfig, params: Tree,
+                     batch: Dict[str, torch.Tensor]):
+    """Token embeddings and positions (default 0..S-1 per row)."""
+    tokens = batch["tokens"]
+    x = embed_tokens(cfg, params, tokens)
+    positions = batch.get("positions")
+    if positions is None:
+        b, s = tokens.shape
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+    return x, positions
+
+
+def forward_loss(cfg: ArchConfig, params: Tree,
+                 batch: Dict[str, torch.Tensor],
+                 attn_chunk: int = 1024) -> torch.Tensor:
+    """Causal-LM loss of a dense decoder.  batch: tokens (B, S) and
+    targets (B, S) int (-1 = masked), optional positions (B, S)."""
+    x, positions = _backbone_inputs(cfg, params, batch)
+    for stage, sp in zip(cfg.stages, params["stages"]):
+        x = T.stage_full(cfg, stage, sp, x, positions, causal=True,
+                         attn_chunk=attn_chunk)
+    return softmax_xent_chunked(cfg, params, x, batch["targets"])
+
+
+# ---------------------------------------------------------------------------
+# Whole-prompt prefill and decode over the contiguous ring caches
+# ---------------------------------------------------------------------------
+def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
+            max_seq: int, attn_chunk: int = 1024):
+    """Whole-sequence prefill.  batch: tokens (B, S) int32 and optional
+    positions (B, S) int32 (-1 = left padding).  Returns (last-token
+    logits (B, 1, V), caches): per stage and pattern position, ring
+    caches {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)}."""
+    x, positions = _backbone_inputs(cfg, params, batch)
+    caches = []
+    for stage, sp in zip(cfg.stages, params["stages"]):
+        x, c = T.stage_prefill(cfg, stage, sp, x, positions, max_seq,
+                               attn_chunk)
+        caches.append(c)
+    return logits_fn(cfg, params, x[:, -1:]), tuple(caches)
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
+                dtype=torch.bfloat16, device="cpu"):
+    """Empty decode ring caches for every stage (positions -1)."""
+    return tuple(T.init_stage_cache(cfg, s, batch, max_seq, dtype, device)
+                 for s in cfg.stages)
+
+
+def decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
+                pos: torch.Tensor, caches, max_seq: int):
+    """One decode step over the ring caches, every row.  token/pos (B,)
+    int32.  Returns (logits (B, V), caches)."""
+    x = embed_tokens(cfg, params, token[:, None])
+    for stage, sp, c in zip(cfg.stages, params["stages"], caches):
+        x, _ = T.stage_step(cfg, stage, sp, x, pos, c, max_seq)
+    return logits_fn(cfg, params, x)[:, 0], caches
+
+
+def splice_prefill(cfg: ArchConfig, caches, cache1, slot: int):
+    """Copy a batch-1 prefill cache into decode row ``slot`` of every
+    ring, in place: the whole row, positions included, so nothing of
+    the row's previous occupant stays live."""
+    for cs, c1s in zip(caches, cache1):
+        for c, c1 in zip(cs, c1s):
+            for name in c:
+                c[name][:, slot] = c1[name][:, 0]
+    return caches
 
 
 def init_paged_caches(cfg: ArchConfig, num_pages: int, page_size: int,
@@ -66,6 +175,14 @@ def init_paged_caches(cfg: ArchConfig, num_pages: int, page_size: int,
     return tuple(T.init_stage_cache_paged(cfg, s, num_pages, page_size,
                                           dtype, device)
                  for s in cfg.stages)
+
+
+def splice_prefill_paged(cfg: ArchConfig, caches, cache1,
+                         bt_row: torch.Tensor):
+    """Scatter a batch-1 prefill cache into the pool pages of ``bt_row``
+    (-1 entries and padding positions are dropped), in place."""
+    return tuple(T.stage_splice_paged(cfg, stage, cs, c1, bt_row)
+                 for stage, cs, c1 in zip(cfg.stages, caches, cache1))
 
 
 def copy_pages(cfg: ArchConfig, caches, src: torch.Tensor,

@@ -1,10 +1,13 @@
 """Transformer assembly (dense subset of ``repro.models.transformer``):
-the full-sequence block forward of calibration, and the paged serving
-path.
+the full-sequence forward (calibration, loss), whole-prompt prefill with
+its decode caches, decode over the contiguous ring caches, and the paged
+serving path.
 
 A stage's parameters are a list over its layers, each a tuple over the
-stage's block pattern.  Depth is a Python loop; the page pools
-``(L, P+1, ps, hkv, dh)`` are updated in place layer by layer.
+stage's block pattern.  Depth is a Python loop; a stage's caches are a
+tuple over the pattern of stacked tensors — ring caches ``(L, B, W,
+hkv, dh)`` with positions ``(L, B, W)``, page pools ``(L, P+1, ps, hkv,
+dh)`` — updated in place layer by layer.
 """
 from __future__ import annotations
 
@@ -77,8 +80,40 @@ def fuse_params_for_decode(params: Tree) -> Tree:
     return new
 
 
+def unfuse_block_params(p: Tree) -> Tree:
+    """Inverse of :func:`fuse_block_params`: per-projection weights as
+    unfused views over the same (fp or packed) data — the oracle the
+    fused path is tested against."""
+    p = dict(p)
+    attn = p.get("attn")
+    if attn is not None and "wqkv" in attn:
+        attn = dict(attn)
+        attn["wq"], attn["wk"], attn["wv"] = attn.pop("wqkv").members()
+        p["attn"] = attn
+    mlp = p.get("mlp")
+    if mlp is not None and "wgu" in mlp:
+        mlp = dict(mlp)
+        mlp["wg"], mlp["wu"] = mlp.pop("wgu").members()
+        p["mlp"] = mlp
+    return p
+
+
+def unfuse_params_for_oracle(params: Tree) -> Tree:
+    new = dict(params)
+    new["stages"] = [[tuple(unfuse_block_params(bp) for bp in lp)
+                      for lp in sp] for sp in params["stages"]]
+    return new
+
+
 def _kind_window(cfg: ArchConfig, kind: str) -> Optional[int]:
     return cfg.attn_window if kind == "dense" else None
+
+
+def _cache_window(cfg: ArchConfig, kind: str, max_seq: int) -> int:
+    """Ring slots a block kind's decode cache holds: its window, at most
+    ``max_seq``."""
+    w = _kind_window(cfg, kind)
+    return min(w, max_seq) if w is not None else max_seq
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +131,89 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                          attn_chunk=attn_chunk)
     x = x + h
     return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+
+
+def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
+               positions: torch.Tensor, *, causal: bool = True,
+               attn_chunk: int = 1024) -> torch.Tensor:
+    """A stage's layers over a whole sequence (the loss forward; dense
+    blocks carry no auxiliary loss)."""
+    for lp in sparams:
+        for i, kind in enumerate(stage.pattern):
+            x = block_full(cfg, kind, lp[i], x, positions, causal=causal,
+                           attn_chunk=attn_chunk)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Whole-prompt prefill, and decode over the contiguous ring caches
+# ---------------------------------------------------------------------------
+def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
+                  positions: torch.Tensor, max_seq: int,
+                  attn_chunk: int = 1024):
+    """One block over a whole (left-padded) prompt.  Returns (x, ring
+    cache {"k", "v": (B, W, hkv, dh), "p": (B, W)})."""
+    _check_kind(kind)
+    h, cache = L.attention_full(
+        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), positions,
+        causal=True, window=_kind_window(cfg, kind),
+        attn_chunk=attn_chunk,
+        cache_window=_cache_window(cfg, kind, max_seq))
+    x = x + h
+    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
+        cache
+
+
+def stage_prefill(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
+                  positions: torch.Tensor, max_seq: int,
+                  attn_chunk: int = 1024):
+    """Prefill a stage.  Returns (x, caches): per pattern position, the
+    layers' ring caches stacked on a leading layer axis."""
+    per_pos: List[List[Tree]] = [[] for _ in stage.pattern]
+    for lp in sparams:
+        for i, kind in enumerate(stage.pattern):
+            x, c = block_prefill(cfg, kind, lp[i], x, positions, max_seq,
+                                 attn_chunk)
+            per_pos[i].append(c)
+    return x, tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+                    for cs in per_pos)
+
+
+def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
+               pos: torch.Tensor, cache: Tree, max_seq: int, layer: int):
+    _check_kind(kind)
+    h, cache = L.attention_decode(
+        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos, cache,
+        layer=layer, window=_kind_window(cfg, kind))
+    x = x + h
+    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
+        cache
+
+
+def stage_step(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
+               pos: torch.Tensor, caches, max_seq: int):
+    """Decode walk over a stage; each layer writes its slot of the
+    stacked ring caches in place."""
+    for layer, lp in enumerate(sparams):
+        for i, kind in enumerate(stage.pattern):
+            x, _ = block_step(cfg, kind, lp[i], x, pos, caches[i], max_seq,
+                              layer)
+    return x, caches
+
+
+def init_stage_cache(cfg: ArchConfig, stage: Stage, batch: int,
+                     max_seq: int, dtype=torch.bfloat16,
+                     device="cpu") -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Empty decode ring caches for a stage: per pattern position
+    ``L.make_cache`` with every position -1."""
+    out = []
+    for kind in stage.pattern:
+        _check_kind(kind)
+        c = L.make_cache(cfg, batch, _cache_window(cfg, kind, max_seq),
+                         stage.repeats, dtype, device)
+        c["p"].fill_(-1)
+        out.append(c)
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +269,17 @@ def stage_prefill_step_paged(cfg: ArchConfig, stage: Stage, sparams, x,
                                             caches[i], bt_read, bt_write,
                                             start, length, layer)
     return x, caches
+
+
+def stage_splice_paged(cfg: ArchConfig, stage: Stage, pool_stage: Tree,
+                       cache1_stage: Tree, bt_row: torch.Tensor) -> Tree:
+    """Scatter one request's whole-prompt prefill caches (batch 1) into
+    the pages of ``bt_row`` by absolute token position, in place."""
+    for kind, pool, c1 in zip(stage.pattern, pool_stage, cache1_stage):
+        _check_kind(kind)
+        L.scatter_pages(pool, c1["k"][:, 0], c1["v"][:, 0], c1["p"][0, 0],
+                        bt_row)
+    return pool_stage
 
 
 def stage_copy_pages(stage: Stage, pool_stage: Tree, src: torch.Tensor,

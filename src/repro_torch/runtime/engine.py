@@ -1,24 +1,36 @@
-"""Serving engine: the paged backend with chunked prefill (the main-path
-subset of ``repro.runtime.engine``).
+"""Serving engine: continuous batching over contiguous or paged KV (the
+dense subset of ``repro.runtime.engine``).
 
-Continuous batching over a fixed decode batch of ``n_slots``.  All slots
-share one pool of fixed-size KV pages addressed through per-request
-block tables (``repro_torch.runtime.paged_cache``).  Admission reserves
-a prompt's pages and sets a *chunk frontier*; each tick advances at most
-``prefill_chunks_per_tick`` chunks of ``prefill_chunk`` prompt tokens —
-one fused scatter+attend kernel call per layer that writes the chunk's
-K/V straight into the slot's pages — and then runs one batched decode
-step over the slots that are decoding (mid-prefill slots are masked
-out: block-table rows -1, context lengths 0).  When the pool runs dry
-the scheduler preempts a victim and re-queues it; a resumed request
-re-prefills its context and continues with identical greedy tokens.
+A fixed decode batch of ``n_slots``; each slot holds one request and its
+own position, and one batched decode step advances every slot.  Two
+cache backends behind one interface:
+
+* **contiguous** (the default): each slot owns a ``max_seq``-slot ring
+  region in every layer (``models.layers`` ring caches).
+* **paged**: all slots share one pool of fixed-size KV pages addressed
+  through per-request block tables
+  (``repro_torch.runtime.paged_cache``); when the pool runs dry the
+  scheduler preempts a victim and re-queues it, and the resumed request
+  re-prefills its context and continues with identical greedy tokens.
+
+Prefill, on either backend by default, is **whole-prompt**: a request's
+context is left-padded to the smallest of ``prefill_buckets`` that
+holds it (position -1 on the padding) and prefilled in one pass, whose
+caches are spliced into the slot's ring row or scattered into its
+pages.  With ``chunked_prefill=True`` (paged only) admission instead
+reserves the prompt's pages and sets a *chunk frontier*; each tick
+advances at most ``prefill_chunks_per_tick`` chunks of
+``prefill_chunk`` tokens — one fused scatter+attend kernel call per
+layer — and then decodes the slots that are decoding (mid-prefill slots
+masked out: block-table rows -1, context lengths 0).
 
 :meth:`Engine.tick` publishes typed events (``repro_torch.runtime.events``)
-on ``Engine.events`` as they happen; :meth:`Engine.run` drives ticks until the work drains;
+as they happen (:meth:`Engine.subscribe`, :meth:`Engine.event_queue`);
+:meth:`Engine.run` drives ticks until the work drains;
 :meth:`Engine.cancel` aborts a request wherever it is.
 
-Not ported yet, and refused by the constructor: the contiguous backend,
-whole-prompt prefill, and prefix sharing / retention.
+Not ported yet, and refused by the constructor: prefix sharing and
+retention, and block kinds other than dense.
 """
 from __future__ import annotations
 
@@ -76,6 +88,50 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+class _ContiguousBackend:
+    """Per-slot ring regions of ``max_seq`` slots in every layer (bf16,
+    as the reference's)."""
+
+    name = "contiguous"
+    page_size = 1                       # no page budget: see free_pages
+
+    def __init__(self, eng: "Engine"):
+        self.eng = eng
+        self.caches = M.init_caches(eng.cfg, eng.n_slots, eng.max_seq,
+                                    device=eng.device)
+
+    def check_request(self, n_tokens: int) -> None:
+        """Every request fits: its slot's region covers max_seq."""
+
+    def free_pages(self) -> Optional[int]:
+        return None                     # slots reserve max_seq up front
+
+    def page_util(self) -> Optional[float]:
+        return None
+
+    def splice(self, slot: int, cache1, n_tokens: int) -> None:
+        self.caches = M.splice_prefill(self.eng.cfg, self.caches, cache1,
+                                       slot)
+
+    def ensure_capacity(self, slot: int, pos: int) -> bool:
+        return True                     # the region covers max_seq
+
+    def release(self, slot: int) -> int:
+        return 0                        # the next splice overwrites it
+
+    def decode(self, params, toks: np.ndarray, pos: np.ndarray,
+               active: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One decode step over every slot, empty ones included (their
+        rows are rewritten whole by the next splice).  ``active`` is
+        always None here: only chunked prefill, which is paged, leaves
+        slots mid-prefill."""
+        dev = self.eng.device
+        logits, self.caches = M.decode_step(
+            self.eng.cfg, params, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(pos).to(dev), self.caches, self.eng.max_seq)
+        return logits
+
+
 class _PagedBackend:
     """Shared page pool + per-slot block tables (see paged_cache.py)."""
 
@@ -95,6 +151,15 @@ class _PagedBackend:
     def page_size(self) -> int:
         return self.pool.page_size
 
+    def check_request(self, n_tokens: int) -> None:
+        """Refuse a request whose ``n_tokens`` (prompt plus new tokens,
+        capped at max_seq) need more pages than the whole pool."""
+        need = pages_for_tokens(n_tokens, self.page_size)
+        if need > self.pool.num_pages:
+            raise ValueError(
+                f"request needs {need} pages but the pool only has "
+                f"{self.pool.num_pages}; grow --pool-pages")
+
     def free_pages(self) -> int:
         return self.pool.free_pages
 
@@ -111,6 +176,17 @@ class _PagedBackend:
             src = self._dev(np.asarray([s for s, _ in pairs]))
             dst = self._dev(np.asarray([d for _, d in pairs]))
             self.caches = M.copy_pages(self.eng.cfg, self.caches, src, dst)
+
+    def splice(self, slot: int, cache1, n_tokens: int) -> None:
+        """Scatter a whole-prompt prefill cache into ``slot``'s pages
+        (reserved here for its ``n_tokens``)."""
+        if not self.tables.ensure_blocks(
+                slot, pages_for_tokens(n_tokens, self.page_size)):
+            raise RuntimeError("admission must reserve prompt pages first")
+        self._apply_cow()
+        bt_row = self._dev(self.tables.writable_row(slot))
+        self.caches = M.splice_prefill_paged(self.eng.cfg, self.caches,
+                                             cache1, bt_row)
 
     def ensure_capacity(self, slot: int, pos: int) -> bool:
         return self.tables.ensure_for_position(slot, pos)
@@ -150,50 +226,65 @@ class _PagedBackend:
 
 class Engine:
     def __init__(self, cfg: ArchConfig, params: Tree, *, n_slots: int = 4,
-                 max_seq: int = 512, seed: int = 0, paged: bool = True,
-                 page_size: int = 16, pool_pages: Optional[int] = None,
+                 max_seq: int = 512, prefill_buckets=(64, 256),
+                 seed: int = 0, paged: bool = False, page_size: int = 16,
+                 pool_pages: Optional[int] = None,
                  prefix_sharing: bool = False,
                  prefix_retain_pages: int = 0,
-                 chunked_prefill: bool = True, prefill_chunk: int = 64,
+                 chunked_prefill: bool = False, prefill_chunk: int = 64,
                  prefill_chunks_per_tick: int = 1, cache_dtype=None,
                  scheduler: Optional[Scheduler] = None,
                  metrics: Optional[EngineMetrics] = None,
-                 fuse_projections: bool = False, device="cuda"):
-        if not paged:
-            raise NotImplementedError(
-                "the contiguous cache backend is not ported yet; use "
-                "paged=True")
-        if not chunked_prefill:
-            raise NotImplementedError(
-                "whole-prompt prefill is not ported yet; use "
-                "chunked_prefill=True")
-        if prefix_sharing or prefix_retain_pages:
-            raise NotImplementedError(
-                "prefix sharing and retention are not ported yet")
+                 fuse_projections: bool = False, attn_chunk: int = 1024,
+                 device="cuda"):
+        """``cache_dtype`` sets the page pools' dtype (bf16 by default);
+        the contiguous rings are bf16, as the reference's.
+        ``attn_chunk`` is the key chunk of whole-prompt prefill attention
+        (the reference's ``Parallel.attn_chunk``)."""
         kinds = {k for s in cfg.stages for k in s.pattern}
         if not kinds <= set(T.KINDS):
             raise NotImplementedError(
                 f"block kinds {sorted(kinds - set(T.KINDS))} are not "
                 f"ported yet")
-        if page_size <= 0:
+        if chunked_prefill:
+            if not paged:
+                raise ValueError("chunked_prefill requires paged=True "
+                                 "(chunks scatter into pool pages)")
+            if prefill_chunk <= 0 or prefill_chunk % page_size:
+                raise ValueError(
+                    f"prefill_chunk={prefill_chunk} must be a positive "
+                    f"multiple of page_size={page_size} (chunks must "
+                    f"tile into pages)")
+            if prefill_chunks_per_tick <= 0:
+                raise ValueError("prefill_chunks_per_tick must be >= 1")
+        if prefix_sharing and not paged:
+            raise ValueError("prefix_sharing requires paged=True "
+                             "(sharing lives in the page allocator)")
+        if prefix_retain_pages and not prefix_sharing:
+            raise ValueError("prefix_retain_pages requires "
+                             "prefix_sharing=True (retention extends the "
+                             "prefix cache's hit window)")
+        if prefix_sharing:
+            raise NotImplementedError(
+                "prefix sharing and retention are not ported yet")
+        if paged and page_size <= 0:
             raise ValueError(f"page_size must be positive, got {page_size}")
-        if prefill_chunk <= 0 or prefill_chunk % page_size:
-            raise ValueError(
-                f"prefill_chunk={prefill_chunk} must be a positive "
-                f"multiple of page_size={page_size} (chunks must tile "
-                f"into pages)")
-        if prefill_chunks_per_tick <= 0:
-            raise ValueError("prefill_chunks_per_tick must be >= 1")
         self.device = resolve_device(device)
         if fuse_projections:
             params = T.fuse_params_for_decode(params)
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_seq = n_slots, max_seq
+        self.buckets = tuple(sorted(b for b in prefill_buckets
+                                    if b <= max_seq)) or (max_seq,)
+        self.chunked_prefill = chunked_prefill
         self.prefill_chunk = prefill_chunk
         self.prefill_chunks_per_tick = prefill_chunks_per_tick
-        # a prompt of max_seq tokens would put the first decode write at
-        # position max_seq — cap prompts one short
-        self.max_prompt = max_seq - 1
+        self.attn_chunk = attn_chunk
+        # a prefill of max_seq tokens would put the first decode write at
+        # position max_seq — cap prompts one short; whole-prompt prefill
+        # also caps them at the largest bucket
+        self.max_prompt = (max_seq - 1 if chunked_prefill
+                           else min(self.buckets[-1], max_seq - 1))
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.scheduler = scheduler or Scheduler()
@@ -204,13 +295,16 @@ class Engine:
         self.pos = np.zeros((n_slots,), np.int32)
         self.cur_tok = np.zeros((n_slots,), np.int32)
         self.temps = np.zeros((n_slots,), np.float32)
-        if pool_pages is None:
-            pool_pages = n_slots * pages_for_tokens(max_seq, page_size)
-        self.backend = _PagedBackend(self, page_size, pool_pages,
-                                     cache_dtype or torch.bfloat16)
-        # slot -> in-progress prefill state ({"seq", "frontier",
-        # "resumed"}); a slot present here holds a request but does not
-        # decode yet
+        if paged:
+            if pool_pages is None:
+                pool_pages = n_slots * pages_for_tokens(max_seq, page_size)
+            self.backend = _PagedBackend(self, page_size, pool_pages,
+                                         cache_dtype or torch.bfloat16)
+        else:
+            self.backend = _ContiguousBackend(self)
+        # chunked prefill: slot -> in-progress prefill state ({"seq",
+        # "frontier", "resumed"}); a slot present here holds a request
+        # but does not decode yet
         self._prefill_state: Dict[int, Dict[str, Any]] = {}
         self._rid = 0
         self._requests: Dict[int, Request] = {}
@@ -231,12 +325,24 @@ class Engine:
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         if (phase, shape_key) in self._warm_shapes:
-            self.metrics.on_phase_time(phase, dt)
+            self.metrics.on_phase_time(phase, dt, shape_key)
         else:
             self._warm_shapes.add((phase, shape_key))
-            self.metrics.on_phase_time(phase + "_compile", dt)
+            self.metrics.on_phase_time(phase + "_compile", dt, shape_key)
             self.metrics.on_stall()
         return out
+
+    # -- event API ------------------------------------------------------
+    def subscribe(self, cb):
+        """Register a callback for every engine event.  Callbacks run
+        inside ``tick()``; ``Engine.cancel`` called from one is deferred
+        to the end of the current tick."""
+        return self.events.subscribe(cb)
+
+    def event_queue(self, maxlen: Optional[int] = None):
+        """A drainable event queue (``collections.deque``): the
+        streaming consumer drains it with ``popleft()`` between ticks."""
+        return self.events.queue(maxlen)
 
     def _emit(self, ev) -> None:
         self.events.publish(ev)
@@ -247,8 +353,8 @@ class Engine:
                deadline_s: Optional[float] = None,
                priority: str = DEFAULT_CLASS) -> Request:
         prompt = np.asarray(prompt, np.int32)
-        # prompts longer than the decode ceiling keep their most recent
-        # tokens
+        # prompts longer than the largest prefill bucket (or the decode
+        # ceiling) keep their most recent tokens
         if len(prompt) > self.max_prompt:
             prompt = prompt[-self.max_prompt:]
         if not self.scheduler.has_class(priority):
@@ -265,16 +371,21 @@ class Engine:
             self.metrics.on_finish(r.rid)
             self._emit(FinishEvent(r.rid, "empty", 0, 0, self._tick_no))
             return r
-        need = pages_for_tokens(min(len(prompt) + max_new, self.max_seq),
-                                self.backend.page_size)
-        if need > self.backend.pool.num_pages:
-            raise ValueError(
-                f"request needs {need} pages but the pool only has "
-                f"{self.backend.pool.num_pages}; grow --pool-pages")
+        self.backend.check_request(min(len(prompt) + max_new,
+                                       self.max_seq))
         self._requests[r.rid] = r
         self.scheduler.enqueue(r)
         self.metrics.on_submit(r.rid, priority)
         return r
+
+    def _bucket(self, s: int) -> int:
+        for b in self.buckets:
+            if s <= b:
+                return b
+        # fresh prompts are cut to max_prompt <= buckets[-1], so only a
+        # preemption resume lands here: it keeps its whole context in
+        # one extra shape, max_seq
+        return self.max_seq
 
     def _context_seq(self, r: Request) -> np.ndarray:
         """The tokens a (re-)prefill of ``r`` covers: the prompt, plus
@@ -285,10 +396,74 @@ class Engine:
                                    np.asarray(r.out_tokens[:-1], np.int32)])
         return r.prompt
 
+    def _finish_at_prefill(self, r: Request, tok: int, slot: int) -> bool:
+        """Record the token sampled from the prefill logits; when it is
+        the request's last (max_new = 1), finish the request, give back
+        ``slot``'s storage and return True."""
+        r.out_tokens.append(tok)
+        self.metrics.on_token(r.rid)
+        self._emit(TokenEvent(r.rid, tok, len(r.out_tokens) - 1,
+                              self._tick_no))
+        if len(r.out_tokens) < r.max_new:
+            return False
+        r.done = True
+        self.metrics.on_finish(r.rid)
+        self._requests.pop(r.rid, None)
+        freed = self.backend.release(slot)
+        self.slot_req[slot] = None
+        self._emit(FinishEvent(r.rid, "max_new", len(r.out_tokens), freed,
+                               self._tick_no))
+        return True
+
     def _start(self, slot: int, r: Request) -> None:
-        """Occupy ``slot``: reserve the prompt's pages and set the chunk
-        frontier; the compute happens chunk by chunk in
-        :meth:`_advance_prefill` over the following ticks."""
+        """(Re-)prefill ``r`` in one pass and occupy ``slot``.
+
+        A fresh request samples its first token from the prefill logits;
+        a preempted one prefills its prompt plus the tokens it had
+        generated, minus the pending one, which is re-fed as the next
+        decode input."""
+        if self.chunked_prefill:
+            return self._start_chunked(slot, r)
+        resumed = bool(r.out_tokens)
+        seq = self._context_seq(r)
+        s = len(seq)
+        if s > self.max_seq - 1:
+            raise RuntimeError(f"context of {s} tokens exceeds "
+                               f"max_seq-1={self.max_seq - 1}")
+        b = self._bucket(s)
+        toks = np.zeros((1, b), np.int32)
+        toks[0, b - s:] = seq                   # left-pad
+        # padding positions are -1: never attended, never cached
+        idx = np.arange(b, dtype=np.int32)
+        positions = np.where(idx >= b - s, idx - (b - s), -1)[None]
+        batch = {"tokens": torch.from_numpy(toks).to(self.device),
+                 "positions": torch.from_numpy(positions).to(self.device)}
+        logits, cache1 = self._timed(
+            "prefill", b, lambda: M.prefill(self.cfg, self.params, batch,
+                                            self.max_seq, self.attn_chunk))
+        self.backend.splice(slot, cache1, s)
+        # this slot decodes at position s in this tick, after the growth
+        # pass: admission reserved that page (prompt + 1)
+        if not self.backend.ensure_capacity(slot, s):
+            raise RuntimeError("admission must reserve the first decode "
+                               "page")
+        if resumed:
+            tok = r.out_tokens[-1]
+        else:
+            tok = int(_sample_batched(logits[:, -1],
+                                      np.asarray([r.temperature],
+                                                 np.float32), self.gen)[0])
+            if self._finish_at_prefill(r, tok, slot):
+                return
+        self.slot_req[slot] = r
+        self.pos[slot] = s
+        self.cur_tok[slot] = tok
+        self.temps[slot] = r.temperature
+
+    def _start_chunked(self, slot: int, r: Request) -> None:
+        """Occupy ``slot`` for chunked prefill: reserve the prompt's
+        pages and set the chunk frontier; the compute happens chunk by
+        chunk in :meth:`_advance_prefill` over the following ticks."""
         be = self.backend
         seq = self._context_seq(r)
         if len(seq) > self.max_seq - 1:
@@ -342,18 +517,7 @@ class Engine:
             tok = int(_sample_batched(logits, np.asarray([r.temperature],
                                                          np.float32),
                                       self.gen)[0])
-            r.out_tokens.append(tok)
-            self.metrics.on_token(r.rid)
-            self._emit(TokenEvent(r.rid, tok, len(r.out_tokens) - 1,
-                                  self._tick_no))
-            if len(r.out_tokens) >= r.max_new:
-                r.done = True
-                self.metrics.on_finish(r.rid)
-                self._requests.pop(r.rid, None)
-                freed = be.release(slot)
-                self.slot_req[slot] = None
-                self._emit(FinishEvent(r.rid, "max_new", len(r.out_tokens),
-                                       freed, self._tick_no))
+            if self._finish_at_prefill(r, tok, slot):
                 return length
         self.pos[slot] = s
         self.cur_tok[slot] = tok
@@ -367,7 +531,9 @@ class Engine:
             self._requests.pop(r.rid, None)
             self._emit(ExpireEvent(r.rid, self._tick_no))
         for slot in range(self.n_slots):
-            if self.slot_req[slot] is None:
+            # while, not if: a max_new = 1 request finishes at its
+            # whole-prompt prefill and leaves the slot free
+            while self.slot_req[slot] is None:
                 r = self.scheduler.next_admissible(
                     self.backend.free_pages(), self.backend.page_size)
                 if r is None:
@@ -455,9 +621,10 @@ class Engine:
 
     # ------------------------------------------------------------------
     def tick(self) -> bool:
-        """One tick: growth (with preemption), admission, a bounded slice
-        of chunked prefill, then one batched decode step.  Returns False
-        when nothing was running or admissible."""
+        """One tick: growth (with preemption), admission (whole-prompt
+        prefills run here), a bounded slice of chunked prefill, then one
+        batched decode step.  Returns False when nothing was running or
+        admissible."""
         self._tick_no += 1
         self._in_tick = True
         try:

@@ -72,8 +72,11 @@ class EngineMetrics:
         self.active_slots: List[int] = []
         self.page_util: List[float] = []
         # per-phase device-step wall times (engine reports blocked-on
-        # -result durations around each prefill / decode call)
+        # -result durations around each prefill / decode call), and the
+        # same times per "<phase>@<shape>" (prefill bucket, decode
+        # backend) when the engine names the step's shape
         self.phase_times: Dict[str, List[float]] = {}
+        self.shape_times: Dict[str, List[float]] = {}
 
     # -- lifecycle events ----------------------------------------------
     def on_submit(self, rid: int, priority: str = "standard") -> None:
@@ -137,14 +140,19 @@ class EngineMetrics:
         skipped the prefill compute entirely."""
         self.prefill_tokens_skipped += n_tokens
 
-    def on_phase_time(self, phase: str, seconds: float) -> None:
-        """Record one step's wall time for ``phase``.  Decode runs
+    def on_phase_time(self, phase: str, seconds: float,
+                      shape=None) -> None:
+        """Record one step's wall time for ``phase``, and under
+        "<phase>@<shape>" when ``shape`` is given.  Decode runs
         at M=n_slots while prefill runs at the bucket length, so the two
         must be reported separately for the fused-projection /
         autotuned-kernel win to be visible.  The engine routes each
         compiled shape's first call to "<phase>_compile", keeping the
         base series pure steady-state."""
         self.phase_times.setdefault(phase, []).append(seconds)
+        if shape is not None:
+            self.shape_times.setdefault(f"{phase}@{shape}", []).append(
+                seconds)
 
     def on_tick(self, queue_depth: int, active_slots: int,
                 page_util: Optional[float] = None) -> None:
@@ -181,6 +189,13 @@ class EngineMetrics:
                 if self._start_t is not None and self._last_t is not None
                 else 0.0)
         mean = lambda xs: sum(xs) / len(xs) if xs else 0.0
+
+        def steps(series: Dict[str, List[float]]) -> Dict:
+            return {key: {"count": len(ts), "total_s": sum(ts),
+                          "mean_s": mean(ts),
+                          "p50_s": _percentile(ts, 0.50),
+                          "p95_s": _percentile(ts, 0.95)}
+                    for key, ts in sorted(series.items())}
         by_class: Dict[str, List[_ReqTimes]] = {}
         for rid, t in served.items():
             by_class.setdefault(t.priority, []).append(t)
@@ -217,15 +232,8 @@ class EngineMetrics:
             "page_util_mean": mean(self.page_util),
             "page_util_max": max(self.page_util, default=0.0),
             "per_class": per_class,
-            "phase_step_s": {
-                phase: {
-                    "count": len(ts),
-                    "total_s": sum(ts),
-                    "mean_s": mean(ts),
-                    "p50_s": _percentile(ts, 0.50),
-                    "p95_s": _percentile(ts, 0.95),
-                } for phase, ts in sorted(self.phase_times.items())
-            },
+            "phase_step_s": steps(self.phase_times),
+            "shape_step_s": steps(self.shape_times),
         }
 
     def to_json(self, path: Optional[str] = None) -> str:

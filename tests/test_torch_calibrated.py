@@ -489,10 +489,10 @@ def test_engine_greedy_tokens_match_repro_on_calibrated_weights(
     rng = np.random.default_rng(9)
     prompts = [rng.integers(1, 512, size=n).astype(np.int32)
                for n in (5, 19, 40)]
-    common = dict(n_slots=2, max_seq=64, page_size=8, prefill_chunk=16)
+    common = dict(n_slots=2, max_seq=64, paged=True, chunked_prefill=True,
+                  page_size=8, prefill_chunk=16)
     outs = []
-    for eng in (REngine(rcfg, PAR, rqk, paged=True, chunked_prefill=True,
-                        cache_dtype=jnp.float32, **common),
+    for eng in (REngine(rcfg, PAR, rqk, cache_dtype=jnp.float32, **common),
                 TEngine(tcfg, tq, cache_dtype=torch.float32, device="cpu",
                         **common)):
         reqs = [eng.submit(p, max_new=6) for p in prompts]

@@ -15,6 +15,9 @@ Attention in bf16: rtol = atol = 1e-2, chip_smoke's ATT_RTOL/ATT_ATOL
 relative to the split's running max; the plain version per page tile or
 once); two calls on the same inputs give the same bits.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -386,3 +389,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                             torch.zeros(1, 2, dtype=torch.int64, device=cuda),
                             torch.ones(1, dtype=torch.int32, device=cuda))
 
+
+def test_contiguous_whole_prompt_engine_tokens_match_the_cpu(cuda):
+    """The reduced LLaMA config in f32, data-free quantized with fused
+    projections, served by the contiguous engine with whole-prompt
+    prefill on the card (kernels) and on the CPU (plain versions): the
+    same greedy tokens.  The runs are chip_smoke's
+    (``chip_smoke.small_engine_tokens``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    toks = chip_smoke.small_engine_tokens(
+        torch, ("contiguous/cpu", "contiguous/cuda"))
+    assert toks["contiguous/cuda"] == toks["contiguous/cpu"]

@@ -58,10 +58,9 @@ def subject():
 
 def _run_both(subject, prompts, max_new, **kw):
     cfg, rp, tp = subject
-    common = dict(n_slots=3, max_seq=128, page_size=8, prefill_chunk=16,
-                  **kw)
-    re = REngine(cfg, PAR, rp, paged=True, chunked_prefill=True,
-                 cache_dtype=jnp.float32, **common)
+    common = dict(n_slots=3, max_seq=128, paged=True, chunked_prefill=True,
+                  page_size=8, prefill_chunk=16, **kw)
+    re = REngine(cfg, PAR, rp, cache_dtype=jnp.float32, **common)
     te = TEngine(t_registry.get("tiny-lm").reduced(), tp,
                  cache_dtype=torch.float32, device="cpu", **common)
     outs = []
@@ -99,11 +98,17 @@ def test_engine_greedy_tokens_match_repro_across_preemption(
 
 
 def test_engine_refuses_what_is_not_ported(subject):
+    """Prefix sharing and retention are not ported; the reference's
+    ValueErrors for modes that need the paged backend are kept."""
     _, _, tp = subject
     cfg = t_registry.get("tiny-lm").reduced()
-    for kw in (dict(paged=False), dict(chunked_prefill=False),
-               dict(prefix_sharing=True)):
+    for kw in (dict(prefix_sharing=True),
+               dict(prefix_sharing=True, prefix_retain_pages=4)):
         with pytest.raises(NotImplementedError):
+            TEngine(cfg, tp, paged=True, device="cpu", **kw)
+    for kw in (dict(chunked_prefill=True), dict(prefix_sharing=True),
+               dict(paged=True, prefix_retain_pages=4)):
+        with pytest.raises(ValueError):
             TEngine(cfg, tp, device="cpu", **kw)
 
 
@@ -125,9 +130,16 @@ def test_serve_device_defaults_to_cuda_and_raises_without_it():
 
 
 def test_serve_requires_paged_chunked_prefill():
-    for argv in ([], ["--paged"], ["--chunked-prefill"]):
-        with pytest.raises(SystemExit):
-            serve.run(serve.parse_args(argv + ["--device", "cpu"]))
+    """No mode flag: the reference's defaults, the contiguous backend
+    with whole-prompt prefill.  --chunked-prefill without --paged exits,
+    as in the reference."""
+    out = serve.run(serve.parse_args([
+        "--reduced", "--quantize", "none", "--requests", "3", "--slots",
+        "2", "--max-seq", "64", "--max-new", "3", "--device", "cpu"]))
+    assert out["all_done"] and out["cache_backend"] == "contiguous"
+    assert "prefill" in out["engine_metrics"]["phase_step_s"]
+    with pytest.raises(SystemExit):
+        serve.run(serve.parse_args(["--chunked-prefill", "--device", "cpu"]))
 
 
 def test_serve_cpu_end_to_end(tmp_path):
@@ -142,6 +154,20 @@ def test_serve_cpu_end_to_end(tmp_path):
     m = out["engine_metrics"]
     assert m["prefill_chunks"] > 0 and "decode" in m["phase_step_s"]
     assert (tmp_path / "o.json").exists()
+
+
+def test_serve_stream_and_cancel_report_one_cancellation(capsys):
+    out = serve.run(serve.parse_args([
+        "--reduced", "--quantize", "none", "--requests", "4", "--slots",
+        "2", "--max-seq", "64", "--max-new", "5", "--stream",
+        "--cancel-after-s", "0", "--priority", "realtime,batch",
+        "--device", "cpu"]))
+    assert out["all_done"] and out["cache_backend"] == "contiguous"
+    assert [c["rid"] for c in out["cancelled"]] == [1]
+    assert out["generated_tokens"] < 4 * 5
+    assert out["priority_classes"] == ["realtime", "batch"]
+    printed = capsys.readouterr().out
+    assert "[stream] rid=2 idx=4" in printed and "[cancel] rid=1" in printed
 
 
 def _imports(path: Path):
@@ -169,8 +195,8 @@ def test_port_imports_no_jax_and_no_repro():
 def test_cancel_frees_pages_and_emits_event(subject):
     _, _, tp = subject
     eng = TEngine(t_registry.get("tiny-lm").reduced(), tp, n_slots=1,
-                  max_seq=64, page_size=8, prefill_chunk=16,
-                  cache_dtype=torch.float32, device="cpu")
+                  max_seq=64, paged=True, chunked_prefill=True, page_size=8,
+                  prefill_chunk=16, cache_dtype=torch.float32, device="cpu")
     seen = []
     eng.events.subscribe(seen.append)
     a = eng.submit(_prompts(3, (20,))[0], max_new=10)
