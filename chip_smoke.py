@@ -16,7 +16,9 @@ Phases, each of which raises on failure:
    at ragged and one-sided shapes too, check that a repeated call gives
    the same bits, print the host time of one call beside
    ``torch.matmul``'s and the device time of each kernel a call
-   launches (gather, matmul, fold); for the two attention kernels, check
+   launches (gather, matmul, fold), and time the gather by ``perm`` at
+   decode beside ``x[:, perm]`` and ``torch.index_select`` (``[gather]``,
+   the TPU kernel's ``perm`` path); for the two attention kernels, check
    that a repeated bf16 call gives the same bits and print the host time
    of one call and the device time of the kernel apart from its combine
    of split partials; the ``[plan]`` line prints the attention kernels'
@@ -30,7 +32,9 @@ Phases, each of which raises on failure:
    on the card and on the CPU gives the same masks and packed bytes and
    learned scales within tolerance; the contiguous whole-prompt engine
    gives the same greedy tokens on the card and the CPU, and on the card
-   whole-prompt and chunked prefill give the same tokens;
+   whole-prompt and chunked prefill give the same tokens; the paged
+   engine with prefix sharing gives the same greedy tokens on the card
+   and the CPU, with chunked and with whole-prompt prefill;
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
@@ -39,7 +43,18 @@ Phases, each of which raises on failure:
    time is the device-busy share of a decode step.  The same weights are
    then served with whole-prompt prefill on the contiguous backend
    (``[whole]``) and on the paged one (``[whole-paged]``), and their
-   ``forward_loss`` on 2 x 512 tokens must be finite (``[loss]``);
+   ``forward_loss`` on 2 x 512 tokens must be finite (``[loss]``).
+   Then prefix sharing on the same weights: 8 prompts with a common
+   256-token prefix served with sharing off and on through chunked
+   prefill (``[shared-prefix]``: same bf16 tokens, fewer chunk calls, no
+   copy-on-write copy, 16 skipped tokens per attached page), a second
+   wave on the same engine that hits the retained prefix
+   (``[shared-prefix retain]``: only the tails run), and the first wave
+   with whole-prompt prefill (``[shared-prefix whole-paged]``: 112 pages
+   attached, 112 fewer pages at the peak).  Then restorative-LoRA
+   preprocessing of the bf16 weights, cut to 20 steps, quantized
+   data-free and its loss beside the quantized original's
+   (``[preprocess]``);
 6. the calibrated path: the same model quantized with calibrated
    PTQ1.61 at ``repro_torch.launch.serve``'s defaults (Eq.-7 block loss
    before and after learning, which must not rise), its first layer's 7
@@ -47,10 +62,14 @@ Phases, each of which raises on failure:
    the fused layer, then served the same way;
 7. ``repro_torch.launch.serve.run`` at the reference's defaults (the
    contiguous backend, whole-prompt prefill) on LLaMA-7B
-   (``[serve-default]``): every request must finish;
+   (``[serve-default]``): every request must finish; then with the
+   paged chunked-prefill engine, ``--share-prefix --prefix-retain 16``
+   (``[serve-share-prefix]``): the prefix cache must hit;
 8. check that every (M, K, N) the packed matmul launched at in phases
    5-7 was held against its plain version in phase 3 or 6, then print
-   the ``kernels`` JSON line and the result line.
+   the ``kernels`` JSON line (six entries, one per TPU kernel: the five
+   wrappers and the perm gather of ``mixed_matmul``) and the result
+   line.
 
 It exits non-zero without CUDA, and when run outside a checkout of the
 repository.
@@ -398,6 +417,29 @@ def kernel_split_us(torch, projs, gen, calls: int = 10):
     return rows
 
 
+def check_gather(torch, projs, split, timer, peaks, gen) -> list:
+    """The salient-first gather of a packed-matmul call (the TPU
+    kernel's ``perm`` path) at decode, M = 8, per fused projection: its
+    device time (``gather`` of ``kernel_split_us``), the plain gather
+    ``x[:, perm]`` and ``torch.index_select`` timed on the same inputs,
+    and its bound (x and perm read once, the gathered x written once).
+    Its output is held through the product in ``check_mixed_matmul``."""
+    rows = []
+    for name, q in projs.items():
+        x = torch.randn((8, q.k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        perm = q.perm.long()
+        kernel_us = next(r["us"]["gather"] for r in split
+                         if r["proj"] == name and r["M"] == 8)
+        b, by = bound_ms(2 * x.numel() * 2 + q.perm.numel() * 4, 0.0, peaks)
+        rows.append({"proj": name, "M": 8, "K": q.k, "ms": kernel_us / 1e3,
+                     "plain_ms": timer.ms(lambda: x[:, perm]),
+                     "library_ms": timer.ms(
+                         lambda: torch.index_select(x, 1, perm)),
+                     "bound_ms": b, "bound_by": by})
+    return rows
+
+
 def call_profile(torch, fn) -> dict:
     """Host µs of one call, the device µs of each kernel it launches,
     and whether a second call gives the same bits."""
@@ -686,23 +728,34 @@ def check_small_reference(torch, registry):
 # Engine modes of the small agreement: the contiguous whole-prompt engine
 # on the CPU and on the card, and whole-prompt against chunked prefill
 # on the card (paged, f32 pools).
+# The runs with prefix sharing serve prompts with a common 32-token
+# (4-page) prefix, on the CPU and on the card, both prefill modes.
 SMALL_WHOLE = dict(prefill_buckets=(16, 64))
+SMALL_CHUNKED = dict(paged=True, page_size=8, chunked_prefill=True,
+                     prefill_chunk=16)
+SMALL_SHARED_WHOLE = dict(prefill_buckets=(64, 96), paged=True, page_size=8,
+                          prefix_sharing=True)
+SMALL_SHARED_CHUNKED = dict(SMALL_CHUNKED, prefix_sharing=True,
+                            prefix_retain_pages=8)
 SMALL_ENGINE_RUNS = {
     "contiguous/cpu": ("cpu", SMALL_WHOLE),
     "contiguous/cuda": ("cuda", SMALL_WHOLE),
     "paged-whole/cuda": ("cuda", dict(SMALL_WHOLE, paged=True,
                                       page_size=8)),
-    "paged-chunked/cuda": ("cuda", dict(paged=True, page_size=8,
-                                        chunked_prefill=True,
-                                        prefill_chunk=16)),
+    "paged-chunked/cuda": ("cuda", SMALL_CHUNKED),
+    "shared-whole/cpu": ("cpu", SMALL_SHARED_WHOLE),
+    "shared-whole/cuda": ("cuda", SMALL_SHARED_WHOLE),
+    "shared-chunked/cpu": ("cpu", SMALL_SHARED_CHUNKED),
+    "shared-chunked/cuda": ("cuda", SMALL_SHARED_CHUNKED),
 }
 
 
 def small_engine_tokens(torch, names=tuple(SMALL_ENGINE_RUNS)) -> dict:
     """Greedy tokens of the reduced LLaMA config in f32, data-free fused,
     served by the engine in each mode ``names`` of SMALL_ENGINE_RUNS: 6
-    prompts of 7-60 tokens, 8 new tokens each, 3 slots, max_seq 128.
-    Every request must finish."""
+    prompts of 7-60 tokens (with prefix sharing, each after a common
+    32-token prefix), 8 new tokens each, 3 slots, max_seq 128.  Every
+    request must finish, and with prefix sharing the cache must hit."""
     import numpy as np
     from repro_torch.configs import registry
     from repro_torch.core.pipeline import quantize_params_data_free
@@ -717,23 +770,30 @@ def small_engine_tokens(torch, names=tuple(SMALL_ENGINE_RUNS)) -> dict:
     rng = np.random.default_rng(5)
     prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
                for n in (7, 16, 33, 60, 12, 45)]
+    common = rng.integers(1, cfg.vocab, size=32).astype(np.int32)
     toks = {}
     for name in names:
         dev, kw = SMALL_ENGINE_RUNS[name]
         eng = Engine(cfg, tree_to(p, dev), n_slots=3, max_seq=128,
                      cache_dtype=torch.float32, device=dev, **kw)
-        reqs = [eng.submit(x, max_new=8) for x in prompts]
+        sharing = kw.get("prefix_sharing", False)
+        reqs = [eng.submit(np.concatenate([common, x]) if sharing else x,
+                           max_new=8) for x in prompts]
         eng.run()
         if not all(r.done for r in reqs):
             _fail(f"small engines: {name} left a request unfinished")
+        if sharing and eng.prefix_stats()["hits"] == 0:
+            _fail(f"small engines: {name} never hit the prefix cache")
         toks[name] = [r.out_tokens for r in reqs]
     return toks
 
 
 def check_small_engines(torch) -> dict:
     """The contiguous whole-prompt engine gives the same greedy tokens on
-    the card and on the CPU, and on the card whole-prompt and chunked
-    prefill give the same tokens (``small_engine_tokens``)."""
+    the card and on the CPU, on the card whole-prompt and chunked
+    prefill give the same tokens, and the paged engine with prefix
+    sharing gives the same tokens on the card and the CPU in both
+    prefill modes (``small_engine_tokens``)."""
     toks = small_engine_tokens(torch)
     if toks["contiguous/cuda"] != toks["contiguous/cpu"]:
         _fail("small engines: contiguous whole-prompt greedy tokens differ "
@@ -741,6 +801,10 @@ def check_small_engines(torch) -> dict:
     if toks["paged-chunked/cuda"] != toks["paged-whole/cuda"]:
         _fail("small engines: whole-prompt and chunked prefill give other "
               f"greedy tokens on the card: {toks}")
+    for mode in ("shared-whole", "shared-chunked"):
+        if toks[f"{mode}/cuda"] != toks[f"{mode}/cpu"]:
+            _fail(f"small engines: {mode} greedy tokens differ between the "
+                  f"card and the CPU: {toks}")
     return {"requests": len(toks["contiguous/cpu"]), "max_new": 8,
             "tokens": toks}
 
@@ -842,23 +906,19 @@ WHOLE = dict(paged=False, chunked_prefill=False,
 WHOLE_PAGED = dict(WHOLE, paged=True, page_size=16)
 
 
-def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
-                  engine_kw, max_new: int = 32) -> dict:
-    """Serve 8 synthetic prompts of 200-400 tokens, 32 new tokens each,
-    at 8 slots and max_seq 512, through the engine in the mode
-    ``engine_kw``.  Every launch count is set to 0 just before the run
-    and read just after; each kernel of ``path_kernels`` must have
-    launched."""
-    import numpy as np
-    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
-    from repro_torch.runtime.engine import Engine
-
-    engine = Engine(cfg, qparams, n_slots=8, max_seq=512, seed=0,
-                    device="cuda", **engine_kw)
-    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
-    rng = np.random.default_rng(0)
-    prompts = [corpus.document(10_000 + i, int(rng.integers(200, 400)))
-               for i in range(8)]
+def serve_wave(torch, cfg, engine, prompts, kernels, path_kernels, tag: str,
+               max_new: int = 32):
+    """Serve ``prompts`` on ``engine`` until they drain, with fresh engine
+    metrics and every launch count set to 0 just before the run and read
+    just after.  Every request must finish with ``max_new`` tokens of
+    the vocabulary, and each kernel of ``path_kernels`` must have
+    launched.  Returns (the greedy tokens, a summary); on the paged
+    backend the summary has this wave's chunk calls and skipped tokens,
+    and the engine's prefix counters and peak pages so far."""
+    from repro_torch.runtime.metrics import EngineMetrics
+    be = engine.backend
+    engine.metrics = EngineMetrics()
+    calls0 = getattr(be, "prefill_chunk_calls", 0)
     for k in kernels.values():
         k.launches = 0
     reqs = [engine.submit(p, max_new=max_new) for p in prompts]
@@ -879,10 +939,8 @@ def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
     snap = engine.metrics.snapshot()
     steps = snap["phase_step_s"]
     toks = sum(len(r.out_tokens) for r in reqs)
-    print(f"[{tag} engine_metrics] " + json.dumps(snap), flush=True)
     summary = {
-        "layers": cfg.n_layers, "requests": len(reqs),
-        "backend": engine.backend.name,
+        "requests": len(reqs),
         "prompt_tokens": int(sum(len(p) for p in prompts)),
         "generated_tokens": toks, "wall_s": wall,
         "tokens_per_s": toks / wall,
@@ -891,15 +949,51 @@ def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
         "tbt_p50_s": snap.get("tbt_p50_s"), "tbt_p95_s": snap.get("tbt_p95_s"),
         "decode_step_ms": 1e3 * steps["decode"]["mean_s"],
         "decode_steps": steps["decode"]["count"],
-        "preemptions": snap["preemptions"],
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches,
     }
     if "prefill_chunk" in steps:
         summary.update(
             prefill_chunk_ms=1e3 * steps["prefill_chunk"]["mean_s"],
             prefill_chunks=steps["prefill_chunk"]["count"])
-    else:
+    if be.name == "paged":
+        summary.update(chunk_calls=be.prefill_chunk_calls - calls0,
+                       skipped_tokens=snap["prefill_tokens_skipped"],
+                       prefix_stats=engine.prefix_stats(),
+                       peak_pages=be.pool.stats().peak_in_use)
+    return [r.out_tokens for r in reqs], summary
+
+
+def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
+                  engine_kw, max_new: int = 32) -> dict:
+    """Serve 8 synthetic prompts of 200-400 tokens, 32 new tokens each,
+    at 8 slots and max_seq 512, through the engine in the mode
+    ``engine_kw`` (``serve_wave``)."""
+    import numpy as np
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.runtime.engine import Engine
+
+    engine = Engine(cfg, qparams, n_slots=8, max_seq=512, seed=0,
+                    device="cuda", **engine_kw)
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    rng = np.random.default_rng(0)
+    prompts = [corpus.document(10_000 + i, int(rng.integers(200, 400)))
+               for i in range(8)]
+    _, run = serve_wave(torch, cfg, engine, prompts, kernels, path_kernels,
+                        tag, max_new)
+    snap = engine.metrics.snapshot()
+    print(f"[{tag} engine_metrics] " + json.dumps(snap), flush=True)
+    summary = {
+        "layers": cfg.n_layers, "backend": engine.backend.name,
+        **{k: run[k] for k in (
+            "requests", "prompt_tokens", "generated_tokens", "wall_s",
+            "tokens_per_s", "ttft_mean_s", "ttft_p95_s", "tbt_p50_s",
+            "tbt_p95_s", "decode_step_ms", "decode_steps", "prefill_chunk_ms",
+            "prefill_chunks") if k in run},
+        "preemptions": snap["preemptions"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": run["launches"],
+    }
+    if "prefill_chunk_ms" not in run:
         # the engine times each bucket's first call apart from the rest
         # (it builds nothing: the kernels were built in phase 2)
         shapes = snap["shape_step_s"]
@@ -1089,6 +1183,187 @@ def run_loss(torch, cfg, qparams) -> dict:
             "ln_vocab": math.log(cfg.vocab), "wall_s": dt}
 
 
+# Prefix sharing on the data-free weights: 8 requests with a common
+# 256-token document prefix (16 full pages of 16, 4 chunks of 64) and a
+# unique tail of 32-128 tokens.  Retention keeps 96 pages: the 16 common
+# pages and at most 8 tail pages of each first-wave request.
+SHARED_COMMON = 256
+SHARED_RETAIN = 96
+
+
+def shared_prefix_prompts(cfg, wave: int) -> list:
+    """Wave ``wave``'s 8 prompts: ``corpus.document(9_999, 256)`` and a
+    tail ``corpus.document(10_000 + 8 * wave + i, 32-128 tokens)``."""
+    import numpy as np
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    common = corpus.document(9_999, SHARED_COMMON)
+    rng = np.random.default_rng(100 + wave)
+    return [np.concatenate([common, corpus.document(
+        10_000 + 8 * wave + i, int(rng.integers(32, 129)))])
+        for i in range(8)]
+
+
+
+
+def run_shared_prefix(torch, cfg, qparams, kernels) -> dict:
+    """``[shared-prefix]``, ``[shared-prefix retain]`` and
+    ``[shared-prefix whole-paged]`` on the data-free LLaMA-7B weights."""
+    from repro_torch.runtime.engine import Engine
+    wave1 = shared_prefix_prompts(cfg, 0)
+    wave2 = shared_prefix_prompts(cfg, 1)
+    chunk_path = ("mixed_matmul", "paged_attention", "paged_prefill")
+    whole_path = ("mixed_matmul", "paged_attention")
+    out = {}
+
+    def wave(tag, eng, prompts, path):
+        toks, run = serve_wave(torch, cfg, eng, prompts, kernels, path, tag)
+        print(f"[{tag}] " + json.dumps(run), flush=True)
+        return toks, run
+
+    def engine(kw, **share):
+        torch.cuda.empty_cache()
+        return Engine(cfg, qparams, n_slots=8, max_seq=512, seed=0,
+                      device="cuda", **kw, **share)
+
+    # -- chunked prefill, sharing off then on (with retention) ----------
+    toks_off, off = wave("shared-prefix off", engine(CHUNKED), wave1,
+                         chunk_path)
+    eng = engine(CHUNKED, prefix_sharing=True,
+                 prefix_retain_pages=SHARED_RETAIN)
+    toks_on, on = wave("shared-prefix", eng, wave1, chunk_path)
+    st = on["prefix_stats"]
+    same = sum(a == b for a, b in zip(toks_on, toks_off))
+    if st["cow_copies"] != 0:
+        _fail(f"shared-prefix: {st['cow_copies']} copy-on-write copies")
+    if on["skipped_tokens"] != 16 * st["pages_attached"]:
+        _fail(f"shared-prefix: {on['skipped_tokens']} tokens skipped for "
+              f"{st['pages_attached']} pages attached")
+    if not on["chunk_calls"] < off["chunk_calls"]:
+        _fail(f"shared-prefix: {on['chunk_calls']} chunk calls, "
+              f"{off['chunk_calls']} without sharing")
+    if same != len(wave1):
+        _fail(f"shared-prefix: bf16 greedy tokens differ from the unshared "
+              f"run in {len(wave1) - same} of {len(wave1)} requests")
+    out["shared-prefix"] = dict(on, off=off, identical_requests=same)
+
+    # -- a second wave after the first drained: the retained prefix ------
+    hits0 = st["hits"]
+    _, ret = wave("shared-prefix retain", eng, wave2, chunk_path)
+    tails_only = sum(-(-(len(p) - SHARED_COMMON) // 64) for p in wave2)
+    if ret["prefix_stats"]["hits"] - hits0 < len(wave2):
+        _fail(f"shared-prefix retain: hits rose by "
+              f"{ret['prefix_stats']['hits'] - hits0} < {len(wave2)}")
+    if ret["chunk_calls"] != tails_only:
+        _fail(f"shared-prefix retain: {ret['chunk_calls']} chunk calls, "
+              f"the tails alone need {tails_only}")
+    if ret["prefix_stats"]["cow_copies"] != 0:
+        _fail("shared-prefix retain: copy-on-write copies")
+    out["shared-prefix retain"] = dict(ret, tails_only_calls=tails_only,
+                                       hits_before=hits0)
+    del eng
+
+    # -- whole-prompt prefill on the paged backend -----------------------
+    toks_off, off = wave("shared-prefix whole-paged off",
+                         engine(WHOLE_PAGED), wave1, whole_path)
+    toks_on, on = wave("shared-prefix whole-paged",
+                       engine(WHOLE_PAGED, prefix_sharing=True), wave1,
+                       whole_path)
+    attached = on["prefix_stats"]["pages_attached"]
+    want = (len(wave1) - 1) * SHARED_COMMON // 16
+    if attached != want:
+        _fail(f"shared-prefix whole-paged: {attached} pages attached, "
+              f"not {want}")
+    if off["peak_pages"] - on["peak_pages"] != want:
+        _fail(f"shared-prefix whole-paged: peak pages {on['peak_pages']} "
+              f"against {off['peak_pages']} unshared")
+    same = sum(a == b for a, b in zip(toks_on, toks_off))
+    print(f"[shared-prefix whole-paged] {same} of {len(wave1)} requests "
+          "give the same bf16 greedy tokens as the unshared run (not "
+          "required: each follower computes its own prompt, at another "
+          "left padding than the donor's pages were written at)",
+          flush=True)
+    out["shared-prefix whole-paged"] = dict(on, off=off,
+                                            identical_requests=same)
+    return out
+
+
+PREPROCESS_STEPS = 20
+
+
+def run_preprocess(torch, cfg, qparams, kernels) -> dict:
+    """Restorative-LoRA preprocessing of the bf16 LLaMA-7B weights of
+    phase 5 (seed 0) at ``benchmarks/common.py``'s settings (rank 16, lr
+    3e-4, 4 x 128-token calib batches, min dim 64) with the steps cut
+    from 150 to ``PREPROCESS_STEPS``; W' is quantized data-free with
+    fused projections as in phase 5, and its ``forward_loss`` on 2 x 512
+    validation tokens is printed beside that of phase 5's quantized
+    weights.  The step losses must be finite and the mean of the last 5
+    not above the first; both models' bits per weight must lie in
+    (1.5, 1.75) and both losses must be finite."""
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.preprocess import (PreprocessConfig,
+                                             restorative_lora)
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.models import model as M
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    batches = [{"tokens": torch.from_numpy(t).to("cuda"),
+                "targets": torch.from_numpy(g).to("cuda")}
+               for t, g in corpus.batches(4, 128, 8, split="calib")]
+    pcfg = PreprocessConfig(rank=16, steps=PREPROCESS_STEPS, lr=3e-4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    params = M.init_params(cfg, seed=0, device="cuda")
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preprocessed = restorative_lora(
+        cfg, params, batches, QuantConfig(ratio=0.2, multiple=16, steps=16),
+        pcfg, min_dim=64, losses=losses)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    print(f"[preprocess] restorative LoRA, rank {pcfg.rank}, lr {pcfg.lr}, "
+          f"{len(batches)} batches of 4 x 128 tokens: {PREPROCESS_STEPS} "
+          f"steps (cut from benchmarks/common.py's 150) in {t_pre:.1f}s, "
+          f"peak device memory {peak_gb:.1f} GB; step losses "
+          + json.dumps(losses), flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        _fail(f"preprocess: a step loss is not finite: {losses}")
+    last = sum(losses[-5:]) / 5
+    if not last <= losses[0]:
+        _fail(f"preprocess: the mean loss of the last 5 steps {last} is "
+              f"above the first step's {losses[0]}")
+    qpre = quantize_params_data_free(
+        preprocessed, QuantConfig(ratio=0.2, multiple=16), min_dim=32,
+        fuse=True)
+    del preprocessed
+    bits_pre = check_bits(qpre, "preprocess")
+    bits_orig = check_bits(qparams, "preprocess original")
+    loss_pre = run_loss(torch, cfg, qpre)
+    loss_orig = run_loss(torch, cfg, qparams)
+    launches = {name: k.launches for name, k in kernels.items()}
+    if launches["mixed_matmul"] <= 0:
+        _fail("preprocess: kernel mixed_matmul was not launched")
+    del qpre
+    return {"steps": PREPROCESS_STEPS, "rank": pcfg.rank, "lr": pcfg.lr,
+            "batches": [len(batches), 4, 128],
+            "reduced": "steps cut from 150 (benchmarks/common.py) to "
+                       f"{PREPROCESS_STEPS}; the paper trains 10K steps on "
+                       "RedPajama, here the synthetic corpus",
+            "step_losses": losses, "first_loss": losses[0],
+            "last5_mean_loss": last, "wall_s": t_pre,
+            "peak_mem_gb": peak_gb,
+            "bits_preprocessed": bits_pre, "bits_original": bits_orig,
+            "loss_preprocessed": loss_pre["loss"],
+            "loss_original": loss_orig["loss"],
+            "loss_tokens": loss_pre["tokens"], "launches": launches}
+
+
 def run_serve_default(torch, kernels) -> dict:
     """``repro_torch.launch.serve.run`` at the reference's defaults (the
     contiguous backend, whole-prompt prefill, buckets (16, 64) at
@@ -1114,6 +1389,39 @@ def run_serve_default(torch, kernels) -> dict:
             "cache_backend": out["cache_backend"],
             "ttft_mean_s": m["ttft_mean_s"], "tbt_p50_s": m["tbt_p50_s"],
             "phase_step_s": m["phase_step_s"], "launches": launches}
+
+
+def run_serve_share_prefix(torch, kernels) -> dict:
+    """``repro_torch.launch.serve.run`` with the paged chunked-prefill
+    engine and ``--share-prefix --prefix-retain 16`` at max_seq 512 (a
+    64-token common prefix by the reference's rule): every request must
+    finish, the prefix cache must hit, and no page is copied."""
+    from repro_torch.launch.serve import parse_args, run
+    for k in kernels.values():
+        k.launches = 0
+    out = run(parse_args(["--arch", "llama-7b", "--quantize", "datafree",
+                          "--fused", "--paged", "--chunked-prefill",
+                          "--share-prefix", "--prefix-retain", "16",
+                          "--max-seq", "512", "--max-new", "8"]))
+    launches = {name: k.launches for name, k in kernels.items()}
+    st = out["prefix_sharing"]
+    if not out["all_done"]:
+        _fail("serve-share-prefix: not every request finished")
+    if not st or st["hits"] <= 0 or st["cow_copies"] != 0:
+        _fail(f"serve-share-prefix: prefix counters {st}")
+    for name in ("mixed_matmul", "paged_attention", "paged_prefill"):
+        if launches[name] <= 0:
+            _fail(f"serve-share-prefix: kernel {name} was not launched")
+    m = out["engine_metrics"]
+    return {"requests": out["requests"],
+            "generated_tokens": out["generated_tokens"],
+            "tokens_per_s": out["tokens_per_s"],
+            "bits_per_weight": out["bits_per_weight"],
+            "prefix_sharing": st,
+            "prefill_tokens_skipped": m["prefill_tokens_skipped"],
+            "prefill_chunks": m["prefill_chunks"],
+            "ttft_mean_s": m["ttft_mean_s"], "tbt_p50_s": m["tbt_p50_s"],
+            "launches": launches}
 
 
 def run_calibrated_path(torch, registry, kernels, path_kernels, peaks
@@ -1304,6 +1612,10 @@ def main() -> int:
         row.update(splits=plan.splits, blocks=plan.blocks)
     print("[split] device us per call of each kernel of a packed-matmul "
           "call (profiler, L2 flushed): " + json.dumps(split), flush=True)
+    gather = check_gather(torch, projs, split, timer, peaks,
+                          torch.Generator(device="cuda").manual_seed(7))
+    print("[gather] the perm gather of a decode call, M=8: "
+          + json.dumps(gather), flush=True)
     del projs, timer
 
     # -- 4. small-input agreement, card against CPU -----------------------
@@ -1317,7 +1629,8 @@ def main() -> int:
     eng_small = check_small_engines(torch)
     print("[reference] reduced llama-7b, f32, greedy tokens: contiguous "
           "whole-prompt engine equal on the card and the CPU, whole-prompt "
-          "equal to chunked prefill on the card; "
+          "equal to chunked prefill on the card, prefix sharing (whole and "
+          "chunked) equal on the card and the CPU; "
           + json.dumps(eng_small), flush=True)
 
     # -- 5. the data-free main path, then whole-prompt prefill -------------
@@ -1330,6 +1643,9 @@ def main() -> int:
     loss = run_loss(torch, cfg, qparams)
     print("[loss] forward_loss of the data-free LLaMA-7B: "
           + json.dumps(loss), flush=True)
+    shared = run_shared_prefix(torch, cfg, qparams, kernels)
+    preprocess = run_preprocess(torch, cfg, qparams, kernels)
+    print("[preprocess] " + json.dumps(preprocess), flush=True)
     del qparams
 
     # -- 6. the calibrated path ---------------------------------------------
@@ -1343,6 +1659,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_default = run_serve_default(torch, kernels)
     print("[serve-default] " + json.dumps(serve_default), flush=True)
+    torch.cuda.empty_cache()
+    serve_share = run_serve_share_prefix(torch, kernels)
+    print("[serve-share-prefix] " + json.dumps(serve_share), flush=True)
     unfused = [r for r in cal_summary["layer0_mixed_matmul"] if r["M"] == 8]
     print(f"[decode layer, M=8] mixed_matmul: fused (4 projections) "
           f"{sum(r['ms'] for r in mm if r['M'] == 8) * 1e3:.1f} us, "
@@ -1370,7 +1689,14 @@ def main() -> int:
                 "calibrated": cal_summary["launches"],
                 "whole": whole["whole"]["launches"],
                 "whole-paged": whole["whole-paged"]["launches"],
-                "serve-default": serve_default["launches"]}
+                "serve-default": serve_default["launches"],
+                "shared-prefix": shared["shared-prefix"]["launches"],
+                "shared-prefix retain":
+                    shared["shared-prefix retain"]["launches"],
+                "shared-prefix whole-paged":
+                    shared["shared-prefix whole-paged"]["launches"],
+                "serve-share-prefix": serve_share["launches"],
+                "preprocess": preprocess["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -1379,6 +1705,12 @@ def main() -> int:
                mm + mm_rows + cal_summary["layer0_mixed_matmul"]
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
+        dict(_entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:166",
+                    mm + mm_rows, gather, launches,
+                    "the perm gather (gather_kernel) of a decode call at "
+                    "M=8, wqkv+wgu+wo+wd; one per mixed_matmul launch, "
+                    "held through the product"),
+             name="mixed_matmul(perm)"),
         _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",
                [pa], [pa], launches,
                "B=8 hkv=32 dh=128 ps=16, lens up to 1000"),

@@ -16,6 +16,10 @@
   bf16 kernel of ``csrc/paged_prefill.cu``; ``attention_split_keys`` and
   ``prefill_split_keys`` give the live keys a block of a split visits,
   as the kernels compute them.
+* ``paged_kv_bytes_per_token`` and ``paged_prefill_read_bytes``: the
+  modeled K/V bytes of one prefill chunk call, as
+  ``repro.kernels.autotune`` counts them (the engine's
+  ``prefill_kv_read_bytes``).
 """
 from __future__ import annotations
 
@@ -293,3 +297,19 @@ def prefill_split_keys(plan: SplitPlan, i: int, rt: int, c: int, rep: int,
     first = max(start + c_lo + 1 - window, 0) if window else 0
     a, e = plan.keys(i)
     return max(a, first), min(e, start + min(c_hi + 1, length))
+
+
+def paged_kv_bytes_per_token(hkv: int, dh: int, itemsize: int = 2) -> int:
+    """K+V bytes per live token over all kv heads."""
+    return 2 * hkv * dh * itemsize
+
+
+def paged_prefill_read_bytes(start: int, length: int, ps: int, hkv: int,
+                             dh: int, itemsize: int = 2) -> int:
+    """Modeled K/V bytes one chunk call at ``start`` with ``length`` live
+    tokens moves: the context pages read once and the chunk's pages
+    written once, whole pages (at most one page of slack each)."""
+    ctx_pages = -(-max(int(start), 0) // ps)
+    chunk_pages = -(-max(int(length), 0) // ps)
+    return ((ctx_pages + chunk_pages) * ps
+            * paged_kv_bytes_per_token(hkv, dh, itemsize))

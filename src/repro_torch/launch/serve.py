@@ -29,14 +29,19 @@ Event-loop options (the engine's typed event API):
 * ``--priority a,b,c`` cycles the listed priority classes over the
   requests (realtime / standard / batch); per-class TTFT and TBT land in
   the engine metrics;
-* ``--deadline-s`` sets each request's admission deadline.
+* ``--deadline-s`` sets each request's admission deadline;
+* ``--share-prefix`` (paged only) turns on copy-on-write prefix sharing
+  and gives every request a common page-aligned document prefix of
+  ``(max_seq // 8) // page_size * page_size`` tokens before its own
+  tail, so the common pages are allocated once; ``--prefix-retain N``
+  keeps up to N freed prefix pages for later same-prefix requests.  The
+  JSON output carries the prefix-cache counters (``prefix_sharing``).
 
 Runs on the GPU (``--device cuda``, the default) and raises when CUDA is
 absent; ``--device cpu`` runs the same path with the kernels' plain
 PyTorch versions.  There is no kernel switch: on the card every packed
 projection, paged decode attention and prefill chunk goes through its
-CUDA kernel.  Not ported yet: ``--share-prefix`` and
-``--prefix-retain``.
+CUDA kernel.
 
 The JSON output carries the same engine metrics as ``repro.launch.serve``
 (tokens/s, TTFT, TBT p50/p95 overall and per class, queue depth, page
@@ -99,9 +104,15 @@ def _drive(engine: Engine, *, stream: bool, cancel_after_s=None):
 
 
 def run(args) -> dict:
+    if args.share_prefix and not args.paged:
+        raise SystemExit("--share-prefix requires --paged "
+                         "(sharing lives in the page allocator)")
     if args.chunked_prefill and not args.paged:
         raise SystemExit("--chunked-prefill requires --paged "
                          "(chunks scatter into pool pages)")
+    if args.prefix_retain and not args.share_prefix:
+        raise SystemExit("--prefix-retain requires --share-prefix "
+                         "(retention extends the prefix cache)")
     classes = [c.strip() for c in args.priority.split(",") if c.strip()]
     if not classes:
         raise SystemExit("--priority needs at least one class name "
@@ -148,6 +159,8 @@ def run(args) -> dict:
                     prefill_buckets=(args.max_seq // 8, args.max_seq // 2),
                     seed=args.seed, paged=args.paged,
                     page_size=args.page_size, pool_pages=args.pool_pages,
+                    prefix_sharing=args.share_prefix,
+                    prefix_retain_pages=args.prefix_retain,
                     chunked_prefill=args.chunked_prefill,
                     prefill_chunk=args.prefill_chunk,
                     fuse_projections=args.fused and args.quantize == "none",
@@ -157,10 +170,17 @@ def run(args) -> dict:
             raise SystemExit(f"unknown priority class {c!r}; configured: "
                              f"{sorted(engine.scheduler.cfg.class_weights)}")
     rng = np.random.default_rng(args.seed)
+    # --share-prefix: a page-aligned common document prefix before each
+    # request's own tail, the sharing workload of repro.launch.serve
+    common = np.zeros((0,), np.int32)
+    if args.share_prefix:
+        common_len = (args.max_seq // 8) // args.page_size * args.page_size
+        common = corpus.document(9_999, max(common_len, args.page_size))
     reqs = []
     for i in range(args.requests):
         plen = int(rng.integers(4, args.max_seq // 4))
-        reqs.append(engine.submit(corpus.document(10_000 + i, plen),
+        tail = corpus.document(10_000 + i, plen)
+        reqs.append(engine.submit(np.concatenate([common, tail]),
                                   max_new=args.max_new,
                                   temperature=args.temperature,
                                   deadline_s=args.deadline_s,
@@ -189,6 +209,7 @@ def run(args) -> dict:
         "bits_per_weight": bits,
         "cache_backend": engine.backend.name,
         "device": str(device),
+        "prefix_sharing": engine.prefix_stats(),
         "engine_metrics": engine.metrics.snapshot(),
     }
     print(json.dumps(out, indent=2))
@@ -233,6 +254,14 @@ def parse_args(argv=None):
                         "with decode (paged mode only)")
     p.add_argument("--prefill-chunk", type=int, default=64,
                    help="prompt tokens per chunk (multiple of --page-size)")
+    p.add_argument("--share-prefix", action="store_true",
+                   help="copy-on-write prefix sharing and a common page-"
+                        "aligned prompt prefix across requests (paged "
+                        "mode only)")
+    p.add_argument("--prefix-retain", type=int, default=0,
+                   help="keep up to N freed prefix pages in an LRU so "
+                        "later same-prefix requests still hit (needs "
+                        "--share-prefix)")
     p.add_argument("--stream", action="store_true",
                    help="print every token the tick it is emitted")
     p.add_argument("--cancel-after-s", type=float, default=None,

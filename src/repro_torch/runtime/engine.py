@@ -24,13 +24,22 @@ advances at most ``prefill_chunks_per_tick`` chunks of
 layer — and then decodes the slots that are decoding (mid-prefill slots
 masked out: block-table rows -1, context lengths 0).
 
+With ``prefix_sharing=True`` (paged only) requests whose context starts
+with pages another request has already filled attach those pages
+copy-on-write instead of allocating and writing their own
+(``runtime.paged_cache.PrefixCache``).  Under chunked prefill the
+chunks those pages cover are skipped outright, including pages a
+cohort peer registers while this request is mid-prefill;
+``prefix_retain_pages`` keeps up to that many freed prefix pages in an
+LRU so a later same-prefix request still hits after its cohort drained.
+
 :meth:`Engine.tick` publishes typed events (``repro_torch.runtime.events``)
 as they happen (:meth:`Engine.subscribe`, :meth:`Engine.event_queue`);
 :meth:`Engine.run` drives ticks until the work drains;
 :meth:`Engine.cancel` aborts a request wherever it is.
 
-Not ported yet, and refused by the constructor: prefix sharing and
-retention, and block kinds other than dense.
+Not ported yet, and refused by the constructor: block kinds other than
+dense.
 """
 from __future__ import annotations
 
@@ -42,13 +51,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import index
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.runtime.events import (EventBus, ExpireEvent, FinishEvent,
                                         PreemptEvent, TokenEvent)
 from repro_torch.runtime.metrics import EngineMetrics
 from repro_torch.runtime.paged_cache import (BlockTables, PagePool,
-                                             pages_for_tokens)
+                                             PrefixCache, pages_for_tokens)
 from repro_torch.runtime.scheduler import DEFAULT_CLASS, Scheduler
 
 Tree = Any
@@ -94,6 +104,7 @@ class _ContiguousBackend:
 
     name = "contiguous"
     page_size = 1                       # no page budget: see free_pages
+    prefix = None                       # sharing lives in the page pool
 
     def __init__(self, eng: "Engine"):
         self.eng = eng
@@ -109,7 +120,9 @@ class _ContiguousBackend:
     def page_util(self) -> Optional[float]:
         return None
 
-    def splice(self, slot: int, cache1, n_tokens: int) -> None:
+    def splice(self, slot: int, cache1, n_tokens: int,
+               seq: Optional[np.ndarray] = None,
+               shared: Optional[list] = None) -> None:
         self.caches = M.splice_prefill(self.eng.cfg, self.caches, cache1,
                                        slot)
 
@@ -138,14 +151,25 @@ class _PagedBackend:
     name = "paged"
 
     def __init__(self, eng: "Engine", page_size: int, pool_pages: int,
-                 cache_dtype):
+                 cache_dtype, prefix_sharing: bool = False,
+                 prefix_retain_pages: int = 0):
         self.eng = eng
         self.pool = PagePool(pool_pages, page_size)
         self.tables = BlockTables(self.pool, eng.n_slots,
                                   pages_for_tokens(eng.max_seq, page_size))
+        self.prefix = (PrefixCache(self.pool,
+                                   retain_pages=prefix_retain_pages)
+                       if prefix_sharing else None)
+        # admission-hint memo: rid -> matched pages, valid for one
+        # (registry writes, pool frees) version — a blocked head is
+        # hashed once, not once per tick, and splice reuses the pages
+        self._hint_cache: Dict[int, list] = {}
+        self._hint_ver = None
         self.caches = M.init_paged_caches(eng.cfg, pool_pages, page_size,
                                           dtype=cache_dtype,
                                           device=eng.device)
+        self.prefill_chunk_calls = 0
+        self.prefill_kv_read_bytes = 0
 
     @property
     def page_size(self) -> int:
@@ -161,10 +185,49 @@ class _PagedBackend:
                 f"{self.pool.num_pages}; grow --pool-pages")
 
     def free_pages(self) -> int:
-        return self.pool.free_pages
+        """Admission headroom: the free list plus whatever the prefix
+        retention LRU could evict on demand (the pool's pressure hook
+        reclaims those inside ``alloc`` when the free list falls
+        short)."""
+        free = self.pool.free_pages
+        if self.prefix is not None and self.prefix.retain_pages > 0:
+            free += self.prefix.evictable()
+        return free
 
     def page_util(self) -> float:
         return self.pool.pages_in_use / self.pool.num_pages
+
+    def shared_page_hint(self, rid: int, seq: np.ndarray) -> int:
+        """Pages a prefix-cache attach would save for ``seq`` right now
+        (admission accounting: the scheduler subtracts them from the
+        head's page need).  Registry state cannot change between this
+        hint and the attach in ``splice`` / ``_start_chunked`` — both
+        happen inside the same host-side admission pass — so the matched
+        pages are memoized by rid and the attach reuses them instead of
+        re-hashing the prompt.  The memo survives across ticks until any
+        registry write or page free (only those can change a match), so
+        a queued head blocked on free pages is hashed once.
+
+        With retention on, matched pages whose ONLY holder is the
+        retention LRU are not discounted: :meth:`free_pages` already
+        counts them as evictable headroom, and the attach pins them
+        (refcount 2), so discounting them too would count them twice
+        and admit a head whose remaining pages cannot be allocated.
+        Refcounts are re-read on every call (they move without a free
+        event)."""
+        if self.prefix is None:
+            return 0
+        ver = (self.prefix.writes, self.pool.free_events)
+        if ver != self._hint_ver:
+            self._hint_cache.clear()
+            self._hint_ver = ver
+        if rid not in self._hint_cache:
+            self._hint_cache[rid] = self.prefix.match(seq)
+        pages = self._hint_cache[rid]
+        if self.prefix.retain_pages > 0:
+            return len(pages) - sum(1 for p in pages
+                                    if self.pool.refcount(p) == 1)
+        return len(pages)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
@@ -177,16 +240,31 @@ class _PagedBackend:
             dst = self._dev(np.asarray([d for _, d in pairs]))
             self.caches = M.copy_pages(self.eng.cfg, self.caches, src, dst)
 
-    def splice(self, slot: int, cache1, n_tokens: int) -> None:
+    def splice(self, slot: int, cache1, n_tokens: int,
+               seq: Optional[np.ndarray] = None,
+               shared: Optional[list] = None) -> None:
         """Scatter a whole-prompt prefill cache into ``slot``'s pages
-        (reserved here for its ``n_tokens``)."""
+        (reserved here for its ``n_tokens``).  Under prefix sharing the
+        pages of ``shared`` (the admission hint; matched here when there
+        is none) are attached first, and ``slot``'s full pages are
+        registered after the write."""
+        if self.prefix is not None and seq is not None:
+            if shared is None:          # no admission hint: match here
+                shared = self.prefix.match(seq)
+            self.prefix.count_attach(len(shared))
+            if shared:
+                self.tables.fork(slot, shared)
         if not self.tables.ensure_blocks(
                 slot, pages_for_tokens(n_tokens, self.page_size)):
             raise RuntimeError("admission must reserve prompt pages first")
         self._apply_cow()
+        # shared (forked) blocks are -1 in the writable row: the scatter
+        # drops those writes — the pages already hold these tokens' K/V
         bt_row = self._dev(self.tables.writable_row(slot))
         self.caches = M.splice_prefill_paged(self.eng.cfg, self.caches,
                                              cache1, bt_row)
+        if self.prefix is not None and seq is not None:
+            self.prefix.register(seq, self.tables.owned(slot))
 
     def ensure_capacity(self, slot: int, pos: int) -> bool:
         return self.tables.ensure_for_position(slot, pos)
@@ -221,6 +299,11 @@ class _PagedBackend:
         logits, self.caches = M.prefill_step_paged(
             self.eng.cfg, params, self._dev(toks), self.caches, bt_read,
             bt_write, start, length)
+        self.prefill_chunk_calls += 1
+        cfg = self.eng.cfg
+        self.prefill_kv_read_bytes += cfg.n_layers * \
+            index.paged_prefill_read_bytes(start, length, self.page_size,
+                                           cfg.n_kv_heads, cfg.head_dim_)
         return logits
 
 
@@ -264,9 +347,6 @@ class Engine:
             raise ValueError("prefix_retain_pages requires "
                              "prefix_sharing=True (retention extends the "
                              "prefix cache's hit window)")
-        if prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing and retention are not ported yet")
         if paged and page_size <= 0:
             raise ValueError(f"page_size must be positive, got {page_size}")
         self.device = resolve_device(device)
@@ -298,8 +378,10 @@ class Engine:
         if paged:
             if pool_pages is None:
                 pool_pages = n_slots * pages_for_tokens(max_seq, page_size)
-            self.backend = _PagedBackend(self, page_size, pool_pages,
-                                         cache_dtype or torch.bfloat16)
+            self.backend = _PagedBackend(
+                self, page_size, pool_pages, cache_dtype or torch.bfloat16,
+                prefix_sharing=prefix_sharing,
+                prefix_retain_pages=prefix_retain_pages)
         else:
             self.backend = _ContiguousBackend(self)
         # chunked prefill: slot -> in-progress prefill state ({"seq",
@@ -441,7 +523,12 @@ class Engine:
         logits, cache1 = self._timed(
             "prefill", b, lambda: M.prefill(self.cfg, self.params, batch,
                                             self.max_seq, self.attn_chunk))
-        self.backend.splice(slot, cache1, s)
+        be = self.backend
+        # the admission pass just matched this request's prefix; no free
+        # or registration can have happened since — reuse it
+        shared = (be._hint_cache.pop(r.rid, None)
+                  if be.prefix is not None else None)
+        be.splice(slot, cache1, s, seq, shared)
         # this slot decodes at position s in this tick, after the growth
         # pass: admission reserved that page (prompt + 1)
         if not self.backend.ensure_capacity(slot, s):
@@ -461,22 +548,43 @@ class Engine:
         self.temps[slot] = r.temperature
 
     def _start_chunked(self, slot: int, r: Request) -> None:
-        """Occupy ``slot`` for chunked prefill: reserve the prompt's
-        pages and set the chunk frontier; the compute happens chunk by
-        chunk in :meth:`_advance_prefill` over the following ticks."""
+        """Occupy ``slot`` for chunked prefill: attach any shared prefix
+        pages, reserve the prompt's pages and set the chunk frontier;
+        the compute happens chunk by chunk in :meth:`_advance_prefill`
+        over the following ticks.  Chunks that prefix-cache pages cover
+        whole are skipped outright: the frontier starts at the
+        shared-page boundary, capped one page short of the prompt end
+        so the final chunk always runs (its last-row logits seed the
+        first sampled token)."""
         be = self.backend
         seq = self._context_seq(r)
-        if len(seq) > self.max_seq - 1:
-            raise RuntimeError(f"context of {len(seq)} tokens exceeds "
+        s = len(seq)
+        if s > self.max_seq - 1:
+            raise RuntimeError(f"context of {s} tokens exceeds "
                                f"max_seq-1={self.max_seq - 1}")
-        ok = be.tables.ensure_blocks(slot, pages_for_tokens(len(seq),
-                                                            be.page_size))
-        if not ok:
+        ps = be.page_size
+        shared: list = []
+        if be.prefix is not None:
+            hinted = be._hint_cache.pop(r.rid, None)
+            shared = hinted if hinted is not None else be.prefix.match(seq)
+            be.prefix.count_attach(len(shared))
+            if shared:
+                be.tables.fork(slot, shared)
+        if not be.tables.ensure_blocks(slot, pages_for_tokens(s, ps)):
             raise RuntimeError("admission must reserve prompt pages first")
+        skip = min(len(shared) * ps, ((s - 1) // ps) * ps)
+        if skip:
+            self.metrics.on_prefill_skip(skip)
         self.slot_req[slot] = r
         self.temps[slot] = r.temperature
-        self._prefill_state[slot] = {"seq": seq, "frontier": 0,
-                                     "resumed": bool(r.out_tokens)}
+        st: Dict[str, Any] = {"seq": seq, "frontier": skip,
+                              "resumed": bool(r.out_tokens)}
+        if be.prefix is not None:
+            # the admission match is current as of this version: the
+            # catch-up in _advance_prefill re-matches only once a peer
+            # has registered (or the pool freed) since
+            st["match_ver"] = (be.prefix.writes, be.pool.free_events)
+        self._prefill_state[slot] = st
 
     def _advance_prefill(self, slot: int) -> int:
         """Run one chunk of ``slot``'s prefill; at the prompt end,
@@ -488,6 +596,26 @@ class Engine:
         be = self.backend
         seq = st["seq"]
         s = len(seq)
+        ps = be.page_size
+        # ---- mid-prefill prefix catch-up: a cohort peer (admitted with
+        # us, ahead of us in chunk order) may have registered pages for
+        # chunks we have not computed yet — adopt its pages and move the
+        # frontier past them, skipping those chunks' kernel calls.  Keyed
+        # on the registry/pool version, so an unchanged registry costs
+        # no re-hash.  Host-only: nothing is read from the device.
+        if be.prefix is not None:
+            ver = (be.prefix.writes, be.pool.free_events)
+            if st.get("match_ver") != ver:
+                st["match_ver"] = ver
+                matched = be.prefix.match(seq)
+                skip_to = min(len(matched) * ps, ((s - 1) // ps) * ps)
+                if skip_to > st["frontier"]:
+                    for blk in range(st["frontier"] // ps, skip_to // ps):
+                        be.tables.adopt_shared(slot, blk, matched[blk])
+                    be.prefix.count_attach(
+                        skip_to // ps - st["frontier"] // ps)
+                    self.metrics.on_prefill_skip(skip_to - st["frontier"])
+                    st["frontier"] = skip_to
         start = st["frontier"]
         c = self.prefill_chunk
         length = min(c, s - start)
@@ -498,6 +626,13 @@ class Engine:
             lambda: be.prefill_chunk(self.params, toks, slot, start, length))
         st["frontier"] = start + length
         self.metrics.on_prefill_chunk(length)
+        # register the full pages as they complete, so cohort peers can
+        # catch up mid-prefill; the chain state makes each call O(chunk)
+        if be.prefix is not None:
+            st["reg_state"], _ = be.prefix.register_prefix(
+                seq[:st["frontier"]], be.tables.owned(slot),
+                st.get("reg_state"))
+            st["match_ver"] = (be.prefix.writes, be.pool.free_events)
         if st["frontier"] < s:
             return length
         # ---- prompt complete: graduate to decoding -------------------
@@ -530,12 +665,17 @@ class Engine:
             self.metrics.on_expire(r.rid)
             self._requests.pop(r.rid, None)
             self._emit(ExpireEvent(r.rid, self._tick_no))
+        be = self.backend
+        shared_hint = None
+        if be.prefix is not None:
+            shared_hint = (lambda req: be.shared_page_hint(
+                req.rid, self._context_seq(req)))
         for slot in range(self.n_slots):
             # while, not if: a max_new = 1 request finishes at its
             # whole-prompt prefill and leaves the slot free
             while self.slot_req[slot] is None:
                 r = self.scheduler.next_admissible(
-                    self.backend.free_pages(), self.backend.page_size)
+                    be.free_pages(), be.page_size, shared_pages=shared_hint)
                 if r is None:
                     return
                 self.metrics.on_admit(r.rid)
@@ -618,6 +758,24 @@ class Engine:
     def has_work(self) -> bool:
         return bool(len(self.scheduler)
                     or any(r is not None for r in self.slot_req))
+
+    def prefix_stats(self) -> Optional[Dict[str, int]]:
+        """Prefix-cache counters (None unless prefix sharing is on):
+        lookups and hits, pages attached instead of allocated, tokens
+        covered, live entries, retained pages and evictions, plus the
+        tables' copy-on-write copies and forked pages."""
+        be = self.backend
+        if be.prefix is None:
+            return None
+        st = be.prefix.stats()
+        return {"lookups": st.lookups, "hits": st.hits,
+                "pages_attached": st.pages_attached,
+                "tokens_shared": st.tokens_shared,
+                "entries": st.entries,
+                "retained": st.retained,
+                "evictions": st.evictions,
+                "cow_copies": be.tables.cow_copies,
+                "forked_pages": be.tables.forked_pages}
 
     # ------------------------------------------------------------------
     def tick(self) -> bool:

@@ -401,3 +401,43 @@ def test_contiguous_whole_prompt_engine_tokens_match_the_cpu(cuda):
     toks = chip_smoke.small_engine_tokens(
         torch, ("contiguous/cpu", "contiguous/cuda"))
     assert toks["contiguous/cuda"] == toks["contiguous/cpu"]
+
+
+@pytest.mark.parametrize("mode", ["shared-whole", "shared-chunked"])
+def test_shared_prefix_engine_tokens_match_the_cpu(cuda, mode):
+    """The paged engine with prefix sharing, whole-prompt or chunked
+    prefill, on the card and on the CPU (the reduced LLaMA config in
+    f32, prompts after a common 32-token prefix): the same greedy
+    tokens (``chip_smoke.small_engine_tokens``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    toks = chip_smoke.small_engine_tokens(torch, (f"{mode}/cpu",
+                                                  f"{mode}/cuda"))
+    assert toks[f"{mode}/cuda"] == toks[f"{mode}/cpu"]
+
+
+def test_restorative_lora_runs_on_the_card(cuda):
+    """Two steps of restorative-LoRA preprocessing of the reduced LLaMA
+    config on the card: finite losses, and W' finite, on the card, in
+    the weights' dtype."""
+    from repro_torch.configs import registry
+    from repro_torch.core.preprocess import (PreprocessConfig,
+                                             restorative_lora)
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.models import model as M
+    cfg = registry.get("llama-7b").reduced()
+    params = M.init_params(cfg, 0, cuda)
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    batches = [{"tokens": torch.from_numpy(t).to(cuda),
+                "targets": torch.from_numpy(g).to(cuda)}
+               for t, g in corpus.batches(2, 64, 2, split="calib")]
+    losses = []
+    out = restorative_lora(cfg, params, batches,
+                           QuantConfig(ratio=0.2, multiple=16),
+                           PreprocessConfig(rank=8, steps=2, lr=3e-4),
+                           min_dim=32, losses=losses)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    w = out["stages"][0][0][0]["attn"]["wq"]
+    assert w.device.type == "cuda" and w.dtype == torch.bfloat16
+    assert torch.isfinite(w.float()).all()
+    assert not torch.equal(w, params["stages"][0][0][0]["attn"]["wq"])

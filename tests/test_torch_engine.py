@@ -98,14 +98,15 @@ def test_engine_greedy_tokens_match_repro_across_preemption(
 
 
 def test_engine_refuses_what_is_not_ported(subject):
-    """Prefix sharing and retention are not ported; the reference's
-    ValueErrors for modes that need the paged backend are kept."""
+    """Block kinds other than dense are not ported and raise
+    NotImplementedError; the reference's ValueErrors for modes that need
+    the paged backend or prefix sharing are kept."""
     _, _, tp = subject
+    for arch in ("xlstm-1.3b", "recurrentgemma-2b", "granite-moe-1b-a400m"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TEngine(t_registry.get(arch).reduced(), tp, paged=True,
+                    device="cpu")
     cfg = t_registry.get("tiny-lm").reduced()
-    for kw in (dict(prefix_sharing=True),
-               dict(prefix_sharing=True, prefix_retain_pages=4)):
-        with pytest.raises(NotImplementedError):
-            TEngine(cfg, tp, paged=True, device="cpu", **kw)
     for kw in (dict(chunked_prefill=True), dict(prefix_sharing=True),
                dict(paged=True, prefix_retain_pages=4)):
         with pytest.raises(ValueError):
