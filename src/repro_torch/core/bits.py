@@ -2,6 +2,17 @@
 ``repro.core.bits``).
 
     b = 1·r_b + b_salient·(1−r_b) + b_index + b_additional
+
+* weight bits: binary channels at 1 bit, salient at 4;
+* b_index: the 1-D structured mask is K bits per (K,N) matrix
+  (≈0.0002 b/w at 4096² — the salient-first permutation is derivable from
+  the mask, costing nothing extra);
+* b_additional: fp16 scale storage — α_s, α_r1 (N each), α_r2 (k_b),
+  int4 per-channel scale+zero (2·k_s).
+
+For reference, the same accounting applied to the baselines (App. A):
+PB-LLM 0.1·8 + 0.9·1 + 1(unstructured mask) = 2.7 b/w; BiLLM 1.0 + 0.1 +
+1.0 = 2.1 b/w (``core.baselines.driver.method_bits``).
 """
 from __future__ import annotations
 
@@ -23,6 +34,10 @@ class BitsReport:
     additional_bits: float
     total_bits: float
     n_weights: int
+
+    def row(self) -> str:
+        return (f"{self.weight_bits:.4f} + {self.index_bits:.6f} + "
+                f"{self.additional_bits:.4f} = {self.total_bits:.4f}")
 
 
 def qlinear_bits(q: QLinear) -> BitsReport:
@@ -61,3 +76,15 @@ def model_bits(qparams: Any) -> Dict[str, Any]:
         "per_layer": reports,
         "checkpoint_gbytes": (bit_sum / 8 + exempt * 2) / 1e9,
     }
+
+
+def paper_closed_form(k: int = 4096, n: int = 4096, ratio: float = 0.2
+                      ) -> BitsReport:
+    """The Appendix-A worked example (4096×4096, 20% salient)."""
+    k_s = int(k * ratio)
+    k_b = k - k_s
+    weight_bits = (k_b * 1 + k_s * 4) / k
+    index_bits = k / (k * n)
+    additional = (2 * n + k_b + 2 * k_s) * SCALE_BITS / (k * n)
+    return BitsReport(weight_bits, index_bits, additional,
+                      weight_bits + index_bits + additional, k * n)

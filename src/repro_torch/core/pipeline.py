@@ -21,7 +21,8 @@ It returns one unfused ``QLinear`` per projection.  The quantized stream
 runs through the dequantized views of scale learning, the reference's
 XLA dequant product, so the calibration never touches the packed
 kernel; serving the result does.  Preprocessing by restorative LoRA
-(§3.4) is not ported.
+(§3.4) is composed by the caller (``core.preprocess.restorative_lora``,
+then a quantizer), as in the reference.
 """
 from __future__ import annotations
 
