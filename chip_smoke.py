@@ -25,7 +25,11 @@ Phases, each of which raises on failure:
    split plans at the serving shapes.  The packed matmul is also held
    and timed at the other row counts the paths give it (``PATH_ROWS``:
    4-slot decode, whole-prompt buckets, the loss's 1024 rows;
-   ``[mixed_matmul M=...]``);
+   ``[mixed_matmul M=...]``).  The same checks at granite-moe-1b-a400m's
+   shapes: its fused QKV (K 1024, N 2048) and output projection (1024 x
+   1024) at ``MOE_ROWS`` (``[moe mixed_matmul M=...]``) and both
+   attention kernels at GQA group 2, head dim 64 (``[moe
+   paged_attention]``, ``[moe paged_prefill]``, ``[moe plan]``);
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
    gives the same logits within tolerance; the calibrated pipeline run
@@ -37,7 +41,9 @@ Phases, each of which raises on failure:
    and the CPU, with chunked and with whole-prompt prefill; the paper's
    five 2-bit comparison methods quantize the same weights on the card
    and on the CPU (RTN, PB-LLM and BiLLM identical, AWQ's and BiLLM's
-   choices equal, GPTQ's objective within tolerance);
+   choices equal, GPTQ's objective within tolerance); then all of this
+   phase again on reduced granite, which runs the MoE dispatch (sort,
+   cumsum, index_put) on the card (``[moe reference]``);
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
@@ -73,10 +79,25 @@ Phases, each of which raises on failure:
    (``[serve-default]``): every request must finish; then with the
    paged chunked-prefill engine, ``--share-prefix --prefix-retain 16``
    (``[serve-share-prefix]``): the prefix cache must hit;
-8. check that every (M, K, N) the packed matmul launched at in phases
-   5-7 was held against its plain version in phase 3 or 6, then print
-   the ``kernels`` JSON line (six entries, one per TPU kernel: the five
-   wrappers and the perm gather of ``mixed_matmul``) and the result
+8. the MoE block kind: granite-moe-1b-a400m at full width and full
+   depth (24 layers, 32 experts, top-8), random bf16 weights of seed 0.
+   Data-free fused PTQ1.61 (bits per weight from ``model_bits``, which
+   must equal the paper's App.-A form over granite's shapes) served
+   through the paged chunked-prefill engine on the prompts of phase 5
+   (``[moe]``: tokens/s, TTFT, decode step, busy share, the device time
+   of the expert dequantization and of ``apply_moe`` in a decode step,
+   launches, peak memory); the same weights on the contiguous
+   whole-prompt engine (``[moe whole]``) and their ``forward_loss`` with
+   the load-balancing term (``[moe loss]``); calibrated PTQ1.61 at the
+   serve defaults, every block's Eq.-7 loss before and after learning,
+   none may rise, then served (``[moe calibrated]``); rtn-2 and pbllm at
+   full size (``[moe baselines]``).  The expert products are plain
+   ``torch.matmul`` over dequantized weights, as the reference's einsum;
+   only attention runs the port's kernels;
+9. check that every (M, K, N) the packed matmul launched at in phases
+   5-8 was held against its plain version in phase 3, 6 or 8, then
+   print the ``kernels`` JSON line (six entries, one per TPU kernel: the
+   five wrappers and the perm gather of ``mixed_matmul``) and the result
    line.
 
 It exits non-zero without CUDA, and when run outside a checkout of the
@@ -134,6 +155,13 @@ BASE_GPTQ_RTOL = 1e-3
 # tokens of the loss.  Each is held against the plain version, and the
 # shapes the paths launch must all have been checked.
 PATH_ROWS = (4, 16, 256, 512, 1024)
+# The MoE phases' model, the packed-matmul rows they launch (single
+# rows, 8-slot decode, the 64-token chunk, whole-prompt buckets 256 and
+# 512, the loss's 2 x 512) and the comparison methods they run at full
+# size (GPTQ at this size waits for a faster column loop).
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_ROWS = (1, 8, 64, 256, 512, 1024)
+MOE_BASELINES = ("rtn-2", "pbllm")
 
 
 def _fail(msg: str) -> None:
@@ -691,14 +719,18 @@ def check_paged_prefill(torch, cfg, timer, peaks, gen):
 # ---------------------------------------------------------------------------
 # Phase 4: small-input agreement, card against CPU
 # ---------------------------------------------------------------------------
-def check_small_reference(torch, registry):
+def check_small_reference(torch, registry, arch="llama-7b"):
+    """Paged chunked prefill and decode of ``arch`` reduced (f32,
+    data-free fused) on the card (kernels) and on the CPU (plain
+    versions) from the same weights: the largest logit gap relative to
+    the CPU's magnitude."""
     from repro_torch.core.pipeline import quantize_params_data_free
     from repro_torch.core.qlinear import QuantConfig
     from repro_torch.models import model as M
     from repro_torch.models.param import tree_to
     from repro_torch.runtime.paged_cache import (BlockTables, PagePool,
                                                  pages_for_tokens)
-    cfg = registry.get("llama-7b").reduced()
+    cfg = registry.get(arch).reduced()
     p = tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32)
     p = quantize_params_data_free(p, QuantConfig(ratio=0.25, multiple=16),
                                   min_dim=32, fuse=True)
@@ -743,7 +775,8 @@ def check_small_reference(torch, registry):
 
 # Engine modes of the small agreement: the contiguous whole-prompt engine
 # on the CPU and on the card, and whole-prompt against chunked prefill
-# on the card (paged, f32 pools).
+# on the card (paged, f32 pools); for a MoE model, whole-prompt and
+# chunked paged prefill each on the CPU and on the card.
 # The runs with prefix sharing serve prompts with a common 32-token
 # (4-page) prefix, on the CPU and on the card, both prefill modes.
 SMALL_WHOLE = dict(prefill_buckets=(16, 64))
@@ -759,6 +792,8 @@ SMALL_ENGINE_RUNS = {
     "paged-whole/cuda": ("cuda", dict(SMALL_WHOLE, paged=True,
                                       page_size=8)),
     "paged-chunked/cuda": ("cuda", SMALL_CHUNKED),
+    "paged-whole/cpu": ("cpu", dict(SMALL_WHOLE, paged=True, page_size=8)),
+    "paged-chunked/cpu": ("cpu", SMALL_CHUNKED),
     "shared-whole/cpu": ("cpu", SMALL_SHARED_WHOLE),
     "shared-whole/cuda": ("cuda", SMALL_SHARED_WHOLE),
     "shared-chunked/cpu": ("cpu", SMALL_SHARED_CHUNKED),
@@ -766,8 +801,8 @@ SMALL_ENGINE_RUNS = {
 }
 
 
-def small_engine_tokens(torch, names=tuple(SMALL_ENGINE_RUNS)) -> dict:
-    """Greedy tokens of the reduced LLaMA config in f32, data-free fused,
+def small_engine_tokens(torch, names, arch="llama-7b") -> dict:
+    """Greedy tokens of ``arch`` reduced in f32, data-free fused,
     served by the engine in each mode ``names`` of SMALL_ENGINE_RUNS: 6
     prompts of 7-60 tokens (with prefix sharing, each after a common
     32-token prefix), 8 new tokens each, 3 slots, max_seq 128.  Every
@@ -779,7 +814,7 @@ def small_engine_tokens(torch, names=tuple(SMALL_ENGINE_RUNS)) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models.param import tree_to
     from repro_torch.runtime.engine import Engine
-    cfg = registry.get("llama-7b").reduced()
+    cfg = registry.get(arch).reduced()
     p = quantize_params_data_free(
         tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32),
         QuantConfig(ratio=0.25, multiple=16), min_dim=32, fuse=True)
@@ -804,17 +839,30 @@ def small_engine_tokens(torch, names=tuple(SMALL_ENGINE_RUNS)) -> dict:
     return toks
 
 
-def check_small_engines(torch) -> dict:
+def check_small_engines(torch, arch="llama-7b") -> dict:
     """The contiguous whole-prompt engine gives the same greedy tokens on
     the card and on the CPU, on the card whole-prompt and chunked
     prefill give the same tokens, and the paged engine with prefix
     sharing gives the same tokens on the card and the CPU in both
-    prefill modes (``small_engine_tokens``)."""
-    toks = small_engine_tokens(torch)
+    prefill modes (``small_engine_tokens``).  A MoE model routes every
+    token of a call under a capacity that follows the call's tokens, so
+    a whole left-padded bucket and a 16-token chunk drop other slots
+    (as in the reference): there, each paged prefill mode is held card
+    against CPU instead of whole against chunked."""
+    from repro_torch.configs import registry
+    moe = registry.get(arch).moe is not None
+    names = [n for n in SMALL_ENGINE_RUNS
+             if moe or n not in ("paged-whole/cpu", "paged-chunked/cpu")]
+    toks = small_engine_tokens(torch, names, arch=arch)
     if toks["contiguous/cuda"] != toks["contiguous/cpu"]:
         _fail("small engines: contiguous whole-prompt greedy tokens differ "
               f"between the card and the CPU: {toks}")
-    if toks["paged-chunked/cuda"] != toks["paged-whole/cuda"]:
+    if moe:
+        for mode in ("paged-whole", "paged-chunked"):
+            if toks[f"{mode}/cuda"] != toks[f"{mode}/cpu"]:
+                _fail(f"small engines: {mode} greedy tokens differ between "
+                      f"the card and the CPU: {toks}")
+    elif toks["paged-chunked/cuda"] != toks["paged-whole/cuda"]:
         _fail("small engines: whole-prompt and chunked prefill give other "
               f"greedy tokens on the card: {toks}")
     for mode in ("shared-whole", "shared-chunked"):
@@ -825,9 +873,9 @@ def check_small_engines(torch) -> dict:
             "tokens": toks}
 
 
-def check_small_calibrated(torch, registry):
-    """Calibrated PTQ1.61 of the reduced LLaMA config (2 layers, f32) on
-    the card and on the CPU from the same weights and segments."""
+def check_small_calibrated(torch, registry, arch="llama-7b"):
+    """Calibrated PTQ1.61 of ``arch`` reduced (2 layers, f32) on the card
+    and on the CPU from the same weights and segments."""
     import dataclasses
     from repro_torch.configs.base import Stage
     from repro_torch.core.pipeline import quantize_model_ptq161
@@ -836,8 +884,8 @@ def check_small_calibrated(torch, registry):
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.models import model as M
     from repro_torch.models.param import tree_to
-    cfg = dataclasses.replace(registry.get("llama-7b").reduced(),
-                              stages=(Stage(("dense",), 2),))
+    cfg = registry.get(arch).reduced()
+    cfg = dataclasses.replace(cfg, stages=(Stage(cfg.stages[0].pattern, 2),))
     qcfg = QuantConfig(ratio=0.2, multiple=16, steps=3)
     p = tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
@@ -891,27 +939,47 @@ def check_small_calibrated(torch, registry):
 
 def _baseline_layers(torch, q) -> dict:
     """{(layer, block, name): fake-quant weight on the CPU} of a baseline
-    driver's result."""
+    driver's result (stacked expert weights included, the router not)."""
     return {(li, blk, name): x.cpu()
             for li, lp in enumerate(q["stages"][0])
             for blk, leaves in lp[0].items() if isinstance(leaves, dict)
-            for name, x in leaves.items() if x.ndim == 2}
+            for name, x in leaves.items() if x.ndim >= 2
+            and name != "router"}
 
 
 def _objective(torch, w, wq, h) -> float:
-    """GPTQ's calibration objective tr((W − Ŵ)ᵀ H (W − Ŵ)) in f64."""
+    """GPTQ's calibration objective tr((W − Ŵ)ᵀ H (W − Ŵ)) in f64 (H
+    None: the identity)."""
     d = (w.double() - wq.double())
-    return float(torch.sum((h.double() @ d) * d))
+    hd = d if h is None else h.double() @ d
+    return float(torch.sum(hd * d))
 
 
-def check_small_baselines(torch, registry) -> dict:
-    """The paper's five 2-bit comparison methods on the reduced LLaMA
-    config (2 layers, f32) on the card and on the CPU from the same
-    weights and calibration segments (4 x 64 tokens, min dim 32): RTN,
-    PB-LLM and BiLLM leaves identical; BiLLM's salient rows and split
-    and AWQ's α index the same; GPTQ's objective tr(ΔᵀHΔ) on layer 0,
-    whose input is the same embedding gather on both, within
-    BASE_GPTQ_RTOL of the CPU's for every leaf."""
+def _choice(v):
+    """A search's pick in comparable form: AWQ's α index, BiLLM's
+    (sorted salient rows, split index); a list of them per expert."""
+    if isinstance(v, list):
+        return [_choice(x) for x in v]
+    return v if isinstance(v, int) else (sorted(v[0].tolist()), v[1])
+
+
+def _choice_row(v):
+    """What the report prints of a pick: AWQ's α index, BiLLM's split."""
+    if isinstance(v, list):
+        return [_choice_row(x) for x in v]
+    return v if isinstance(v, int) else v[1]
+
+
+def check_small_baselines(torch, registry, arch="llama-7b") -> dict:
+    """The paper's five 2-bit comparison methods on ``arch`` reduced (2
+    layers, f32) on the card and on the CPU from the same weights and
+    calibration segments (4 x 64 tokens, min dim 32): RTN, PB-LLM and
+    BiLLM leaves identical; BiLLM's salient rows and split and AWQ's α
+    index the same (per expert on stacked expert weights); GPTQ's
+    objective tr(ΔᵀHΔ) on layer 0, whose input is the same embedding
+    gather on both, within BASE_GPTQ_RTOL of the CPU's for every leaf
+    (for each expert slice, which GPTQ quantizes under the identity as
+    the reference does, tr(ΔᵀΔ))."""
     import dataclasses
     from repro_torch.configs.base import Stage
     from repro_torch.core.baselines.driver import quantize_model_baseline
@@ -920,15 +988,16 @@ def check_small_baselines(torch, registry) -> dict:
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.models import model as M
     from repro_torch.models.param import tree_to
-    cfg = dataclasses.replace(registry.get("llama-7b").reduced(),
-                              stages=(Stage(("dense",), 2),))
+    cfg = registry.get(arch).reduced()
+    kind = cfg.stages[0].pattern[0]
+    cfg = dataclasses.replace(cfg, stages=(Stage((kind,), 2),))
     p = tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
     toks = [torch.from_numpy(t) for t, _ in
             corpus.batches(1, 64, 4, split="calib")]
     block0 = p["stages"][0][0][0]
     hess = {(0,) + k: sw.hessian for k, sw in collect_wrappers(
-        _block_forward(cfg, "dense"), block0,
+        _block_forward(cfg, kind), block0,
         [M.embed_tokens(cfg, p, t) for t in toks], min_dim=32,
         collect_hessian=True).items()}
     out = {}
@@ -940,9 +1009,7 @@ def check_small_baselines(torch, registry) -> dict:
                 cfg, tree_to(p, dev), [{"tokens": t.to(dev)} for t in toks],
                 method, min_dim=32, choices=picked)
             runs[dev] = (_baseline_layers(torch, q), {
-                (k[1],) + k[3:]: (v if isinstance(v, int)
-                                 else (sorted(v[0].tolist()), v[1]))
-                for k, v in picked.items()})
+                (k[1],) + k[3:]: _choice(v) for k, v in picked.items()})
         (a, ca), (b, cb) = runs["cuda"], runs["cpu"]
         if a.keys() != b.keys() or len(a) != 14:
             _fail(f"baselines: {method} quantized other leaves on the card")
@@ -956,12 +1023,18 @@ def check_small_baselines(torch, registry) -> dict:
             if ca != cb:
                 _fail(f"baselines: {method} chose differently on the card: "
                       f"{ca} vs {cb}")
-            row["choices"] = {"/".join(map(str, k)): v if isinstance(v, int)
-                              else v[1] for k, v in cb.items()}
+            row["choices"] = {"/".join(map(str, k)): _choice_row(v)
+                              for k, v in cb.items()}
         if method == "gptq-2":
             gaps = {}
             for k, h in hess.items():
                 fp_w = block0[k[1]][k[2]]
+                if fp_w.ndim == 3:              # experts: the identity
+                    for e in range(fp_w.shape[0]):
+                        e_a, e_b = (_objective(torch, fp_w[e], x[k][e], None)
+                                    for x in (a, b))
+                        gaps["/".join(k[1:]) + f"/{e}"] = (e_a - e_b) / e_b
+                    continue
                 e_a, e_b = (_objective(torch, fp_w, x[k], h) for x in (a, b))
                 gaps["/".join(k[1:])] = (e_a - e_b) / e_b
             worst = max(abs(g) for g in gaps.values())
@@ -1668,6 +1741,273 @@ def run_calibrated_path(torch, registry, kernels, path_kernels, peaks
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the MoE block kind at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def granite(registry):
+    cfg = registry.get(MOE_ARCH)
+    m = cfg.moe
+    print(f"[moe] {MOE_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} "
+          f"experts={m.n_experts} top_k={m.top_k} expert d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab} layers={cfg.n_layers}", flush=True)
+    return cfg
+
+
+def _packed_shapes(qparams) -> list:
+    """(slices, K, N) of every packed weight of a model: a stacked expert
+    weight counts its E slices."""
+    from repro_torch.core.qlinear import QLinear, QLinearGroup
+    from repro_torch.core.select import map_tree
+    shapes = []
+
+    def visit(_, x):
+        q = x.inner if isinstance(x, QLinearGroup) else x
+        if isinstance(q, QLinear):
+            shapes.append((math.prod(q.bits.shape[:-2]), q.k, q.n))
+        return x
+    map_tree(qparams, visit)
+    return shapes
+
+
+def check_moe_bits(qparams, ratio: float, multiple: int, tag: str) -> dict:
+    """``model_bits`` against the paper's App.-A form written out over
+    the model's packed shapes, with the salient count the structured
+    mask rounds to (``saliency.round_salient``): they must agree.  The
+    App.-A worked form (``bits.paper_closed_form``, k_s = ⌊ratio·K⌋)
+    over the same shapes is printed beside them."""
+    from repro_torch.core.bits import SCALE_BITS, paper_closed_form
+    from repro_torch.core.saliency import round_salient
+
+    def form(k, n, k_s):
+        return ((k - k_s) + 4 * k_s) / k + 1 / n + \
+            (2 * n + (k - k_s) + 2 * k_s) * SCALE_BITS / (k * n)
+
+    shapes = _packed_shapes(qparams)
+    n_w = sum(e * k * n for e, k, n in shapes)
+    mask_form = sum(e * k * n * form(k, n, round_salient(k, ratio, multiple))
+                    for e, k, n in shapes) / n_w
+    paper = sum(e * k * n * paper_closed_form(k, n, ratio).total_bits
+                for e, k, n in shapes) / n_w
+    bits = check_bits(qparams, tag)
+    if abs(bits - mask_form) > 1e-9 * mask_form:
+        _fail(f"{tag}: model_bits {bits} differs from the App.-A form "
+              f"over the model's shapes, {mask_form}")
+    print(f"[{tag} bits] model_bits {bits:.6f} = App.-A form with the "
+          f"mask's k_s {mask_form:.6f}; App.-A with k_s = floor({ratio}K) "
+          f"{paper:.6f}; shapes (slices, K, N): "
+          + json.dumps(sorted(set(shapes))), flush=True)
+    return {"bits_per_weight": bits, "app_a_mask_k_s": mask_form,
+            "app_a_floor_k_s": paper}
+
+
+def expert_costs(torch, cfg, qparams, peaks) -> dict:
+    """Device time of the expert feed-forward of one 8-slot decode step:
+    the dequantization that every call of layer 0's stacked experts
+    runs (wgu and wd into ``DequantView``s: the int4 matrix and the
+    signs in bf16), and the whole ``apply_moe`` of 8 tokens, each from
+    ``device_us`` (L2 flushed), times the layers.  The dequant's bound:
+    the packed expert bytes read once and the bf16 weights written
+    once."""
+    from repro_torch.models import layers as L
+    mlp = qparams["stages"][0][0][0]["mlp"]
+    qs = (mlp["wgu"].inner, mlp["wd"])
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dq = device_us(torch, lambda: [q.dequant_view(torch.bfloat16)
+                                   for q in qs])
+    moe = device_us(torch, lambda: L.apply_moe(cfg, mlp, x))
+    weights = sum(q.w4.shape[0] * q.k * q.n for q in qs)
+    packed = sum(sum(getattr(q, f).numel() * getattr(q, f).element_size()
+                     for f in ("perm", "w4", "s4", "z4", "bits", "alpha_s",
+                               "alpha_r1", "alpha_r2")) for q in qs)
+    b, by = bound_ms(packed + 2 * weights, 0.0, peaks)
+    n = cfg.n_layers
+    dq_ms, moe_ms = sum(dq.values()) / 1e3, sum(moe.values()) / 1e3
+    return {"expert_weights_per_layer": weights,
+            "packed_bytes_per_layer": packed,
+            "dequant_ms_per_layer": dq_ms, "dequant_ms_per_step": n * dq_ms,
+            "dequant_bound_ms_per_step": n * b, "dequant_bound_by": by,
+            "dequant_kernels_per_layer": len(dq),
+            "apply_moe_ms_per_layer": moe_ms,
+            "apply_moe_ms_per_step": n * moe_ms,
+            "apply_moe_kernels_per_layer": len(moe)}
+
+
+def run_moe_path(torch, registry, kernels, path_kernels, peaks):
+    """granite-moe-1b-a400m at full width and depth (24 layers, 32
+    experts, top-8), random bf16 weights of seed 0, data-free PTQ1.61
+    with fused QKV and fused expert gate+up, served through the paged
+    chunked-prefill engine (``[moe]``), then with whole-prompt prefill on
+    the contiguous backend (``[moe whole]``), and its loss on 2 x 512
+    tokens (``[moe loss]``)."""
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.models import model as M
+
+    cfg = granite(registry)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_params_data_free(
+        params, QuantConfig(ratio=0.2, multiple=16), min_dim=32, fuse=True)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    print(f"[moe] data-free fused quantization {t_quant:.2f}s", flush=True)
+    bits = check_moe_bits(qparams, 0.2, 16, "moe")
+    out = {}
+    engine, out["moe"] = serve_prompts(torch, cfg, qparams, kernels,
+                                       path_kernels, "moe", CHUNKED)
+    out["moe"].update(quantize_s=t_quant, **bits)
+    out["moe"]["decode_busy"] = decode_busy_share(torch, cfg, engine)
+    del engine
+    out["moe"]["expert"] = expert_costs(torch, cfg, qparams, peaks)
+    print("[moe] " + json.dumps(out["moe"]), flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, out["moe whole"] = serve_prompts(
+        torch, cfg, qparams, kernels, ("mixed_matmul",), "moe whole", WHOLE)
+    out["moe whole"]["decode_busy"] = decode_busy_share(torch, cfg, engine)
+    del engine
+    print("[moe whole] " + json.dumps(out["moe whole"]), flush=True)
+    for k in kernels.values():
+        k.launches = 0
+    out["moe loss"] = run_loss(torch, cfg, qparams)
+    out["moe loss"]["launches"] = {n: k.launches for n, k in kernels.items()}
+    if out["moe loss"]["launches"]["mixed_matmul"] <= 0:
+        _fail("moe loss: kernel mixed_matmul was not launched")
+    print("[moe loss] forward_loss of the data-free granite (with 0.01 x "
+          "the load-balancing loss): " + json.dumps(out["moe loss"]),
+          flush=True)
+    return out, cfg
+
+
+def run_moe_calibrated(torch, cfg, kernels, path_kernels, peaks) -> dict:
+    """granite quantized with calibrated PTQ1.61 at the serve defaults of
+    ``repro_torch.launch.serve`` (4 segments of 64 tokens, 3 epochs,
+    ratio 0.2, multiple 16, min dim 32); the Eq.-7 loss of every block
+    before and after learning (learning must not raise any); its first
+    layer's 4 packed attention projections held against the plain
+    version and timed; then served through the paged chunked-prefill
+    engine."""
+    from repro_torch.core.pipeline import quantize_model_ptq161
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch.serve import parse_args
+    from repro_torch.models import model as M
+
+    d = parse_args([])
+    qcfg = QuantConfig(ratio=d.ratio, multiple=d.multiple, steps=d.opt_steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    calib = [{"tokens": torch.from_numpy(t).to("cuda")} for t, _ in
+             corpus.batches(1, d.calib_seq, d.calib_segments,
+                            split="calib")]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_model_ptq161(cfg, params, calib, qcfg,
+                                    min_dim=d.min_dim,
+                                    attn_chunk=d.attn_chunk,
+                                    block_losses=losses)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[moe calibrated] {len(losses)} blocks quantized in "
+          f"{t_quant:.1f}s, peak {peak:.2f} GB; Eq.-7 loss before -> after "
+          "per block: " + json.dumps(losses), flush=True)
+    raised = [i for i, (b, a) in enumerate(losses) if not a <= b]
+    if raised:
+        _fail(f"moe calibrated: learning raised the loss of blocks {raised}")
+    bits = check_moe_bits(qparams, d.ratio, d.multiple, "moe calibrated")
+    layer = {name: qparams["stages"][0][0][0]["attn"][name]
+             for name in ("wq", "wk", "wv", "wo")}
+    timer = Timer(torch)
+    cal_mm = check_mixed_matmul(torch, layer, timer, peaks,
+                                torch.Generator(device="cuda").manual_seed(9))
+    del timer
+    print("[moe calibrated mixed_matmul] " + json.dumps(cal_mm), flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, summary = serve_prompts(torch, cfg, qparams, kernels, path_kernels,
+                               "moe calibrated", CHUNKED)
+    summary.update(
+        quantize_s=t_quant, quantize_peak_gb=peak, block_losses=losses,
+        blocks=len(losses), layer0_mixed_matmul=cal_mm, **bits,
+        calibration={"segments": d.calib_segments, "seq": d.calib_seq,
+                     "steps": d.opt_steps, "ratio": d.ratio,
+                     "multiple": d.multiple})
+    return summary
+
+
+def run_moe_baselines(torch, cfg, kernels, ptq_bits: float,
+                      ptq_loss: float) -> dict:
+    """rtn-2 and pbllm on granite's bf16 weights of seed 0 at full width
+    and depth through ``quantize_model_baseline`` (per expert on the
+    stacked expert weights) at ``run_baselines``' calibration settings:
+    quantize seconds, peak device memory, bits per weight over granite's
+    leaf shapes (each expert slice a (K, N) matrix) and the loss on the
+    ``[moe loss]`` tokens beside the fp loss and the data-free PTQ1.61
+    loss; every loss finite and no packed kernel launched."""
+    from repro_torch.core.baselines.driver import (method_bits,
+                                                   quantize_model_baseline)
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.models import model as M
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    calib = [{"tokens": torch.from_numpy(t).to("cuda")} for t, _ in
+             corpus.batches(1, 256, 32, split="calib")]
+    params = M.init_params(cfg, seed=0, device="cuda")
+    fp_loss = run_loss(torch, cfg, params)["loss"]
+    shapes = [(math.prod(x.shape[:-2]), x.shape[-2], x.shape[-1])
+              for leaves in params["stages"][0][0][0].values()
+              if isinstance(leaves, dict)
+              for name, x in leaves.items()
+              if x.ndim >= 2 and name != "router"]
+    n_w = sum(e * k * n for e, k, n in shapes)
+    for k in kernels.values():
+        k.launches = 0
+    rows = {}
+    for method in MOE_BASELINES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = quantize_model_baseline(cfg, params, calib, method, min_dim=64)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        loss = run_loss(torch, cfg, q)["loss"]
+        del q
+        rows[method] = {
+            "quantize_s": dt, "peak_mem_gb": peak, "loss": loss,
+            "bits_granite": sum(method_bits(method, k, n) * e * k * n
+                                for e, k, n in shapes) / n_w}
+        print(f"[moe baselines] {method}: quantized in {dt:.1f}s, peak "
+              f"device memory {peak:.2f} GB, "
+              f"{rows[method]['bits_granite']:.4f} bits/weight, loss "
+              f"{loss:.4f}", flush=True)
+        if not math.isfinite(loss):
+            _fail(f"moe baselines: {method}'s loss is {loss}")
+    launches = {name: k.launches for name, k in kernels.items()}
+    if any(launches.values()):
+        _fail(f"moe baselines: fake-quant models launched packed kernels: "
+              f"{launches}")
+    del params
+    return {"methods": rows, "fp_loss": fp_loss, "ptq161_datafree_loss":
+            ptq_loss, "ptq161_datafree_bits": ptq_bits,
+            "calibration": {"segments": 32, "seq": 256, "min_dim": 64},
+            "launches": launches}
+
+
 def _entry(name, replaces, checked, rows, launches, shape, source=None):
     """One kernel's entry of the ``kernels`` line: max error over every
     shape ``checked``, times summed over ``rows``, launches per path."""
@@ -1769,6 +2109,30 @@ def main() -> int:
     print("[paged_attention] " + json.dumps(pa), flush=True)
     pf = check_paged_prefill(torch, cfg, timer, peaks, gen)
     print("[paged_prefill] " + json.dumps(pf), flush=True)
+    # granite's attention (GQA group 2, dh 64) and packed projections
+    gcfg = registry.get(MOE_ARCH)
+    print("[moe plan] attention split plans at granite's heads: "
+          + json.dumps(attention_plans(torch, gcfg)), flush=True)
+    gprojs = {k: v for k, v in llama_projections(
+        torch, gcfg, torch.Generator(device="cuda").manual_seed(10)).items()
+        if k in ("wqkv", "wo")}
+    moe_mm = check_mixed_matmul(
+        torch, gprojs, timer, peaks,
+        torch.Generator(device="cuda").manual_seed(11), ms=MOE_ROWS)
+    for m in MOE_ROWS:
+        rows = [r for r in moe_mm if r["M"] == m]
+        print(f"[moe mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
+              f"{MM_ATOL}) granite wqkv+wo: kernel "
+              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
+              f"torch.matmul "
+              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
+              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
+              + json.dumps(rows), flush=True)
+    moe_pa = check_paged_attention(torch, gcfg, timer, peaks, gen)
+    print("[moe paged_attention] " + json.dumps(moe_pa), flush=True)
+    moe_pf = check_paged_prefill(torch, gcfg, timer, peaks, gen)
+    print("[moe paged_prefill] " + json.dumps(moe_pf), flush=True)
+    del gprojs
     spans = check_spans(torch, projs, timer, peaks,
                         torch.Generator(device="cuda").manual_seed(1))
     for name, rows in spans.items():
@@ -1814,6 +2178,21 @@ def main() -> int:
           "card and on the CPU: rtn-2, pbllm, billm identical, awq-2 and "
           "billm choices equal, gptq-2 layer-0 objectives within "
           f"{BASE_GPTQ_RTOL}; " + json.dumps(base_small), flush=True)
+    # the same on reduced granite: the MoE dispatch (sort, cumsum,
+    # index_put) on the card against the CPU
+    worst = check_small_reference(torch, registry, MOE_ARCH)
+    print(f"[moe reference] reduced granite, f32: card vs CPU logits agree "
+          f"to {worst:.2e} (relative, limit {REF_RTOL})", flush=True)
+    print("[moe reference] reduced granite, f32, greedy tokens: "
+          + json.dumps(check_small_engines(torch, MOE_ARCH)), flush=True)
+    print("[moe reference] reduced granite (2 layers), f32, calibrated on "
+          "the card and on the CPU: perm and packed bytes equal; "
+          + json.dumps(check_small_calibrated(torch, registry, MOE_ARCH)),
+          flush=True)
+    print("[moe reference] reduced granite (2 layers), f32, baselines on "
+          "the card and on the CPU: "
+          + json.dumps(check_small_baselines(torch, registry, MOE_ARCH)),
+          flush=True)
 
     # -- 5. the data-free main path, then whole-prompt prefill -------------
     # from here on the packed matmul counts its launches by (M, K, N)
@@ -1857,10 +2236,21 @@ def main() -> int:
           f" / {sum(r['library_ms'] for r in unfused) * 1e3:.1f} us",
           flush=True)
 
-    # -- 8. every packed-matmul shape of the paths was checked; the kernels
+    # -- 8. the MoE block kind: granite at full width and depth ------------
+    moe, gcfg = run_moe_path(torch, registry, kernels, path_kernels, peaks)
+    moe_cal = run_moe_calibrated(torch, gcfg, kernels, path_kernels, peaks)
+    print("[moe calibrated] " + json.dumps(moe_cal), flush=True)
+    torch.cuda.empty_cache()
+    moe_base = run_moe_baselines(torch, gcfg, kernels,
+                                 moe["moe"]["bits_per_weight"],
+                                 moe["moe loss"]["loss"])
+    print("[moe baselines] " + json.dumps(moe_base), flush=True)
+
+    # -- 9. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
-               mm + mm_rows + cal_summary["layer0_mixed_matmul"]}
+               mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
+               + moe_cal["layer0_mixed_matmul"]}
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
     if unchecked:
@@ -1869,8 +2259,8 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-7 was held against its plain version in phase 3 "
-          "or 6; launches by shape: " + json.dumps(by_shape), flush=True)
+          "at in phases 5-8 was held against its plain version in phase 3, "
+          "6 or 8; launches by shape: " + json.dumps(by_shape), flush=True)
     launches = {"datafree": summary["launches"],
                 "calibrated": cal_summary["launches"],
                 "whole": whole["whole"]["launches"],
@@ -1883,26 +2273,32 @@ def main() -> int:
                     shared["shared-prefix whole-paged"]["launches"],
                 "serve-share-prefix": serve_share["launches"],
                 "preprocess": preprocess["launches"],
-                "baselines": baselines["launches"]}
+                "baselines": baselines["launches"],
+                "moe": moe["moe"]["launches"],
+                "moe whole": moe["moe whole"]["launches"],
+                "moe loss": moe["moe loss"]["launches"],
+                "moe calibrated": moe_cal["launches"],
+                "moe baselines": moe_base["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
     entries = [
         _entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:158",
-               mm + mm_rows + cal_summary["layer0_mixed_matmul"]
+               mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
+               + moe_cal["layer0_mixed_matmul"]
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         dict(_entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:166",
-                    mm + mm_rows, gather, launches,
+                    mm + mm_rows + moe_mm, gather, launches,
                     "the perm gather (gather_kernel) of a decode call at "
                     "M=8, wqkv+wgu+wo+wd; one per mixed_matmul launch, "
                     "held through the product"),
              name="mixed_matmul(perm)"),
         _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",
-               [pa], [pa], launches,
+               [pa, moe_pa], [pa], launches,
                "B=8 hkv=32 dh=128 ps=16, lens up to 1000"),
         _entry("paged_prefill", "src/repro/kernels/paged_prefill.py:258",
-               pf, pf[:1], launches,
+               pf + moe_pf, pf[:1], launches,
                "C=64 over 192 context tokens, hkv=32 dh=128"),
         _entry("binary_matmul", "src/repro/kernels/binary_matmul.py:75",
                bm, [r for r in bm if r["M"] == 8], launches,

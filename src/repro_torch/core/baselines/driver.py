@@ -9,6 +9,13 @@ below 2 bits, which is the paper's point).  The model then runs its
 dense ``torch.matmul`` path, as the reference runs ``einsum``.
 
 Methods: rtn-{2,3,4,8} | gptq-{2,3,4} | awq-2 | pbllm | billm.
+
+A stacked expert weight (E, K, N) is quantized expert by expert, as the
+reference does, with what its wrapper recorded: AWQ takes the expert's
+own channel means but the row sample of every expert at once (mostly
+expert 0's capacity rows), BiLLM the diagonal of the Hessian merged over
+every expert, and GPTQ the identity in place of a Hessian (the
+reference tracks no per-expert Hessian).
 """
 from __future__ import annotations
 
@@ -57,7 +64,8 @@ def quantize_model_baseline(
     ``method``, in the port's per-layer layout.  Params on the card
     quantize on the card.  With ``choices`` given, records per leaf
     (stage, layer, pattern position) + path what the search picked:
-    AWQ's α index, BiLLM's (salient rows, split index)."""
+    AWQ's α index, BiLLM's (salient rows, split index); a list of them,
+    one per expert, for a stacked expert weight."""
     from repro_torch.models import model as M
     kind, b = parse_method(method)
     needs_h = kind in ("gptq", "billm")
@@ -74,14 +82,22 @@ def quantize_model_baseline(
             qblocks = []
             for pi, bk in enumerate(stage.pattern):
                 fp_block = lp[pi]
-                map_quantizable(fp_block, _refuse_stacked, min_dim=min_dim)
                 fwd = _block_forward(cfg, bk, attn_chunk)
                 wrappers = collect_wrappers(
                     fwd, fp_block, x_q, min_dim=min_dim,
                     collect_hessian=needs_h, sample_rows=sample_rows)
 
                 def qfn(path, w):
-                    wq, picked = _quant_one(kind, b, w, wrappers.get(path))
+                    sw = wrappers.get(path)
+                    if w.ndim > 2:      # stacked experts: slice by slice
+                        outs = [_quant_one(kind, b, w[e], sw, e)
+                                for e in range(w.shape[0])]
+                        wq = torch.stack([o[0] for o in outs])
+                        picked = [o[1] for o in outs]
+                        if picked[0] is None:
+                            picked = None
+                    else:
+                        wq, picked = _quant_one(kind, b, w, sw)
                     if choices is not None and picked is not None:
                         choices[(si, li, pi) + path] = picked
                     return wq
@@ -99,24 +115,20 @@ def quantize_model_baseline(
     return qparams
 
 
-def _refuse_stacked(path, w):
-    if w.ndim > 2:
-        raise NotImplementedError(
-            f"stacked-expert weight {path}: the baselines' per-expert "
-            "branch waits for the MoE block kind, which is not ported yet")
-    return w
-
-
 def _quant_one(kind: str, b: Optional[int], w: torch.Tensor,
-               sw: Optional[StatsWeight]):
-    """(fake-quant w, what the method's search picked or None)."""
+               sw: Optional[StatsWeight], expert: Optional[int] = None):
+    """(fake-quant w, what the method's search picked or None) for one
+    (K, N) weight, or slice ``expert`` of a stacked one."""
     if kind == "rtn":
         return rtn.rtn_quantize(w, b), None
     if kind == "gptq":
-        h = None if sw is None or sw.h is None else sw.hessian
+        h = None if sw is None or sw.h is None or expert is not None \
+            else sw.hessian
         return gptq.gptq_quantize(w, h, b), None
     if kind == "awq":
         absmean = None if sw is None or sw.sum_abs is None else sw.absmean
+        if absmean is not None and expert is not None:
+            absmean = absmean[expert]
         xs = None if sw is None else sw.x_sample
         return awq.awq_search(w, absmean, b, x_sample=xs)
     if kind == "pbllm":

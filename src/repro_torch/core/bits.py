@@ -16,6 +16,7 @@ PB-LLM 0.1·8 + 0.9·1 + 1(unstructured mask) = 2.7 b/w; BiLLM 1.0 + 0.1 +
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, List
 
@@ -41,10 +42,13 @@ class BitsReport:
 
 
 def qlinear_bits(q: QLinear) -> BitsReport:
-    n_w = q.k * q.n
+    """One QLinear; a stacked one (leading expert axes) counts each
+    slice's mask and scales."""
+    lead = math.prod(q.bits.shape[:-2])
+    n_w = lead * q.k * q.n
     weight_bits = (q.k_b * 1 + q.k_s * 4) / q.k
-    index_bits = q.k / n_w
-    additional = (2 * q.n + q.k_b + 2 * q.k_s) * SCALE_BITS / n_w
+    index_bits = lead * q.k / n_w
+    additional = lead * (2 * q.n + q.k_b + 2 * q.k_s) * SCALE_BITS / n_w
     return BitsReport(weight_bits, index_bits, additional,
                       weight_bits + index_bits + additional, n_w)
 

@@ -23,9 +23,10 @@ Tree = Any
 
 
 class StatsWeight:
-    """Drop-in weight that records per-input-channel Σ|x| and Σx²,
-    optionally the input Gram matrix Σ xᵀx (the Hessian H = 2·Σ xᵀx /
-    count) and a capped sample of raw input rows."""
+    """Drop-in weight that records per-input-channel Σ|x| and Σx² (per
+    expert for a stacked expert weight), optionally the input Gram
+    matrix Σ xᵀx (the Hessian H = 2·Σ xᵀx / count) and a capped sample
+    of raw input rows."""
 
     def __init__(self, w: torch.Tensor, collect_hessian: bool = False,
                  sample_rows: int = 0):
@@ -38,16 +39,22 @@ class StatsWeight:
         self.sample_rows = sample_rows
         self.samples: List[torch.Tensor] = []
 
-    def _record(self, x: torch.Tensor) -> None:
-        xf = x.to(torch.float32).reshape(-1, x.shape[-1])
-        s_abs = torch.sum(torch.abs(xf), dim=0)
-        s_sq = torch.sum(xf * xf, dim=0)
+    def _record(self, x: torch.Tensor, per_expert: bool = False) -> None:
+        """Add one call's input.  ``per_expert``: x is (E, C, K) and the
+        channel sums are per expert, (E, K), over the capacity rows only
+        (``count`` counts C); the Gram matrix and the row sample still
+        take every expert's rows at once, as the reference does."""
+        x32 = x.to(torch.float32)
+        xf = x32.reshape(-1, x.shape[-1])
+        rows, dim = (x32, 1) if per_expert else (xf, 0)
+        s_abs = torch.sum(torch.abs(rows), dim=dim)
+        s_sq = torch.sum(rows * rows, dim=dim)
         if self.sum_abs is None:
             self.sum_abs, self.sum_sq = s_abs, s_sq
         else:
             self.sum_abs = self.sum_abs + s_abs
             self.sum_sq = self.sum_sq + s_sq
-        self.count += xf.shape[0]
+        self.count += rows.shape[dim]
         if self.collect_hessian:
             g = xf.T @ xf
             if self.h is None:
@@ -62,6 +69,12 @@ class StatsWeight:
 
     def __matmul_x__(self, x: torch.Tensor) -> torch.Tensor:
         self._record(x)
+        return x @ self.w.to(x.dtype)
+
+    def __expert_matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        """x (E, C, K) @ the stacked (E, K, N) weight, recording per
+        expert."""
+        self._record(x, per_expert=True)
         return x @ self.w.to(x.dtype)
 
     def _mean(self, total: torch.Tensor) -> torch.Tensor:
@@ -90,8 +103,8 @@ def collect_stats(forward: Callable[[Tree, Any], Any], params: Tree,
                   batches: List[Any], min_dim: int = 64
                   ) -> Dict[Tuple, torch.Tensor]:
     """Run ``forward(wrapped_params, batch)`` per batch without autograd;
-    return {path: absmean (K,)} for every quantizable leaf that saw
-    input."""
+    return {path: absmean (K,), or (E, K) per expert} for every
+    quantizable leaf that saw input."""
     wrappers = collect_wrappers(forward, params, batches, min_dim=min_dim)
     return {k: sw.absmean for k, sw in wrappers.items()
             if sw.sum_abs is not None}

@@ -5,7 +5,10 @@ quantizes salient channels to int4 and binarizes the rest with analytic
 scales, with no calibration data and no learning.  ``fuse=True`` first
 concatenates QKV and gate+up along N and quantizes each fused matrix as
 one layout (shared permutation, int4 scales and α_r2), so each block
-runs 2 packed matmuls for its input projections instead of 5.
+runs 2 packed matmuls for its input projections instead of 5; a MoE
+block's stacked expert pair (E, K, F) becomes one (E, K, 2F) group with
+one such layout per expert.  Stacked expert weights are quantized slice
+by slice (``qlinear.quantize_linear``), with a mask per expert.
 
 ``quantize_model_ptq161`` is the calibrated method (paper Fig. 2),
 block by block in depth order with error propagation:

@@ -14,7 +14,12 @@ Forward:
   y = x[.., perm_s] @ W4deq  +  ((x[.., perm_b] * α_r2) @ sign) * (α_s·α_r1)
 
 The packed arrays are pre-permuted, so the forward needs one activation
-gather.  :meth:`QLinear.__matmul_x__` goes through
+gather.  Every field may carry a leading expert axis E (a stacked MoE
+weight: one mask and one set of scales per (K, N) slice, one ``k_s``
+for all); :meth:`QLinear.__expert_matmul__` is its per-expert product
+x (E, C, K) -> (E, C, N), dequantize-then-matmul in the activation
+dtype as the reference's ``einsum`` (no kernel of the port runs it).
+:meth:`QLinear.__matmul_x__` goes through
 ``repro_torch.kernels.ops.mixed_matmul``: the CUDA kernel on a CUDA
 tensor (the gather happens inside the kernel), its plain PyTorch version
 on a CPU tensor.  :meth:`QLinear.__matmul_permuted__` is the dequantize-
@@ -111,6 +116,13 @@ class QLinear:
         in the activation dtype (the oracle path)."""
         return self.dequant_view(xp.dtype).__matmul_permuted__(xp)
 
+    def __expert_matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        """x (E, C, K) with stacked per-expert fields -> (E, C, N): the
+        per-expert gather by ``perm``, the int4 product and the sign
+        product scaled by α_r2, α_s and α_r1, over weights dequantized
+        in the activation dtype."""
+        return self.dequant_view(x.dtype).__expert_matmul__(x)
+
     def dequant_view(self, dtype) -> "DequantView":
         """The differentiable view for scale learning, with the int4
         matrix and the signs dequantized once in ``dtype``."""
@@ -145,6 +157,17 @@ class DequantView:
         yb = (xb * self.alpha_r2.to(xp.dtype)) @ self.sign.to(xp.dtype)
         return y4 + yb * (self.alpha_s * self.alpha_r1).to(xp.dtype)
 
+    def __expert_matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        """The stacked twin: x (E, C, K), fields (E, ...) -> (E, C, N)."""
+        idx = self.perm.long()[:, None, :].expand(x.shape)
+        xp = torch.gather(x, -1, idx)
+        xs, xb = xp[..., :self.k_s], xp[..., self.k_s:]
+        y4 = xs @ self.w4deq.to(x.dtype)
+        yb = (xb * self.alpha_r2[:, None, :].to(x.dtype)) @ \
+            self.sign.to(x.dtype)
+        return y4 + yb * (self.alpha_s * self.alpha_r1)[:, None, :].to(
+            x.dtype)
+
 
 def scale_params(q) -> dict:
     """The learnable subset for block-wise optimization (Eq. 7 argmin)
@@ -159,27 +182,43 @@ def with_scales(q, s: dict):
                                alpha_r2=s["alpha_r2"])
 
 
-def quantize_linear(w: torch.Tensor, act_stat: Optional[torch.Tensor],
-                    qcfg: QuantConfig) -> QLinear:
-    """PTQ1.61 initial quantization of one 2-D (K, N) weight (no
-    learning).  ``act_stat`` is the per-input-channel saliency statistic
-    (K,); without one the data-free |w| magnitude is used."""
-    if w.ndim != 2:
-        raise ValueError(f"quantize_linear takes a 2-D weight, got "
-                         f"{tuple(w.shape)}")
-    k, n = w.shape
-    if act_stat is None:
-        act_stat = torch.mean(torch.abs(w.to(torch.float32)), dim=-1)
+def _quantize_slice(w: torch.Tensor, act_stat: torch.Tensor,
+                    qcfg: QuantConfig):
+    """One (K, N) slice -> (the 8 fields in FIELDS order, k_s)."""
     _, perm, k_s = sal.structured_mask(act_stat, qcfg.ratio, qcfg.multiple)
     wp = w[perm.long()]
     ws, wb = wp[:k_s], wp[k_s:]
     q4 = int4.quantize_int4(ws)
-    w4 = pack.pack_nibbles(q4["q"], axis=-2)
     b = binarize.binarize_init(wb)
-    bits = pack.pack_bits(b["sign"], axis=-2)
-    return QLinear(perm, w4, q4["s"], q4["z"], bits, b["alpha_s"],
-                   b["alpha_r1"],
-                   b["alpha_r2"], k_s=k_s, k=k, n=n)
+    return (perm, pack.pack_nibbles(q4["q"], axis=-2), q4["s"], q4["z"],
+            pack.pack_bits(b["sign"], axis=-2), b["alpha_s"],
+            b["alpha_r1"], b["alpha_r2"]), k_s
+
+
+def quantize_linear(w: torch.Tensor, act_stat: Optional[torch.Tensor],
+                    qcfg: QuantConfig) -> QLinear:
+    """PTQ1.61 initial quantization of one (…, K, N) weight (no
+    learning).  ``act_stat`` is the per-input-channel saliency statistic
+    (…, K) (or (K,), shared by every slice); without one the data-free
+    |w| magnitude is used.  A stacked weight is quantized slice by slice
+    with a mask of its own each; ``k_s`` is the first slice's (the mask
+    rounds every slice of one K alike), and every field gets the leading
+    shape back."""
+    k, n = w.shape[-2], w.shape[-1]
+    if act_stat is None:
+        act_stat = torch.mean(torch.abs(w.to(torch.float32)), dim=-1)
+    if w.ndim == 2:
+        fields, k_s = _quantize_slice(w, act_stat, qcfg)
+    else:
+        lead = w.shape[:-2]
+        wf = w.reshape((-1, k, n))
+        sf = act_stat.reshape((-1, k)) if act_stat.ndim > 1 else None
+        outs = [_quantize_slice(wf[i], act_stat if sf is None else sf[i],
+                                qcfg) for i in range(wf.shape[0])]
+        k_s = outs[0][1]
+        fields = tuple(torch.stack([o[0][j] for o in outs]).reshape(
+            lead + outs[0][0][j].shape) for j in range(len(FIELDS)))
+    return QLinear(*fields, k_s=k_s, k=k, n=n)
 
 
 @dataclass
@@ -209,11 +248,20 @@ class QLinearGroup:
             return self.inner.__matmul_x__(x)
         return x @ self.inner.to(x.dtype)
 
+    def __expert_matmul__(self, x: torch.Tensor) -> torch.Tensor:
+        """Fused per-expert forward: x (E, C, K) -> (E, C, ΣN_i), one
+        batched product (and, quantized, one per-expert gather) for the
+        whole group."""
+        if isinstance(self.inner, QLinear):
+            return self.inner.__expert_matmul__(x)
+        return x @ self.inner.to(x.dtype)
+
     def split_out(self, y: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return tuple(pack.split_cols(y, self.splits))
 
     def members(self) -> Tuple[Any, ...]:
-        """Per-member unfused views over the same (fp or packed) data."""
+        """Per-member unfused views over the same (fp or packed) data;
+        stacked inners split along N alike."""
         if not isinstance(self.inner, QLinear):
             return tuple(pack.split_cols(self.inner, self.splits))
         q = self.inner

@@ -1,8 +1,9 @@
 """Transformer layers (subset of ``repro.models.layers``): norms, RoPE,
-the fused QKV projection, the gated MLP, full-sequence self-attention
-(the calibration forward and whole-prompt prefill), decode against the
-contiguous ring caches, and paged decode / chunked-prefill attention
-over the shared KV page pool.
+the fused QKV projection, the gated MLP, the token-choice mixture of
+experts (single device), full-sequence self-attention (the calibration
+forward and whole-prompt prefill), decode against the contiguous ring
+caches, and paged decode / chunked-prefill attention over the shared KV
+page pool.
 
 All linear weights are (in_features, out_features) and every matmul
 goes through :func:`repro_torch.models.linear.dense`, so packed
@@ -25,7 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill
-from repro_torch.models.linear import dense
+from repro_torch.models.linear import dense, expert_dense
 from repro_torch.models.param import P
 
 Tree = Any
@@ -417,3 +418,118 @@ def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
         g = _act(cfg.act, dense(x, p["wg"]))
         u = dense(x, p["wu"])
     return dense(g * u, p["wd"])
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts: token-choice top-k, capacity dispatch by scatter
+# (the single-device branch of the reference's ``apply_moe``)
+# ---------------------------------------------------------------------------
+def init_moe(cfg: ArchConfig) -> Tree:
+    """The router stays f32 and is never quantized (not a projection
+    name of ``core.select``); expert weights are stacked (E, K, N)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    return {"router": P((d, e), "scaled", torch.float32),
+            "wg": P((e, d, f), "scaled"), "wu": P((e, d, f), "scaled"),
+            "wd": P((e, f, d), "scaled")}
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Slots per expert for a call routing ``n_tokens`` tokens: k · factor
+    · T / E rounded up to a multiple of 8, at least 8."""
+    m = cfg.moe
+    cap = int(math.ceil(m.top_k * m.capacity_factor * n_tokens / m.n_experts))
+    return max(8, ((cap + 7) // 8) * 8)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """Top-k along the last axis with ties broken toward the lower index,
+    as ``jax.lax.top_k`` does: a stable descending sort."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """One-hot rows by comparison (``F.one_hot`` reads its input's range
+    back to the host, a synchronization per layer on the card)."""
+    return (idx[:, None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def moe_dispatch(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor
+                 ) -> Dict[str, Any]:
+    """Route tokens xt (T, D).  Returns the top-k experts ``gate_e`` (T, k)
+    and their softmaxed weights ``gate_w`` in the activation dtype, and
+    per (token, slot) in token-major order the expert ``dest_e`` (E, the
+    ghost expert, where the slot overflowed), its capacity row
+    ``dest_c`` and ``keep``.  A slot's row is its rank among the earlier
+    slots routed to the same expert; rows at or past the capacity
+    ``cap`` (an int) overflow."""
+    m = cfg.moe
+    cap = moe_capacity(cfg, xt.shape[0])
+    logits = xt.to(torch.float32) @ router.to(torch.float32)
+    gate_w, gate_e = _top_k(logits, m.top_k)
+    gate_w = torch.softmax(gate_w, dim=-1).to(xt.dtype)
+    flat_e = gate_e.reshape(-1)
+    onehot = _one_hot(flat_e, m.n_experts, torch.int32)
+    pos_in_e = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
+    pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
+    keep = pos < cap
+    return {"gate_e": gate_e, "gate_w": gate_w, "keep": keep,
+            "dest_e": torch.where(keep, flat_e,
+                                  torch.full_like(flat_e, m.n_experts)),
+            "dest_c": torch.where(keep, pos, torch.zeros_like(pos)),
+            "cap": cap}
+
+
+def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
+    """Capacity-bound token-choice MoE over x (B, S, D).  Every token of
+    the call is routed (the capacity follows B·S); slots past an
+    expert's capacity are dropped, their residual path passes through.
+
+    The combine is a fixed-order sum over each token's k slots in the
+    activation dtype, slot 0 first: the reference's scatter-add of
+    ``repeat(arange(T), k)``, without atomics, so repeated calls give
+    the same bits on the card."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    r = moe_dispatch(cfg, p["router"], xt)
+    dest_e, dest_c, keep = r["dest_e"].long(), r["dest_c"].long(), r["keep"]
+    src = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
+    buf = torch.zeros((m.n_experts + 1, r["cap"], d), dtype=x.dtype,
+                      device=x.device)
+    buf[dest_e, dest_c] = xt[src]        # duplicates land on the ghost only
+    buf = buf[:m.n_experts]
+
+    if "wgu" in p:
+        g, u = p["wgu"].split_out(expert_dense(buf, p["wgu"]))
+        g = _act(cfg.act, g)
+    else:
+        g = _act(cfg.act, expert_dense(buf, p["wg"]))
+        u = expert_dense(buf, p["wu"])
+    y = expert_dense(g * u, p["wd"])                       # (E, cap, D)
+
+    gathered = y[dest_e.clamp(0, m.n_experts - 1), dest_c]
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), dtype=y.dtype, device=y.device))
+    w = r["gate_w"].reshape(-1)[:, None].to(gathered.dtype)
+    contrib = (gathered * w).reshape(t, m.top_k, d)
+    out = torch.zeros((t, d), dtype=gathered.dtype, device=x.device)
+    for j in range(m.top_k):
+        out = out + contrib[:, j]
+    return out.reshape(b, s, d)
+
+
+def moe_aux_loss(cfg: ArchConfig, x: torch.Tensor, router: torch.Tensor
+                 ) -> torch.Tensor:
+    """Switch-style load-balancing auxiliary loss: E · Σ_e (share of
+    tokens whose top-1 is e) · (mean router probability of e)."""
+    m = cfg.moe
+    t = x.shape[0] * x.shape[1]
+    logits = x.reshape(t, -1).to(torch.float32) @ router.to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top1 = torch.argmax(logits, dim=-1)     # first maximum: lower index
+    frac_tokens = torch.mean(_one_hot(top1, m.n_experts, torch.float32),
+                             dim=0)
+    frac_probs = torch.mean(probs, dim=0)
+    return m.n_experts * torch.sum(frac_tokens * frac_probs)

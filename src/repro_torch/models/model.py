@@ -1,4 +1,4 @@
-"""Model facade (dense subset of ``repro.models.model``): parameter
+"""Model facade (decoder-only subset of ``repro.models.model``): parameter
 declaration, embedding and head, the causal-LM loss, whole-prompt
 prefill and decode over the contiguous ring caches, and the paged
 serving path (page pools, one paged decode step, one chunked paged
@@ -113,13 +113,17 @@ def _backbone_inputs(cfg: ArchConfig, params: Tree,
 def forward_loss(cfg: ArchConfig, params: Tree,
                  batch: Dict[str, torch.Tensor],
                  attn_chunk: int = 1024) -> torch.Tensor:
-    """Causal-LM loss of a dense decoder.  batch: tokens (B, S) and
-    targets (B, S) int (-1 = masked), optional positions (B, S)."""
+    """Causal-LM loss plus 0.01 times the MoE blocks' load-balancing
+    loss (0 for a dense decoder).  batch: tokens (B, S) and targets
+    (B, S) int (-1 = masked), optional positions (B, S)."""
     x, positions = _backbone_inputs(cfg, params, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stage, sp in zip(cfg.stages, params["stages"]):
-        x = T.stage_full(cfg, stage, sp, x, positions, causal=True,
-                         attn_chunk=attn_chunk)
-    return softmax_xent_chunked(cfg, params, x, batch["targets"])
+        x, a = T.stage_full(cfg, stage, sp, x, positions, causal=True,
+                            attn_chunk=attn_chunk)
+        aux = aux + a
+    loss = softmax_xent_chunked(cfg, params, x, batch["targets"])
+    return loss + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-"""Transformer assembly (dense subset of ``repro.models.transformer``):
-the full-sequence forward (calibration, loss), whole-prompt prefill with
-its decode caches, decode over the contiguous ring caches, and the paged
-serving path.
+"""Transformer assembly (the ``dense`` and ``moe`` kinds of
+``repro.models.transformer``): the full-sequence forward (calibration,
+loss), whole-prompt prefill with its decode caches, decode over the
+contiguous ring caches, and the paged serving path.  Both kinds are
+attention blocks; a ``moe`` block's feed-forward is ``layers.apply_moe``
+over stacked expert weights, and its full-sequence forward can report
+the router's load-balancing loss.
 
 A stage's parameters are a list over its layers, each a tuple over the
 stage's block pattern.  Depth is a Python loop; a stage's caches are a
@@ -20,7 +23,7 @@ from repro_torch.core.qlinear import QLinearGroup
 from repro_torch.models import layers as L
 
 Tree = Any
-KINDS = ("dense",)
+KINDS = ("dense", "moe")
 
 
 def _check_kind(kind: str) -> None:
@@ -33,7 +36,17 @@ def _check_kind(kind: str) -> None:
 def init_block(cfg: ArchConfig, kind: str) -> Tree:
     _check_kind(kind)
     return {"ln1": L.init_norm(cfg), "attn": L.init_attention(cfg),
-            "ln2": L.init_norm(cfg), "mlp": L.init_mlp(cfg)}
+            "ln2": L.init_norm(cfg),
+            "mlp": L.init_moe(cfg) if kind == "moe" else L.init_mlp(cfg)}
+
+
+def _ffn(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor
+         ) -> torch.Tensor:
+    """The block's feed-forward on its normed input: the gated MLP, or
+    the mixture of experts over every token of the call."""
+    if kind == "moe":
+        return L.apply_moe(cfg, p, x)
+    return L.apply_mlp(cfg, p, x)
 
 
 def init_stage(cfg: ArchConfig, stage: Stage) -> List[Tuple[Tree, ...]]:
@@ -51,7 +64,8 @@ def _fusable(d, names) -> bool:
 
 def fuse_block_params(p: Tree) -> Tree:
     """Fuse one block's same-input projections along N: ``wq/wk/wv``
-    become one ``wqkv`` group and ``wg/wu`` one ``wgu`` group.
+    become one ``wqkv`` group and ``wg/wu`` one ``wgu`` group; stacked
+    expert pairs (E, K, F) become one (E, K, 2F) group.
     Concatenating fp tensors is exact; quantize with
     ``quantize_params_data_free(..., fuse=True)`` to get fused packed
     layouts."""
@@ -106,7 +120,7 @@ def unfuse_params_for_oracle(params: Tree) -> Tree:
 
 
 def _kind_window(cfg: ArchConfig, kind: str) -> Optional[int]:
-    return cfg.attn_window if kind == "dense" else None
+    return cfg.attn_window if kind in KINDS else None
 
 
 def _cache_window(cfg: ArchConfig, kind: str, max_seq: int) -> int:
@@ -121,28 +135,38 @@ def _cache_window(cfg: ArchConfig, kind: str, max_seq: int) -> int:
 # ---------------------------------------------------------------------------
 def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
-               attn_chunk: int = 1024) -> torch.Tensor:
+               attn_chunk: int = 1024,
+               aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One block over a whole sequence: x (B, S, D), positions (B, S)
-    -> x + attention, then + MLP."""
+    -> x + attention, then + MLP or MoE.  With ``aux`` given, a moe
+    block appends its router's load-balancing loss to it."""
     _check_kind(kind)
     h = L.attention_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
                          positions, causal=causal,
                          window=_kind_window(cfg, kind),
                          attn_chunk=attn_chunk)
     x = x + h
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+    z = L.apply_norm(cfg, p["ln2"], x)
+    if kind == "moe" and aux is not None:
+        aux.append(L.moe_aux_loss(cfg, z, p["mlp"]["router"]))
+    return x + _ffn(cfg, kind, p["mlp"], z)
 
 
 def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
-               attn_chunk: int = 1024) -> torch.Tensor:
-    """A stage's layers over a whole sequence (the loss forward; dense
-    blocks carry no auxiliary loss)."""
+               attn_chunk: int = 1024):
+    """A stage's layers over a whole sequence (the loss forward).
+    Returns (x, aux): aux is the f32 sum of the moe blocks' auxiliary
+    losses in depth order (0 for dense blocks)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in sparams:
         for i, kind in enumerate(stage.pattern):
+            a: List[torch.Tensor] = []
             x = block_full(cfg, kind, lp[i], x, positions, causal=causal,
-                           attn_chunk=attn_chunk)
-    return x
+                           attn_chunk=attn_chunk, aux=a)
+            for t in a:
+                aux = aux + t
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +184,7 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         attn_chunk=attn_chunk,
         cache_window=_cache_window(cfg, kind, max_seq))
     x = x + h
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
+    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
         cache
 
 
@@ -186,7 +210,7 @@ def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos, cache,
         layer=layer, window=_kind_window(cfg, kind))
     x = x + h
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
+    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
         cache
 
 
@@ -229,7 +253,7 @@ def block_step_paged(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         block_tables, context_lens, layer=layer,
         window=_kind_window(cfg, kind))
     x = x + h
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
+    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
         cache
 
 
@@ -256,7 +280,7 @@ def block_prefill_step_paged(cfg: ArchConfig, kind: str, p: Tree,
         bt_read, bt_write, start, length, layer=layer,
         window=_kind_window(cfg, kind))
     x = x + h
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
+    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
         cache
 
 

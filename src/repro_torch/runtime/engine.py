@@ -1,5 +1,5 @@
 """Serving engine: continuous batching over contiguous or paged KV (the
-dense subset of ``repro.runtime.engine``).
+dense and moe subset of ``repro.runtime.engine``).
 
 A fixed decode batch of ``n_slots``; each slot holds one request and its
 own position, and one batched decode step advances every slot.  Two
@@ -39,7 +39,7 @@ as they happen (:meth:`Engine.subscribe`, :meth:`Engine.event_queue`);
 :meth:`Engine.cancel` aborts a request wherever it is.
 
 Not ported yet, and refused by the constructor: block kinds other than
-dense.
+dense and moe.
 """
 from __future__ import annotations
 

@@ -441,3 +441,54 @@ def test_restorative_lora_runs_on_the_card(cuda):
     assert w.device.type == "cuda" and w.dtype == torch.bfloat16
     assert torch.isfinite(w.float()).all()
     assert not torch.equal(w, params["stages"][0][0][0]["attn"]["wq"])
+
+
+def test_moe_dispatch_and_combine_on_the_card_match_the_cpu(cuda):
+    """The MoE dispatch (stable sort for top-k, cumsum, index_put) on
+    the card: on router logits that are exact in f32 (small integers,
+    ties included) the routes are identical to the CPU's, and
+    ``apply_moe`` in bf16 gives the same bits on two calls (the combine
+    is a fixed-order sum, no atomics) and agrees with the CPU within
+    bf16 rounding (rtol = atol = 2^-6: a few roundings of values of
+    order 1)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.param import tree_to
+    cfg = registry.get("granite-moe-1b-a400m").reduced()
+    g = torch.Generator().manual_seed(0)
+    xt = torch.randint(-2, 3, (96, cfg.d_model), generator=g).float()
+    router = torch.randint(-1, 2, (cfg.d_model, cfg.moe.n_experts),
+                           generator=g).float()
+    for cf in (1.25, 0.25):
+        c = dataclasses.replace(cfg, moe=MoEConfig(
+            cfg.moe.n_experts, cfg.moe.top_k, cf))
+        a = L.moe_dispatch(c, router, xt)
+        b = L.moe_dispatch(c, router.to(cuda), xt.to(cuda))
+        for k in ("gate_e", "dest_e", "dest_c", "keep"):
+            assert torch.equal(a[k], b[k].cpu()), (cf, k)
+    mlp = M.init_params(cfg, 0, "cpu")["stages"][0][0][0]["mlp"]
+    x = torch.randn(2, 40, cfg.d_model, generator=g).to(torch.bfloat16)
+    y_cpu = L.apply_moe(cfg, mlp, x)
+    mlp_c = tree_to(mlp, cuda)
+    y1 = L.apply_moe(cfg, mlp_c, x.to(cuda))
+    y2 = L.apply_moe(cfg, mlp_c, x.to(cuda))
+    assert torch.equal(y1, y2)
+    torch.testing.assert_close(y1.cpu().float(), y_cpu.float(),
+                               rtol=2 ** -6, atol=2 ** -6)
+
+
+@pytest.mark.parametrize("mode", ["contiguous", "paged-whole",
+                                  "paged-chunked"])
+def test_moe_engine_tokens_match_the_cpu(cuda, mode):
+    """Reduced granite-moe-1b-a400m in f32, data-free with fused QKV and
+    expert gate+up, served on the card (kernels) and on the CPU (plain
+    versions): the same greedy tokens in each engine mode
+    (``chip_smoke.small_engine_tokens``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    toks = chip_smoke.small_engine_tokens(
+        torch, (f"{mode}/cpu", f"{mode}/cuda"), arch=chip_smoke.MOE_ARCH)
+    assert toks[f"{mode}/cuda"] == toks[f"{mode}/cpu"]
