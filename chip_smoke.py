@@ -29,7 +29,14 @@ Phases, each of which raises on failure:
    shapes: its fused QKV (K 1024, N 2048) and output projection (1024 x
    1024) at ``MOE_ROWS`` (``[moe mixed_matmul M=...]``) and both
    attention kernels at GQA group 2, head dim 64 (``[moe
-   paged_attention]``, ``[moe paged_prefill]``, ``[moe plan]``);
+   paged_attention]``, ``[moe paged_prefill]``, ``[moe plan]``); and at
+   recurrentgemma-2b's: its seven packed projections (wqkv K 2560 → N
+   3072, wo, w_x, w_gate, w_out 2560 × 2560, wgu 2560 → 15360, wd 7680
+   → 2560) at ``RG_ROWS`` (``[rg mixed_matmul M=...]``, with the host
+   time of a call, as the LLaMA and granite row counts have too) and the
+   decode kernel at MQA group 10, head dim 256, a 2048-key window over
+   contexts of 0-3000 keys, bf16 and f32 (``[rg paged_attention]``,
+   ``[rg plan]``);
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
    gives the same logits within tolerance; the calibrated pipeline run
@@ -43,7 +50,10 @@ Phases, each of which raises on failure:
    and on the CPU (RTN, PB-LLM and BiLLM identical, AWQ's and BiLLM's
    choices equal, GPTQ's objective within tolerance); then all of this
    phase again on reduced granite, which runs the MoE dispatch (sort,
-   cumsum, index_put) on the card (``[moe reference]``);
+   cumsum, index_put) on the card (``[moe reference]``); and on reduced
+   recurrentgemma (``[rg reference]``: logits after a whole-prompt
+   prefill, greedy tokens of the contiguous, paged and shared-prefix
+   whole-prompt engines, calibrated bytes, each card = CPU);
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
@@ -94,8 +104,21 @@ Phases, each of which raises on failure:
    full size (``[moe baselines]``).  The expert products are plain
    ``torch.matmul`` over dequantized weights, as the reference's einsum;
    only attention runs the port's kernels;
-9. check that every (M, K, N) the packed matmul launched at in phases
-   5-8 was held against its plain version in phase 3, 6 or 8, then
+9. the hybrid block kinds: recurrentgemma-2b at full width and depth
+   (26 layers: 18 rglru and 8 local, window 2048; vocab 256000, tied
+   head), random bf16 weights of seed 0, data-free fused PTQ1.61 served
+   with whole-prompt prefill on the paged pool (``[rg]``) and on the
+   contiguous rings (``[rg contiguous]``) on the prompts of phase 5,
+   then 4 prompts of 2100-3000 tokens at max_seq 4096 on both backends
+   (``[rg long]``: the window cuts keys off; pages a slot holds against
+   the pages its window reads), ``forward_loss`` (``[rg loss]``),
+   ``launch.serve.run --arch recurrentgemma-2b --fused --paged`` (``[rg
+   serve]``), chunked prefill refused with the reference's ValueError,
+   and calibrated PTQ1.61 at the serve defaults (``[rg calibrated]``:
+   no block's Eq.-7 loss may rise; its unfused projections held
+   against the plain version; served as ``[rg]``);
+10. check that every (M, K, N) the packed matmul launched at in phases
+   5-9 was held against its plain version in phase 3, 6, 8 or 9, then
    print the ``kernels`` JSON line (six entries, one per TPU kernel: the
    five wrappers and the perm gather of ``mixed_matmul``) and the result
    line.
@@ -162,6 +185,15 @@ PATH_ROWS = (4, 16, 256, 512, 1024)
 MOE_ARCH = "granite-moe-1b-a400m"
 MOE_ROWS = (1, 8, 64, 256, 512, 1024)
 MOE_BASELINES = ("rtn-2", "pbllm")
+# The hybrid phases' model and the packed-matmul rows they launch besides
+# M = 1, 8, 64 and 512: 4-slot decode and bucket 16 of ``[rg long]`` and
+# ``[rg serve]``, whole-prompt buckets 256 and 4096, the loss's 2 x 512.
+RG_ARCH = "recurrentgemma-2b"
+RG_ROWS = (1, 4, 8, 16, 64, 256, 512, 1024, 4096)
+# recurrentgemma's decode attention: 8 slots of up to 3000 keys (some
+# past the 2048-key window, one empty), a freed page inside slot 0's
+# window.
+RG_ATT_LENS = (3000, 2600, 2049, 2048, 1500, 700, 64, 0)
 
 
 def _fail(msg: str) -> None:
@@ -249,7 +281,11 @@ def llama_projections(torch, cfg, gen):
     }
 
 
-def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64)):
+def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64),
+                       host: bool = False):
+    """Each projection of ``projs`` at each row count of ``ms`` against
+    the plain version, timed beside it, dense ``torch.matmul`` and the
+    bound; with ``host``, also the host µs of one call (``host_us``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.mixed_matmul import mixed_matmul
     rows = []
@@ -281,6 +317,10 @@ def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64)):
                     lambda: ref.mixed_matmul_ref(*args, perm=q.perm)),
                 library_ms=timer.ms(lambda: torch.matmul(x, dense)),
                 bound_ms=b, bound_by=by, bytes=nbytes)
+            if host:
+                row["host_us"] = host_call_us(
+                    torch, lambda: mixed_matmul(*args, perm=q.perm),
+                    calls=10, batches=5)
             del dense
             rows.append(row)
     return rows
@@ -587,26 +627,42 @@ def _paged_case(torch, gen, b, hkv, rep, dh, ps, lens, dtype):
     return q, kp, vp, bt
 
 
-def check_paged_attention(torch, cfg, timer, peaks, gen):
+def check_paged_attention(torch, cfg, timer, peaks, gen,
+                          lens=(1000, 777, 513, 300, 129, 64, 17, 0),
+                          window=None, freed=(0, 20), f32: bool = False):
+    """The decode kernel at ``cfg``'s heads over 8 slots of ``lens``
+    keys (pages of 16; page ``freed`` (slot, block) of the table set to
+    -1) with ``window``, against its plain version in bf16 (and with
+    ``f32`` in f32 too), timed beside the plain version and SDPA over
+    the gathered context under the same mask."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
-    b, ps, dh = 8, 16, cfg.head_dim_
+    lens = list(lens)
+    b, ps, dh = len(lens), 16, cfg.head_dim_
     hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    lens = [1000, 777, 513, 300, 129, 64, 17, 0]
     q, kp, vp, bt = _paged_case(torch, gen, b, hkv, rep, dh, ps, lens,
                                 torch.bfloat16)
-    bt[0, 20] = -1                                  # freed page mid-table
+    bt[freed] = -1                                  # freed page mid-table
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    o = paged_attention(q, kp, vp, bt, lens_t)
-    o_ref = ref.paged_attention_ref(q, kp, vp, bt, lens_t)
-    torch.cuda.synchronize()
-    err = (o - o_ref).abs().max().item()
-    if not torch.allclose(o, o_ref, rtol=ATT_RTOL, atol=ATT_ATOL):
-        _fail(f"paged_attention max_abs_err={err}")
-    if o[7].abs().max().item() != 0.0:
-        _fail("paged_attention: a row of length 0 must be zeros")
-    live = sum(n for n in lens) - ps            # minus the freed page
+    errs = {}
+    for dtype in (torch.bfloat16,) + ((torch.float32,) if f32 else ()):
+        args = (q.to(dtype), kp.to(dtype), vp.to(dtype), bt, lens_t)
+        o = paged_attention(*args, window=window)
+        o_ref = ref.paged_attention_ref(*args, window=window)
+        torch.cuda.synchronize()
+        err = errs[str(dtype).split(".")[-1]] = (o - o_ref).abs().max().item()
+        if not torch.allclose(o, o_ref, rtol=ATT_RTOL, atol=ATT_ATOL):
+            _fail(f"paged_attention ({dtype}, rep {rep}, dh {dh}) "
+                  f"max_abs_err={err}")
+        for i, n in enumerate(lens):
+            if n == 0 and o[i].abs().max().item() != 0.0:
+                _fail("paged_attention: a row of length 0 must be zeros")
+    # live keys: those inside each slot's window, minus the freed page's
+    first = [max(n - window, 0) if window else 0 for n in lens]
+    live = sum(n - f for n, f in zip(lens, first))
+    fi, fj = freed
+    live -= max(0, min((fj + 1) * ps, lens[fi]) - max(fj * ps, first[fi]))
     hq = hkv * rep
     nbytes = (q.numel() * 2 + live * hkv * dh * 2 * 2 + bt.numel() * 4
               + b * 4 + b * hq * dh * 4)
@@ -618,16 +674,23 @@ def check_paged_attention(torch, cfg, timer, peaks, gen):
     pos = torch.arange(s, device="cuda")
     mask = (pos[None, :] < lens_t[:, None]) & (
         bt >= 0).repeat_interleave(ps, dim=1)
-    mask[7, 0] = True                               # SDPA needs a key
+    if window:
+        mask &= pos[None, :] >= lens_t[:, None] - window
+    for i, n in enumerate(lens):
+        if n == 0:
+            mask[i, 0] = True                       # SDPA needs a key
     qs = q.reshape(b, hq, 1, dh)
-    prof = call_profile(torch, lambda: paged_attention(q, kp, vp, bt, lens_t))
+    call = (lambda: paged_attention(q, kp, vp, bt, lens_t, window=window))
+    prof = call_profile(torch, call)
     if not prof["bit_identical"]:
         _fail("paged_attention: a repeated call gave other bits")
     return {"B": b, "hq": hq, "hkv": hkv, "dh": dh, "ps": ps,
-            "lens": lens, "max_abs_err": err, **prof,
-            "ms": timer.ms(lambda: paged_attention(q, kp, vp, bt, lens_t)),
+            "lens": lens, "window": window, "freed": list(freed),
+            "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
+            **prof, "ms": timer.ms(call),
             "plain_ms": timer.ms(
-                lambda: ref.paged_attention_ref(q, kp, vp, bt, lens_t)),
+                lambda: ref.paged_attention_ref(q, kp, vp, bt, lens_t,
+                                                window=window)),
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 qs, kc, vc, attn_mask=mask[:, None, None, :],
                 enable_gqa=rep > 1)),
@@ -719,11 +782,17 @@ def check_paged_prefill(torch, cfg, timer, peaks, gen):
 # ---------------------------------------------------------------------------
 # Phase 4: small-input agreement, card against CPU
 # ---------------------------------------------------------------------------
+def _has_recurrence(cfg) -> bool:
+    return any(k == "rglru" for s in cfg.stages for k in s.pattern)
+
+
 def check_small_reference(torch, registry, arch="llama-7b"):
-    """Paged chunked prefill and decode of ``arch`` reduced (f32,
-    data-free fused) on the card (kernels) and on the CPU (plain
-    versions) from the same weights: the largest logit gap relative to
-    the CPU's magnitude."""
+    """Paged prefill and decode of ``arch`` reduced (f32, data-free
+    fused) on the card (kernels) and on the CPU (plain versions) from the
+    same weights: the largest logit gap relative to the CPU's magnitude.
+    Prefill is chunked, or for a model with recurrent blocks (which
+    chunked prefill does not serve) one whole-prompt prefill left-padded
+    to 64 and spliced into the pages and slot 0."""
     from repro_torch.core.pipeline import quantize_params_data_free
     from repro_torch.core.qlinear import QuantConfig
     from repro_torch.models import model as M
@@ -748,13 +817,25 @@ def check_small_reference(torch, registry, arch="llama-7b"):
                                      device=dev)
         bt = torch.from_numpy(tables.as_array()).to(dev)
         logits = []
-        for start in range(0, plen, chunk):
-            length = min(chunk, plen - start)
-            toks = torch.zeros((1, chunk), dtype=torch.int32)
-            toks[0, :length] = seq[start:start + length]
-            lg, caches = M.prefill_step_paged(cfg, pd, toks.to(dev), caches,
-                                              bt[0], bt[0], start, length)
-            logits.append(lg)
+        if _has_recurrence(cfg):
+            b = 64
+            toks = torch.zeros((1, b), dtype=torch.int32)
+            toks[0, b - plen:] = seq[:plen]
+            pos = torch.arange(b, dtype=torch.int32) - (b - plen)
+            pos = torch.where(pos >= 0, pos, -1)[None]
+            lg, c1 = M.prefill(cfg, pd, {"tokens": toks.to(dev),
+                                         "positions": pos.to(dev)}, 128)
+            caches = M.splice_prefill_paged(cfg, caches, c1, 0, bt[0])
+            logits.append(lg[:, 0])
+        else:
+            for start in range(0, plen, chunk):
+                length = min(chunk, plen - start)
+                toks = torch.zeros((1, chunk), dtype=torch.int32)
+                toks[0, :length] = seq[start:start + length]
+                lg, caches = M.prefill_step_paged(
+                    cfg, pd, toks.to(dev), caches, bt[0], bt[0], start,
+                    length)
+                logits.append(lg)
         for pos in range(plen, plen + steps):
             lg, caches = M.decode_step_paged(
                 cfg, pd, seq[pos - 1:pos].to(dev),
@@ -844,13 +925,26 @@ def check_small_engines(torch, arch="llama-7b") -> dict:
     the card and on the CPU, on the card whole-prompt and chunked
     prefill give the same tokens, and the paged engine with prefix
     sharing gives the same tokens on the card and the CPU in both
-    prefill modes (``small_engine_tokens``).  A MoE model routes every
+    prefill modes (``small_engine_tokens``).  A model with recurrent
+    blocks runs the whole-prompt modes only, each card against CPU.  A MoE model routes every
     token of a call under a capacity that follows the call's tokens, so
     a whole left-padded bucket and a 16-token chunk drop other slots
     (as in the reference): there, each paged prefill mode is held card
     against CPU instead of whole against chunked."""
     from repro_torch.configs import registry
-    moe = registry.get(arch).moe is not None
+    cfg = registry.get(arch)
+    if _has_recurrence(cfg):
+        # whole-prompt modes only (chunked prefill is refused), each held
+        # card against CPU
+        names = [n for n in SMALL_ENGINE_RUNS if "chunked" not in n]
+        toks = small_engine_tokens(torch, names, arch=arch)
+        for mode in ("contiguous", "paged-whole", "shared-whole"):
+            if toks[f"{mode}/cuda"] != toks[f"{mode}/cpu"]:
+                _fail(f"small engines: {mode} greedy tokens differ between "
+                      f"the card and the CPU: {toks}")
+        return {"requests": len(toks["contiguous/cpu"]), "max_new": 8,
+                "tokens": toks}
+    moe = cfg.moe is not None
     names = [n for n in SMALL_ENGINE_RUNS
              if moe or n not in ("paged-whole/cpu", "paged-chunked/cpu")]
     toks = small_engine_tokens(torch, names, arch=arch)
@@ -874,8 +968,9 @@ def check_small_engines(torch, arch="llama-7b") -> dict:
 
 
 def check_small_calibrated(torch, registry, arch="llama-7b"):
-    """Calibrated PTQ1.61 of ``arch`` reduced (2 layers, f32) on the card
-    and on the CPU from the same weights and segments."""
+    """Calibrated PTQ1.61 of ``arch`` reduced (its first stage's pattern
+    twice, f32) on the card and on the CPU from the same weights and
+    segments."""
     import dataclasses
     from repro_torch.configs.base import Stage
     from repro_torch.core.pipeline import quantize_model_ptq161
@@ -886,6 +981,7 @@ def check_small_calibrated(torch, registry, arch="llama-7b"):
     from repro_torch.models.param import tree_to
     cfg = registry.get(arch).reduced()
     cfg = dataclasses.replace(cfg, stages=(Stage(cfg.stages[0].pattern, 2),))
+    n_proj = 2 * sum(6 if k == "rglru" else 7 for k in cfg.stages[0].pattern)
     qcfg = QuantConfig(ratio=0.2, multiple=16, steps=3)
     p = tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
@@ -906,7 +1002,7 @@ def check_small_calibrated(torch, registry, arch="llama-7b"):
         outs[name] = (leaves, losses)
     (a, la), (b, lb) = outs["cuda"], outs["cpu"]
     c = outs["unlearned"][0]
-    if a.keys() != b.keys() or len(a) != 14:
+    if a.keys() != b.keys() or len(a) != n_proj:
         _fail("calibrated: card and CPU quantized different projections")
     for k in a:
         if not torch.equal(a[k].perm, b[k].perm):
@@ -2008,6 +2104,247 @@ def run_moe_baselines(torch, cfg, kernels, ptq_bits: float,
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the hybrid block kinds (rglru and windowed local) at full width
+# and depth
+# ---------------------------------------------------------------------------
+def recurrentgemma(registry):
+    cfg = registry.get(RG_ARCH)
+    kinds = [k for s in cfg.stages for _ in range(s.repeats)
+             for k in s.pattern]
+    print(f"[rg] {RG_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} "
+          f"d_ff={cfg.d_ff} ({cfg.act}) rnn_width={cfg.rnn_width} "
+          f"vocab={cfg.vocab} tied={cfg.tied_embeddings} "
+          f"layers={cfg.n_layers} ({kinds.count('rglru')} rglru, "
+          f"{kinds.count('local')} local, window {cfg.local_window})",
+          flush=True)
+    return cfg
+
+
+def rg_projections(torch, cfg, gen):
+    """The seven packed projections of recurrentgemma-2b as the data-free
+    fused path quantizes them: a local block's wqkv (K 2560, N 3072) and
+    wo, an rglru block's w_x, w_gate and w_out (2560 x 2560 each, never
+    fused, as in the reference), and every block's wgu (2560 -> 15360)
+    and wd (7680 -> 2560)."""
+    from repro_torch.core.qlinear import (QuantConfig, quantize_linear,
+                                          quantize_linear_group)
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    d, f, r = cfg.d_model, cfg.d_ff, cfg.rnn_width
+    hd = cfg.n_heads * cfg.head_dim_
+    kvd = cfg.n_kv_heads * cfg.head_dim_
+
+    def w(k, n):
+        return (torch.randn((k, n), generator=gen, device="cuda")
+                / math.sqrt(k)).to(torch.bfloat16)
+
+    return {
+        "wqkv": quantize_linear_group([w(d, hd), w(d, kvd), w(d, kvd)],
+                                      None, qcfg).inner,
+        "wo": quantize_linear(w(hd, d), None, qcfg),
+        "w_x": quantize_linear(w(d, r), None, qcfg),
+        "w_gate": quantize_linear(w(d, r), None, qcfg),
+        "w_out": quantize_linear(w(r, d), None, qcfg),
+        "wgu": quantize_linear_group([w(d, f), w(d, f)], None, qcfg).inner,
+        "wd": quantize_linear(w(f, d), None, qcfg),
+    }
+
+
+def window_pages(n: int, window: int, ps: int = 16):
+    """(pages a slot of ``n`` live tokens holds, pages its window of
+    ``window`` keys reads) on pages of ``ps``."""
+    first = max(n - window, 0) // ps
+    return -(-n // ps), (n - 1) // ps - first + 1
+
+
+def run_rg_path(torch, registry, kernels, peaks):
+    """recurrentgemma-2b at full width and depth (26 layers: 18 rglru, 8
+    local with a 2048-key window; 2.69 B parameters), random bf16
+    weights of seed 0, data-free PTQ1.61 with fused QKV and gate+up:
+    served with whole-prompt prefill on the paged pool (``[rg]``, the
+    decode attention of the local blocks through ``paged_attention``)
+    and on the contiguous rings (``[rg contiguous]``), the prompts of
+    phase 5; then ``[rg long]``: 4 prompts of 2100-3000 tokens at
+    max_seq 4096, where the window cuts keys off, on both backends;
+    ``[rg loss]`` on 2 x 512 tokens; ``[rg serve]``,
+    ``launch.serve.run --arch recurrentgemma-2b --quantize datafree
+    --fused --paged``; and chunked prefill refused with the reference's
+    ValueError."""
+    import numpy as np
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch.serve import parse_args, run
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+
+    cfg = recurrentgemma(registry)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_params_data_free(
+        params, QuantConfig(ratio=0.2, multiple=16), min_dim=32, fuse=True)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    print(f"[rg] data-free fused quantization {t_quant:.2f}s", flush=True)
+    bits = check_moe_bits(qparams, 0.2, 16, "rg")
+    quantized = sum(e * k * n for e, k, n in _packed_shapes(qparams))
+    out = {}
+    for tag, kw, path in (("rg", WHOLE_PAGED,
+                           ("mixed_matmul", "paged_attention")),
+                          ("rg contiguous", WHOLE, ("mixed_matmul",))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine, out[tag] = serve_prompts(torch, cfg, qparams, kernels, path,
+                                         tag, kw)
+        out[tag]["decode_busy"] = decode_busy_share(torch, cfg, engine)
+        del engine
+        print(f"[{tag}] " + json.dumps(out[tag]), flush=True)
+    out["rg"].update(quantize_s=t_quant, quantized_weights=quantized,
+                     **bits)
+
+    # the window bites: contexts past 2048 keys
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=2))
+    rng = np.random.default_rng(2)
+    prompts = [corpus.document(30_000 + i, int(rng.integers(2100, 3000)))
+               for i in range(4)]
+    for tag, kw, path in (
+            ("rg long", dict(paged=True, page_size=16),
+             ("mixed_matmul", "paged_attention")),
+            ("rg long contiguous", dict(paged=False), ("mixed_matmul",))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine = Engine(cfg, qparams, n_slots=4, max_seq=4096, seed=0,
+                        prefill_buckets=(2048, 4096), device="cuda", **kw)
+        _, wave = serve_wave(torch, cfg, engine, prompts, kernels, path, tag)
+        snap = engine.metrics.snapshot()
+        shapes = snap["shape_step_s"]
+        last = [len(p) + 31 for p in prompts]        # live keys, last step
+        out[tag] = {
+            "backend": engine.backend.name, "max_seq": 4096,
+            "prompt_tokens": [len(p) for p in prompts],
+            **{k: wave[k] for k in ("tokens_per_s", "ttft_mean_s",
+                                    "ttft_p95_s", "decode_step_ms",
+                                    "decode_steps", "launches")},
+            "prefill_ms_4096": {
+                "first_ms": 1e3 * shapes["prefill_compile@4096"]["mean_s"],
+                "mean_ms_after_first": 1e3 * shapes["prefill@4096"]["mean_s"]
+                if "prefill@4096" in shapes else None},
+            "pages_held_vs_window_read": [window_pages(n, cfg.local_window)
+                                          for n in last],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if engine.backend.name == "paged":
+            out[tag]["peak_pages"] = wave["peak_pages"]
+        del engine
+        print(f"[{tag}] " + json.dumps(out[tag]), flush=True)
+
+    for k in kernels.values():
+        k.launches = 0
+    out["rg loss"] = run_loss(torch, cfg, qparams)
+    out["rg loss"]["launches"] = {n: k.launches for n, k in kernels.items()}
+    if out["rg loss"]["launches"]["mixed_matmul"] <= 0:
+        _fail("rg loss: kernel mixed_matmul was not launched")
+    print("[rg loss] forward_loss of the data-free recurrentgemma-2b: "
+          + json.dumps(out["rg loss"]), flush=True)
+    try:
+        Engine(cfg, qparams, paged=True, chunked_prefill=True, device="cuda")
+    except ValueError as e:
+        if "recurrent cells carry sequential state" not in str(e):
+            _fail(f"rg: chunked prefill refused with another message: {e}")
+    else:
+        _fail("rg: the engine took chunked prefill on a recurrent model")
+    del qparams
+    torch.cuda.empty_cache()
+    for k in kernels.values():
+        k.launches = 0
+    served = run(parse_args(["--arch", RG_ARCH, "--quantize", "datafree",
+                             "--fused", "--paged", "--max-new", "8"]))
+    launches = {name: k.launches for name, k in kernels.items()}
+    if not served["all_done"] or served["cache_backend"] != "paged":
+        _fail("rg serve: not every request finished on the paged backend")
+    for name in ("mixed_matmul", "paged_attention"):
+        if launches[name] <= 0:
+            _fail(f"rg serve: kernel {name} was not launched")
+    m = served["engine_metrics"]
+    out["rg serve"] = {k: served[k] for k in (
+        "requests", "generated_tokens", "tokens_per_s", "bits_per_weight",
+        "cache_backend", "quantize_s")}
+    out["rg serve"].update(ttft_mean_s=m["ttft_mean_s"],
+                           tbt_p50_s=m["tbt_p50_s"], launches=launches)
+    print("[rg serve] " + json.dumps(out["rg serve"]), flush=True)
+    return out, cfg
+
+
+def run_rg_calibrated(torch, cfg, kernels, peaks) -> dict:
+    """recurrentgemma-2b quantized with calibrated PTQ1.61 at the serve
+    defaults (the Eq.-7 learning takes its gradients through the RG-LRU
+    scan); every block's loss before and after learning (none may rise);
+    the unfused projections of its first rglru and first local layer
+    held against the plain version at the rows the served path gives
+    them (8-slot decode, buckets 256 and 512); then served on the paged
+    pool with whole-prompt prefill, as ``[rg]``."""
+    from repro_torch.core.pipeline import quantize_model_ptq161
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch.serve import parse_args
+    from repro_torch.models import model as M
+
+    d = parse_args([])
+    qcfg = QuantConfig(ratio=d.ratio, multiple=d.multiple, steps=d.opt_steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    calib = [{"tokens": torch.from_numpy(t).to("cuda")} for t, _ in
+             corpus.batches(1, d.calib_seq, d.calib_segments,
+                            split="calib")]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_model_ptq161(cfg, params, calib, qcfg,
+                                    min_dim=d.min_dim,
+                                    attn_chunk=d.attn_chunk,
+                                    block_losses=losses)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[rg calibrated] {len(losses)} blocks quantized in "
+          f"{t_quant:.1f}s, peak {peak:.2f} GB; Eq.-7 loss before -> after "
+          "per block: " + json.dumps(losses), flush=True)
+    raised = [i for i, (b, a) in enumerate(losses) if not a <= b]
+    if raised:
+        _fail(f"rg calibrated: learning raised the loss of blocks {raised}")
+    bits = check_moe_bits(qparams, d.ratio, d.multiple, "rg calibrated")
+    layer0 = qparams["stages"][0][0]
+    projs = {f"{kind}.{name}": w for kind, blk in (("rglru", layer0[0]),
+                                                   ("local", layer0[2]))
+             for part in ("rec", "attn", "mlp") if part in blk
+             for name, w in blk[part].items() if hasattr(w, "w4")}
+    timer = Timer(torch)
+    cal_mm = check_mixed_matmul(torch, projs, timer, peaks,
+                                torch.Generator(device="cuda").manual_seed(12),
+                                ms=(8, 256, 512))
+    del timer
+    print("[rg calibrated mixed_matmul] " + json.dumps(cal_mm), flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, summary = serve_prompts(torch, cfg, qparams, kernels,
+                               ("mixed_matmul", "paged_attention"),
+                               "rg calibrated", WHOLE_PAGED)
+    summary.update(
+        quantize_s=t_quant, quantize_peak_gb=peak, block_losses=losses,
+        blocks=len(losses), layer0_mixed_matmul=cal_mm, **bits,
+        calibration={"segments": d.calib_segments, "seq": d.calib_seq,
+                     "steps": d.opt_steps, "ratio": d.ratio,
+                     "multiple": d.multiple})
+    return summary
+
+
 def _entry(name, replaces, checked, rows, launches, shape, source=None):
     """One kernel's entry of the ``kernels`` line: max error over every
     shape ``checked``, times summed over ``rows``, launches per path."""
@@ -2095,7 +2432,8 @@ def main() -> int:
     # the other row counts the driven paths give the packed matmul
     mm_rows = check_mixed_matmul(
         torch, projs, timer, peaks,
-        torch.Generator(device="cuda").manual_seed(6), ms=PATH_ROWS)
+        torch.Generator(device="cuda").manual_seed(6), ms=PATH_ROWS,
+        host=True)
     for m in PATH_ROWS:
         rows = [r for r in mm_rows if r["M"] == m]
         print(f"[mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
@@ -2118,7 +2456,8 @@ def main() -> int:
         if k in ("wqkv", "wo")}
     moe_mm = check_mixed_matmul(
         torch, gprojs, timer, peaks,
-        torch.Generator(device="cuda").manual_seed(11), ms=MOE_ROWS)
+        torch.Generator(device="cuda").manual_seed(11), ms=MOE_ROWS,
+        host=True)
     for m in MOE_ROWS:
         rows = [r for r in moe_mm if r["M"] == m]
         print(f"[moe mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
@@ -2133,6 +2472,36 @@ def main() -> int:
     moe_pf = check_paged_prefill(torch, gcfg, timer, peaks, gen)
     print("[moe paged_prefill] " + json.dumps(moe_pf), flush=True)
     del gprojs
+    # recurrentgemma's seven packed projections and its decode attention
+    # (MQA, group 10, dh 256, a 2048-key window)
+    rcfg = registry.get(RG_ARCH)
+    print("[rg plan] decode split plans at recurrentgemma's heads (hkv 1, "
+          "rep 10, dh 256, bf16; resident blocks per SM "
+          f"{paged_attention.resident_blocks(0, True, 10, 256)}): "
+          + json.dumps({f"B={b} nblk={n}": paged_attention.launch_plan(
+              b, 1, 10, 256, n, 16, True, 0)._asdict()
+              for b, n in ((8, 32), (8, 189), (4, 256))}), flush=True)
+    rprojs = rg_projections(torch, rcfg,
+                            torch.Generator(device="cuda").manual_seed(13))
+    rg_mm = check_mixed_matmul(
+        torch, rprojs, timer, peaks,
+        torch.Generator(device="cuda").manual_seed(14), ms=RG_ROWS,
+        host=True)
+    for m in RG_ROWS:
+        rows = [r for r in rg_mm if r["M"] == m]
+        print(f"[rg mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
+              f"{MM_ATOL}) the 7 projections: kernel "
+              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
+              f"torch.matmul "
+              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
+              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
+              + json.dumps(rows), flush=True)
+    del rprojs
+    rg_pa = check_paged_attention(torch, rcfg, timer, peaks, gen,
+                                  lens=RG_ATT_LENS, window=rcfg.local_window,
+                                  freed=(0, 150), f32=True)
+    print(f"[rg paged_attention] (tolerance rtol {ATT_RTOL}, atol "
+          f"{ATT_ATOL}, bf16 and f32) " + json.dumps(rg_pa), flush=True)
     spans = check_spans(torch, projs, timer, peaks,
                         torch.Generator(device="cuda").manual_seed(1))
     for name, rows in spans.items():
@@ -2193,6 +2562,20 @@ def main() -> int:
           "the card and on the CPU: "
           + json.dumps(check_small_baselines(torch, registry, MOE_ARCH)),
           flush=True)
+    # and on reduced recurrentgemma: the RG-LRU's plain ops and the
+    # decode kernel at a group of 4 with a window, whole-prompt prefill
+    worst = check_small_reference(torch, registry, RG_ARCH)
+    print(f"[rg reference] reduced recurrentgemma, f32: card vs CPU logits "
+          f"agree to {worst:.2e} (relative, limit {REF_RTOL})", flush=True)
+    print("[rg reference] reduced recurrentgemma, f32, greedy tokens of the "
+          "contiguous, paged and shared-prefix whole-prompt engines, card = "
+          "CPU: " + json.dumps(check_small_engines(torch, RG_ARCH)),
+          flush=True)
+    print("[rg reference] reduced recurrentgemma (its pattern twice), f32, "
+          "calibrated on the card and on the CPU: perm and packed bytes "
+          "equal; " + json.dumps(check_small_calibrated(torch, registry,
+                                                        RG_ARCH)),
+          flush=True)
 
     # -- 5. the data-free main path, then whole-prompt prefill -------------
     # from here on the packed matmul counts its launches by (M, K, N)
@@ -2246,11 +2629,18 @@ def main() -> int:
                                  moe["moe loss"]["loss"])
     print("[moe baselines] " + json.dumps(moe_base), flush=True)
 
-    # -- 9. every packed-matmul shape of the paths was checked; the kernels
+    # -- 9. the hybrid kinds: recurrentgemma-2b at full width and depth ----
+    torch.cuda.empty_cache()
+    rg, rcfg = run_rg_path(torch, registry, kernels, peaks)
+    rg_cal = run_rg_calibrated(torch, rcfg, kernels, peaks)
+    print("[rg calibrated] " + json.dumps(rg_cal), flush=True)
+
+    # -- 10. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
-               + moe_cal["layer0_mixed_matmul"]}
+               + moe_cal["layer0_mixed_matmul"] + rg_mm
+               + rg_cal["layer0_mixed_matmul"]}
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
     if unchecked:
@@ -2259,8 +2649,9 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-8 was held against its plain version in phase 3, "
-          "6 or 8; launches by shape: " + json.dumps(by_shape), flush=True)
+          "at in phases 5-9 was held against its plain version in phase 3, "
+          "6, 8 or 9; launches by shape: " + json.dumps(by_shape),
+          flush=True)
     launches = {"datafree": summary["launches"],
                 "calibrated": cal_summary["launches"],
                 "whole": whole["whole"]["launches"],
@@ -2278,24 +2669,32 @@ def main() -> int:
                 "moe whole": moe["moe whole"]["launches"],
                 "moe loss": moe["moe loss"]["launches"],
                 "moe calibrated": moe_cal["launches"],
-                "moe baselines": moe_base["launches"]}
+                "moe baselines": moe_base["launches"],
+                "rg": rg["rg"]["launches"],
+                "rg contiguous": rg["rg contiguous"]["launches"],
+                "rg long": rg["rg long"]["launches"],
+                "rg long contiguous": rg["rg long contiguous"]["launches"],
+                "rg loss": rg["rg loss"]["launches"],
+                "rg serve": rg["rg serve"]["launches"],
+                "rg calibrated": rg_cal["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
     entries = [
         _entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:158",
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
-               + moe_cal["layer0_mixed_matmul"]
+               + moe_cal["layer0_mixed_matmul"] + rg_mm
+               + rg_cal["layer0_mixed_matmul"]
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         dict(_entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:166",
-                    mm + mm_rows + moe_mm, gather, launches,
+                    mm + mm_rows + moe_mm + rg_mm, gather, launches,
                     "the perm gather (gather_kernel) of a decode call at "
                     "M=8, wqkv+wgu+wo+wd; one per mixed_matmul launch, "
                     "held through the product"),
              name="mixed_matmul(perm)"),
         _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",
-               [pa, moe_pa], [pa], launches,
+               [pa, moe_pa, rg_pa], [pa], launches,
                "B=8 hkv=32 dh=128 ps=16, lens up to 1000"),
         _entry("paged_prefill", "src/repro/kernels/paged_prefill.py:258",
                pf + moe_pf, pf[:1], launches,

@@ -30,8 +30,10 @@
 //    16-byte chunks of K against its chunks of q held in f32 registers,
 //    then a shuffle reduction over the group (16 lanes and 4 steps at
 //    dh = 128 in bf16).  Tensor cores would buy nothing at rep = 1.  GQA
-//    rows go 4 at a time (one pass over the keys per 4 rows), or one at a
-//    time for rep = 1 and for head dims above 256 (bf16) / 128 (f32).
+//    rows go 4 at a time (one pass over the keys per 4 rows; rows of the
+//    last pass past rep load q = 0 and write nothing), or one at a time
+//    for rep = 1 and for head dims above 256 (bf16) / 128 (f32).  Shared
+//    memory and registers depend on REPT and dh, not on rep.
 // 4. PV: the lane that holds chunk c of q accumulates chunk c of its
 //    group's keys' V rows; the groups, then the four warps (in warp order,
 //    through shared memory), are summed at the end.
@@ -438,8 +440,9 @@ cudaError_t dispatch(int rep, int dh, const F& f) {
 // Partials, index.SplitPlan.ws_floats; unused for one split).  window <= 0
 // means none; softcap <= 0 means none.  span and splits: the plan
 // (index.paged_attention_plan).  vec = 1 when dh * element size is a
-// multiple of 16 and every operand 16-byte aligned.  Requires
-// rep * dh <= 1024.
+// multiple of 16 and every operand 16-byte aligned.  Any group size: a
+// block takes its rep rows REPT at a time (rep 10 at REPT 4 is three
+// passes over the keys, the last with two live rows).
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool,
                                       const void* block_tables,

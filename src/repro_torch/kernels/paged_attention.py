@@ -58,7 +58,6 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _check(k_pool.shape == v_pool.shape and dh_pool == dh,
            f"pool shape {tuple(k_pool.shape)} does not fit q {tuple(q.shape)}")
     _check(hq % hkv == 0, f"hq={hq} not a multiple of hkv={hkv}")
-    _check(hq // hkv * dh <= 1024, "rep * dh above 1024")
     _check(block_tables.dtype == torch.int32
            and context_lens.dtype == torch.int32
            and tuple(block_tables.shape) == (b, nblk)

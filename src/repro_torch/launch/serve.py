@@ -7,16 +7,20 @@ a stream of requests through the continuous-batching engine.
         --quantize calibrated --paged --chunked-prefill
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-1b-a400m --fused --paged --chunked-prefill
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-2b --quantize datafree --fused --paged
 
 ``--quantize datafree`` ranks channels by |w| with analytic scales;
 ``--quantize calibrated`` runs the paper's method on
 ``--calib-segments`` synthetic segments of ``--calib-seq`` tokens
 (activation-driven mask, ``--opt-steps`` epochs of block-wise scale
 learning) and serves one unfused packed projection per weight;
-``--fused`` is ignored for it, as in ``repro.launch.serve``.  Dense and
-MoE architectures are served (granite-moe-1b-a400m: the experts' gate
-and up projections fuse like the MLP's); other block kinds raise
-``NotImplementedError``.
+``--fused`` is ignored for it, as in ``repro.launch.serve``.  Dense, MoE
+and hybrid architectures are served (granite-moe-1b-a400m: the experts'
+gate and up projections fuse like the MLP's; recurrentgemma-2b: RG-LRU
+and windowed local blocks, whole-prompt prefill only, so
+``--chunked-prefill`` raises the reference's ``ValueError``); the xLSTM
+kinds raise ``NotImplementedError``.
 
 By default, as in ``repro.launch.serve``, requests are served from the
 contiguous ring caches with whole-prompt prefill, prompts left-padded to

@@ -134,7 +134,8 @@ def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
     """Whole-sequence prefill.  batch: tokens (B, S) int32 and optional
     positions (B, S) int32 (-1 = left padding).  Returns (last-token
     logits (B, 1, V), caches): per stage and pattern position, ring
-    caches {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)}."""
+    caches {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)}, or recurrent
+    state {"h": (L, B, R), "conv": (L, B, cw-1, R)}."""
     x, positions = _backbone_inputs(cfg, params, batch)
     caches = []
     for stage, sp in zip(cfg.stages, params["stages"]):
@@ -146,7 +147,8 @@ def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device="cpu"):
-    """Empty decode ring caches for every stage (positions -1)."""
+    """Empty decode caches for every stage: ring caches (positions -1)
+    and zero recurrent state, ``batch`` rows each."""
     return tuple(T.init_stage_cache(cfg, s, batch, max_seq, dtype, device)
                  for s in cfg.stages)
 
@@ -163,8 +165,8 @@ def decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
 
 def splice_prefill(cfg: ArchConfig, caches, cache1, slot: int):
     """Copy a batch-1 prefill cache into decode row ``slot`` of every
-    ring, in place: the whole row, positions included, so nothing of
-    the row's previous occupant stays live."""
+    ring and recurrent state, in place: the whole row, positions
+    included, so nothing of the row's previous occupant stays live."""
     for cs, c1s in zip(caches, cache1):
         for c, c1 in zip(cs, c1s):
             for name in c:
@@ -173,25 +175,28 @@ def splice_prefill(cfg: ArchConfig, caches, cache1, slot: int):
 
 
 def init_paged_caches(cfg: ArchConfig, num_pages: int, page_size: int,
-                      dtype=torch.bfloat16, device="cpu"):
+                      dtype=torch.bfloat16, device="cpu", n_slots: int = 1):
     """Page pools for every stage: per attention block
-    ``(L, num_pages + 1, ps, hkv, dh)`` with the dump page last."""
+    ``(L, num_pages + 1, ps, hkv, dh)`` with the dump page last; per
+    recurrent block its state at the decode batch ``n_slots``."""
     return tuple(T.init_stage_cache_paged(cfg, s, num_pages, page_size,
-                                          dtype, device)
+                                          dtype, device, n_slots)
                  for s in cfg.stages)
 
 
-def splice_prefill_paged(cfg: ArchConfig, caches, cache1,
+def splice_prefill_paged(cfg: ArchConfig, caches, cache1, slot: int,
                          bt_row: torch.Tensor):
     """Scatter a batch-1 prefill cache into the pool pages of ``bt_row``
-    (-1 entries and padding positions are dropped), in place."""
-    return tuple(T.stage_splice_paged(cfg, stage, cs, c1, bt_row)
+    (-1 entries and padding positions are dropped) and its recurrent
+    state into decode slot ``slot``, in place."""
+    return tuple(T.stage_splice_paged(cfg, stage, cs, c1, slot, bt_row)
                  for stage, cs, c1 in zip(cfg.stages, caches, cache1))
 
 
 def copy_pages(cfg: ArchConfig, caches, src: torch.Tensor,
                dst: torch.Tensor):
-    """Apply queued copy-on-write page copies in place."""
+    """Apply queued copy-on-write page copies in place (recurrent
+    per-slot state owns no pages)."""
     return tuple(T.stage_copy_pages(stage, cs, src, dst)
                  for stage, cs in zip(cfg.stages, caches))
 

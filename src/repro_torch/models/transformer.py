@@ -1,16 +1,23 @@
-"""Transformer assembly (the ``dense`` and ``moe`` kinds of
-``repro.models.transformer``): the full-sequence forward (calibration,
-loss), whole-prompt prefill with its decode caches, decode over the
-contiguous ring caches, and the paged serving path.  Both kinds are
-attention blocks; a ``moe`` block's feed-forward is ``layers.apply_moe``
-over stacked expert weights, and its full-sequence forward can report
-the router's load-balancing loss.
+"""Transformer assembly (the ``dense``, ``moe``, ``local`` and
+``rglru`` kinds of ``repro.models.transformer``): the full-sequence
+forward (calibration, loss), whole-prompt prefill with its decode
+caches, decode over the contiguous ring caches, and the paged serving
+path.
+
+``dense``, ``moe`` and ``local`` are attention blocks (``ATTN_KINDS``);
+a ``moe`` block's feed-forward is ``layers.apply_moe`` over stacked
+expert weights, and its full-sequence forward can report the router's
+load-balancing loss; a ``local`` block attends a sliding window of
+``cfg.local_window`` keys.  An ``rglru`` block is the Griffin recurrent
+block (``models.recurrent``) and the gated MLP; it carries per-slot
+state (``h``, ``conv``) instead of keys and values.
 
 A stage's parameters are a list over its layers, each a tuple over the
 stage's block pattern.  Depth is a Python loop; a stage's caches are a
 tuple over the pattern of stacked tensors — ring caches ``(L, B, W,
 hkv, dh)`` with positions ``(L, B, W)``, page pools ``(L, P+1, ps, hkv,
-dh)`` — updated in place layer by layer.
+dh)``, recurrent state ``h`` ``(L, B, R)`` and ``conv`` ``(L, B, cw-1,
+R)`` at the decode batch — updated in place layer by layer.
 """
 from __future__ import annotations
 
@@ -21,9 +28,11 @@ import torch
 from repro_torch.configs.base import ArchConfig, Stage
 from repro_torch.core.qlinear import QLinearGroup
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 
 Tree = Any
-KINDS = ("dense", "moe")
+ATTN_KINDS = ("dense", "moe", "local")
+KINDS = ATTN_KINDS + ("rglru",)
 
 
 def _check_kind(kind: str) -> None:
@@ -35,6 +44,9 @@ def _check_kind(kind: str) -> None:
 
 def init_block(cfg: ArchConfig, kind: str) -> Tree:
     _check_kind(kind)
+    if kind == "rglru":
+        return {"ln1": L.init_norm(cfg), "rec": R.init_rglru(cfg),
+                "ln2": L.init_norm(cfg), "mlp": L.init_mlp(cfg)}
     return {"ln1": L.init_norm(cfg), "attn": L.init_attention(cfg),
             "ln2": L.init_norm(cfg),
             "mlp": L.init_moe(cfg) if kind == "moe" else L.init_mlp(cfg)}
@@ -120,7 +132,11 @@ def unfuse_params_for_oracle(params: Tree) -> Tree:
 
 
 def _kind_window(cfg: ArchConfig, kind: str) -> Optional[int]:
-    return cfg.attn_window if kind in KINDS else None
+    """The attention window of a block kind: ``local_window`` for
+    ``local``, ``attn_window`` (None: full causal) for dense and moe."""
+    if kind == "local":
+        return cfg.local_window
+    return cfg.attn_window if kind in ATTN_KINDS else None
 
 
 def _cache_window(cfg: ArchConfig, kind: str, max_seq: int) -> int:
@@ -138,9 +154,13 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                attn_chunk: int = 1024,
                aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One block over a whole sequence: x (B, S, D), positions (B, S)
-    -> x + attention, then + MLP or MoE.  With ``aux`` given, a moe
-    block appends its router's load-balancing loss to it."""
+    -> x + attention (or the RG-LRU), then + MLP or MoE.  With ``aux``
+    given, a moe block appends its router's load-balancing loss to it."""
     _check_kind(kind)
+    if kind == "rglru":
+        h, _, _ = R.rglru_seq(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x))
+        x = x + h
+        return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
     h = L.attention_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
                          positions, causal=causal,
                          window=_kind_window(cfg, kind),
@@ -175,9 +195,19 @@ def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
 def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int,
                   attn_chunk: int = 1024):
-    """One block over a whole (left-padded) prompt.  Returns (x, ring
-    cache {"k", "v": (B, W, hkv, dh), "p": (B, W)})."""
+    """One block over a whole (left-padded) prompt.  Returns (x, cache):
+    the ring cache {"k", "v": (B, W, hkv, dh), "p": (B, W)} of an
+    attention block, or an rglru block's final state {"h": (B, R),
+    "conv": (B, cw-1, R)}.  The recurrence runs over the padding too,
+    as in the reference."""
     _check_kind(kind)
+    if kind == "rglru":
+        h, h_n, conv = R.rglru_seq(cfg, p["rec"],
+                                   L.apply_norm(cfg, p["ln1"], x))
+        x = x + h
+        return x + L.apply_mlp(cfg, p["mlp"],
+                               L.apply_norm(cfg, p["ln2"], x)), \
+            {"h": h_n, "conv": conv}
     h, cache = L.attention_full(
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), positions,
         causal=True, window=_kind_window(cfg, kind),
@@ -192,7 +222,7 @@ def stage_prefill(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int,
                   attn_chunk: int = 1024):
     """Prefill a stage.  Returns (x, caches): per pattern position, the
-    layers' ring caches stacked on a leading layer axis."""
+    layers' caches stacked on a leading layer axis."""
     per_pos: List[List[Tree]] = [[] for _ in stage.pattern]
     for lp in sparams:
         for i, kind in enumerate(stage.pattern):
@@ -203,9 +233,29 @@ def stage_prefill(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                     for cs in per_pos)
 
 
+def _rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, cache: Tree,
+                layer: int, promote: bool) -> torch.Tensor:
+    """One decode step of an rglru block against its stacked state,
+    written back in place at ``layer``.  With ``promote`` the conv state
+    takes the step's dtype first, as the reference's scanned contiguous
+    decode returns it (an f32 model's state leaves its bf16 declaration
+    at the first step); without, it is written back into its buffer's
+    dtype, as the reference's unrolled paged walk does."""
+    out, h, conv = R.rglru_step(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x),
+                                cache["h"][layer], cache["conv"][layer])
+    if promote and cache["conv"].dtype != conv.dtype:
+        cache["conv"] = cache["conv"].to(conv.dtype)
+    cache["h"][layer] = h
+    cache["conv"][layer] = conv
+    x = x + out
+    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+
+
 def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                pos: torch.Tensor, cache: Tree, max_seq: int, layer: int):
     _check_kind(kind)
+    if kind == "rglru":
+        return _rglru_step(cfg, p, x, cache, layer, promote=True), cache
     h, cache = L.attention_decode(
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos, cache,
         layer=layer, window=_kind_window(cfg, kind))
@@ -228,11 +278,15 @@ def stage_step(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
 def init_stage_cache(cfg: ArchConfig, stage: Stage, batch: int,
                      max_seq: int, dtype=torch.bfloat16,
                      device="cpu") -> Tuple[Dict[str, torch.Tensor], ...]:
-    """Empty decode ring caches for a stage: per pattern position
-    ``L.make_cache`` with every position -1."""
+    """Empty decode caches for a stage: per pattern position
+    ``L.make_cache`` with every position -1, or an rglru block's zero
+    state at the decode batch."""
     out = []
     for kind in stage.pattern:
         _check_kind(kind)
+        if kind == "rglru":
+            out.append(R.init_rglru_state(cfg, batch, stage.repeats, device))
+            continue
         c = L.make_cache(cfg, batch, _cache_window(cfg, kind, max_seq),
                          stage.repeats, dtype, device)
         c["p"].fill_(-1)
@@ -247,7 +301,11 @@ def block_step_paged(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                      pos: torch.Tensor, cache: Tree,
                      block_tables: torch.Tensor, context_lens: torch.Tensor,
                      layer: int):
+    """Paged variant of :func:`block_step` for attention blocks; an rglru
+    block keeps its per-slot state and steps as on the contiguous path."""
     _check_kind(kind)
+    if kind == "rglru":
+        return _rglru_step(cfg, p, x, cache, layer, promote=False), cache
     h, cache = L.attention_decode_paged(
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos, cache,
         block_tables, context_lens, layer=layer,
@@ -274,7 +332,12 @@ def block_prefill_step_paged(cfg: ArchConfig, kind: str, p: Tree,
                              x: torch.Tensor, positions: torch.Tensor,
                              cache: Tree, bt_read, bt_write, start, length,
                              layer: int):
-    _check_kind(kind)
+    """One block of one chunk of paged prefill: attention kinds only (the
+    engine refuses chunked prefill for the others, as the reference)."""
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(
+            f"chunked paged prefill supports attention blocks only, got "
+            f"{kind!r}: serve recurrent stages with whole-prompt prefill")
     h, cache = L.attention_prefill_paged(
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), positions, cache,
         bt_read, bt_write, start, length, layer=layer,
@@ -296,21 +359,31 @@ def stage_prefill_step_paged(cfg: ArchConfig, stage: Stage, sparams, x,
 
 
 def stage_splice_paged(cfg: ArchConfig, stage: Stage, pool_stage: Tree,
-                       cache1_stage: Tree, bt_row: torch.Tensor) -> Tree:
-    """Scatter one request's whole-prompt prefill caches (batch 1) into
-    the pages of ``bt_row`` by absolute token position, in place."""
+                       cache1_stage: Tree, slot: int,
+                       bt_row: torch.Tensor) -> Tree:
+    """Splice one request's whole-prompt prefill caches (batch 1), in
+    place: attention caches scatter into the pages of ``bt_row`` by
+    absolute token position; recurrent state goes into decode slot
+    ``slot``."""
     for kind, pool, c1 in zip(stage.pattern, pool_stage, cache1_stage):
         _check_kind(kind)
-        L.scatter_pages(pool, c1["k"][:, 0], c1["v"][:, 0], c1["p"][0, 0],
-                        bt_row)
+        if kind in ATTN_KINDS:
+            L.scatter_pages(pool, c1["k"][:, 0], c1["v"][:, 0],
+                            c1["p"][0, 0], bt_row)
+        else:
+            for name in pool:
+                pool[name][:, slot] = c1[name][:, 0]
     return pool_stage
 
 
 def stage_copy_pages(stage: Stage, pool_stage: Tree, src: torch.Tensor,
                      dst: torch.Tensor) -> Tree:
     """Copy-on-write page copies ``pool[:, dst] = pool[:, src]`` across
-    every layer of the stage, in place."""
-    for pool in pool_stage:
+    every layer of the stage's attention pools, in place; recurrent
+    per-slot state owns no pages and passes through."""
+    for kind, pool in zip(stage.pattern, pool_stage):
+        if kind not in ATTN_KINDS:
+            continue
         for t in (pool["k"], pool["v"]):
             t[:, dst.long()] = t[:, src.long()]
     return pool_stage
@@ -318,9 +391,18 @@ def stage_copy_pages(stage: Stage, pool_stage: Tree, src: torch.Tensor,
 
 def init_stage_cache_paged(cfg: ArchConfig, stage: Stage, num_pages: int,
                            page_size: int, dtype=torch.bfloat16,
-                           device="cpu") -> Tuple[Dict[str, torch.Tensor], ...]:
+                           device="cpu", n_slots: int = 1
+                           ) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Attention blocks share one ``(num_pages, page_size)`` pool per
+    pattern position; an rglru block keeps per-slot state at the decode
+    batch ``n_slots`` (at its own dtypes, not the pools')."""
+    out = []
     for kind in stage.pattern:
         _check_kind(kind)
-    return tuple(L.make_paged_cache(cfg, num_pages, page_size,
-                                    stage.repeats, dtype, device)
-                 for _ in stage.pattern)
+        if kind in ATTN_KINDS:
+            out.append(L.make_paged_cache(cfg, num_pages, page_size,
+                                          stage.repeats, dtype, device))
+        else:
+            out.append(R.init_rglru_state(cfg, n_slots, stage.repeats,
+                                          device))
+    return tuple(out)

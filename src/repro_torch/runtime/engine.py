@@ -1,5 +1,5 @@
 """Serving engine: continuous batching over contiguous or paged KV (the
-dense and moe subset of ``repro.runtime.engine``).
+dense, moe, local and rglru subset of ``repro.runtime.engine``).
 
 A fixed decode batch of ``n_slots``; each slot holds one request and its
 own position, and one batched decode step advances every slot.  Two
@@ -38,8 +38,13 @@ as they happen (:meth:`Engine.subscribe`, :meth:`Engine.event_queue`);
 :meth:`Engine.run` drives ticks until the work drains;
 :meth:`Engine.cancel` aborts a request wherever it is.
 
-Not ported yet, and refused by the constructor: block kinds other than
-dense and moe.
+A recurrent (rglru) block keeps its state per decode slot on either
+backend: a whole-prompt prefill splices it into the slot, and a
+preempted request rebuilds it by prefilling its whole context again.
+Chunked prefill does not carry recurrent state across chunks, so the
+constructor refuses it for such models with the reference's
+``ValueError``.  Not ported yet, and refused with
+``NotImplementedError``: the mlstm and slstm kinds.
 """
 from __future__ import annotations
 
@@ -167,7 +172,8 @@ class _PagedBackend:
         self._hint_ver = None
         self.caches = M.init_paged_caches(eng.cfg, pool_pages, page_size,
                                           dtype=cache_dtype,
-                                          device=eng.device)
+                                          device=eng.device,
+                                          n_slots=eng.n_slots)
         self.prefill_chunk_calls = 0
         self.prefill_kv_read_bytes = 0
 
@@ -262,7 +268,7 @@ class _PagedBackend:
         # drops those writes — the pages already hold these tokens' K/V
         bt_row = self._dev(self.tables.writable_row(slot))
         self.caches = M.splice_prefill_paged(self.eng.cfg, self.caches,
-                                             cache1, bt_row)
+                                             cache1, slot, bt_row)
         if self.prefix is not None and seq is not None:
             self.prefix.register(seq, self.tables.owned(slot))
 
@@ -321,7 +327,8 @@ class Engine:
                  fuse_projections: bool = False, attn_chunk: int = 1024,
                  device="cuda"):
         """``cache_dtype`` sets the page pools' dtype (bf16 by default);
-        the contiguous rings are bf16, as the reference's.
+        the contiguous rings are bf16, as the reference's, and recurrent
+        state keeps its own dtypes on both backends.
         ``attn_chunk`` is the key chunk of whole-prompt prefill attention
         (the reference's ``Parallel.attn_chunk``)."""
         kinds = {k for s in cfg.stages for k in s.pattern}
@@ -333,6 +340,12 @@ class Engine:
             if not paged:
                 raise ValueError("chunked_prefill requires paged=True "
                                  "(chunks scatter into pool pages)")
+            if not kinds <= set(T.ATTN_KINDS):
+                raise ValueError(
+                    f"chunked_prefill supports attention-only stages, "
+                    f"got kinds {sorted(kinds)} — recurrent cells carry "
+                    f"sequential state across chunks; serve this arch "
+                    f"with the whole-prompt path")
             if prefill_chunk <= 0 or prefill_chunk % page_size:
                 raise ValueError(
                     f"prefill_chunk={prefill_chunk} must be a positive "

@@ -270,7 +270,7 @@ def test_block_full_refuses_other_kinds(subject):
     _, tcfg, _, tp, _ = subject
     x = torch.zeros(1, 4, tcfg.d_model)
     with pytest.raises(NotImplementedError):
-        TT.block_full(tcfg, "rglru", tp["stages"][0][0][0], x,
+        TT.block_full(tcfg, "mlstm", tp["stages"][0][0][0], x,
                       torch.zeros(1, 4, dtype=torch.int32))
 
 

@@ -492,3 +492,44 @@ def test_moe_engine_tokens_match_the_cpu(cuda, mode):
     toks = chip_smoke.small_engine_tokens(
         torch, (f"{mode}/cpu", f"{mode}/cuda"), arch=chip_smoke.MOE_ARCH)
     assert toks[f"{mode}/cuda"] == toks[f"{mode}/cpu"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_at_the_hybrid_shape(cuda, dtype):
+    """recurrentgemma-2b's decode attention: B 8, hq 10 on one KV head
+    (rep 10: three passes of 4 rows, the last with two), dh 256, pages
+    of 16, a 2048-key window, contexts 0-3000 (some past the window) and
+    a freed page inside slot 0's window; f32 to 1e-4, bf16 to 1e-2 with
+    the same bits on a second call."""
+    from repro_torch.kernels import paged_attention as mod
+    lens = [3000, 2600, 2049, 2048, 1500, 700, 64, 0]
+    rng = np.random.default_rng(15)
+    arrs = _attention_case(rng, b=8, hkv=1, rep=10, dh=256, ps=16,
+                           lens=lens, freed=((0, 150),))
+    args = [torch.from_numpy(a).to(cuda) for a in arrs]
+    if dtype == "bfloat16":
+        args = [a.to(torch.bfloat16) if a.is_floating_point() else a
+                for a in args]
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    plan = mod.launch_plan(8, 1, 10, 256, args[3].shape[1], 16,
+                           dtype == "bfloat16", 0)
+    assert plan.splits > 1
+    o = tpa.paged_attention(*args, window=2048)
+    torch.testing.assert_close(
+        o, ref.paged_attention_ref(*args, window=2048), rtol=tol, atol=tol)
+    assert torch.equal(o, tpa.paged_attention(*args, window=2048))
+    assert torch.all(o[7] == 0) and not torch.isnan(o).any()
+
+
+@pytest.mark.parametrize("mode", ["contiguous", "paged-whole",
+                                  "shared-whole"])
+def test_hybrid_engine_tokens_match_the_cpu(cuda, mode):
+    """Reduced recurrentgemma-2b (rglru and windowed local blocks) in
+    f32, data-free with fused QKV and gate+up, served on the card
+    (kernels) and on the CPU (plain versions): the same greedy tokens in
+    each whole-prompt engine mode (``chip_smoke.small_engine_tokens``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    toks = chip_smoke.small_engine_tokens(
+        torch, (f"{mode}/cpu", f"{mode}/cuda"), arch=chip_smoke.RG_ARCH)
+    assert toks[f"{mode}/cuda"] == toks[f"{mode}/cpu"]

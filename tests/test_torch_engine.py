@@ -98,11 +98,12 @@ def test_engine_greedy_tokens_match_repro_across_preemption(
 
 
 def test_engine_refuses_what_is_not_ported(subject):
-    """Block kinds other than dense and moe are not ported and raise
-    NotImplementedError; the reference's ValueErrors for modes that need
-    the paged backend or prefix sharing are kept."""
+    """Block kinds other than dense, moe, local and rglru (xlstm's mlstm
+    and slstm) are not ported and raise NotImplementedError; the
+    reference's ValueErrors for modes that need the paged backend or
+    prefix sharing are kept."""
     _, _, tp = subject
-    for arch in ("xlstm-1.3b", "recurrentgemma-2b"):
+    for arch in ("xlstm-1.3b",):
         with pytest.raises(NotImplementedError, match="not ported"):
             TEngine(t_registry.get(arch).reduced(), tp, paged=True,
                     device="cpu")

@@ -310,6 +310,9 @@ ATT_CASES = [   # (rep, lens, freed, window, softcap, sms)
     (2, [200, 5, 0, 129, 64], (), 45, 30.0, 132),
     (4, [150, 150, 1, 0, 99], ((1, 3), (4, 0)), None, None, 4),
     (1, [0, 0, 0, 0, 0], (), None, None, 132),
+    # recurrentgemma's group of 10 (three passes of 4 rows in the kernel)
+    # with a window that cuts keys off
+    (10, [300, 70, 0, 129, 64], ((0, 20),), 45, None, 132),
 ]
 
 
@@ -372,6 +375,37 @@ def test_attention_plan_fills_a_wave_at_the_serving_shapes():
             tiles = nblk * 16 // tidx.ATT_KT
             assert plan.blocks >= H100_SMS * per_sm
             assert plan.span // tidx.ATT_KT >= min(tidx.ATT_MIN_TILES, tiles)
+
+
+def test_attention_plan_at_the_hybrid_decode_shape():
+    """recurrentgemma-2b's decode: B = 8, one KV head (hq 10, dh 256),
+    pages of 16, tables of 32 pages (max_seq 512) and 256 (max_seq
+    4096).  Only 8 (slot, head) pairs: the plan splits the keys as far
+    as the shortest span (``ATT_MIN_TILES`` tiles) allows, which fills a
+    wave of resident blocks on the long table and cannot on the short
+    one (16 tiles, at most 8 splits, 64 blocks)."""
+    for nblk in (32, 256):
+        tiles = nblk * 16 // tidx.ATT_KT
+        most = 8 * (tiles // tidx.ATT_MIN_TILES)
+        for per_sm in (1, 2, 4):
+            plan = tidx.paged_attention_plan(8, 1, nblk, 16, H100_SMS,
+                                             per_sm)
+            assert plan.span % tidx.ATT_KT == 0
+            assert plan.span // tidx.ATT_KT >= tidx.ATT_MIN_TILES
+            assert plan.splits * plan.span >= nblk * 16
+            assert plan.blocks == 8 * plan.splits
+            assert plan.blocks >= min(H100_SMS * per_sm, most)
+    assert tidx.paged_attention_plan(8, 1, 32, 16, H100_SMS, 2).splits == 8
+    # a window of 2048 keys over the long table: the splits before the
+    # window's start write neutral partials
+    plan = tidx.paged_attention_plan(8, 1, 256, 16, H100_SMS, 2)
+    live = [i for i in range(plan.splits)
+            if np.subtract(*tidx.attention_split_keys(plan, i, 3000,
+                                                      2048)[::-1]) > 0]
+    assert sum(np.subtract(*tidx.attention_split_keys(plan, i, 3000,
+                                                      2048)[::-1])
+               for i in live) == 2048
+    assert live[0] > 0
 
 
 PREFILL_CASES = [   # (rep, start, length, window, softcap, freed, dh)
