@@ -36,7 +36,11 @@ Phases, each of which raises on failure:
    time of a call, as the LLaMA and granite row counts have too) and the
    decode kernel at MQA group 10, head dim 256, a 2048-key window over
    contexts of 0-3000 keys, bf16 and f32 (``[rg paged_attention]``,
-   ``[rg plan]``);
+   ``[rg plan]``); and at xlstm-1.3b's: its nine packed projections
+   (w_q, w_k 2048 x 2048, w_v, w_gate 2048 → 4096, w_out 4096 → 2048,
+   w_gates 2048 → 8192, the sLSTM FFN's w_up, w_gate 2048 → 5504 and
+   w_down 5504 → 2048: K and N of 43 x 128) at ``XL_ROWS`` (``[xl
+   mixed_matmul M=...]``);
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
    gives the same logits within tolerance; the calibrated pipeline run
@@ -53,7 +57,8 @@ Phases, each of which raises on failure:
    cumsum, index_put) on the card (``[moe reference]``); and on reduced
    recurrentgemma (``[rg reference]``: logits after a whole-prompt
    prefill, greedy tokens of the contiguous, paged and shared-prefix
-   whole-prompt engines, calibrated bytes, each card = CPU);
+   whole-prompt engines, calibrated bytes, each card = CPU); and on
+   reduced xlstm (``[xl reference]``, the same checks);
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
@@ -117,8 +122,26 @@ Phases, each of which raises on failure:
    and calibrated PTQ1.61 at the serve defaults (``[rg calibrated]``:
    no block's Eq.-7 loss may rise; its unfused projections held
    against the plain version; served as ``[rg]``);
-10. check that every (M, K, N) the packed matmul launched at in phases
-   5-9 was held against its plain version in phase 3, 6, 8 or 9, then
+10. the xLSTM block kinds: xlstm-1.3b at full width and depth (48
+   layers: 42 mlstm, 6 slstm; layernorm, vocab 50304, untied head),
+   random bf16 weights of seed 0, data-free PTQ1.61 (its projections
+   stay unfused, as in the reference) served with whole-prompt prefill
+   on the paged tables (``[xl]``; the model has no attention block, so
+   no page pool on the card and no attention kernel) and on the
+   contiguous backend (``[xl contiguous]``) on the prompts of phase 5;
+   the device time of the mLSTM state update of an 8-slot decode step
+   beside its bound, and of the sLSTM scans of a 512-token prefill
+   (``[xl cells]``); 4 prompts of 2100-3000 tokens at max_seq 4096 on 4
+   paged slots (``[xl long]``); ``forward_loss`` (``[xl loss]``);
+   chunked prefill refused with the reference's ValueError; ``[xl
+   serve]`` (``launch.serve.run --arch xlstm-1.3b --fused --paged``);
+   calibrated PTQ1.61 at the serve defaults (``[xl calibrated]``: no
+   block's Eq.-7 loss may rise; the first mlstm and slstm layers'
+   projections held against the plain version; served as ``[xl]``);
+   rtn-2 and pbllm at full size (``[xl baselines]``).  The mLSTM and
+   sLSTM cells are plain PyTorch, as the reference leaves them to XLA;
+11. check that every (M, K, N) the packed matmul launched at in phases
+   5-10 was held against its plain version in phase 3, 6, 8, 9 or 10, then
    print the ``kernels`` JSON line (six entries, one per TPU kernel: the
    five wrappers and the perm gather of ``mixed_matmul``) and the result
    line.
@@ -194,6 +217,14 @@ RG_ROWS = (1, 4, 8, 16, 64, 256, 512, 1024, 4096)
 # past the 2048-key window, one empty), a freed page inside slot 0's
 # window.
 RG_ATT_LENS = (3000, 2600, 2049, 2048, 1500, 700, 64, 0)
+# The xLSTM phases' model and the packed-matmul rows its paths launch:
+# 4-slot decode of ``[xl long]`` and ``[xl serve]`` (whose buckets are 16
+# and 64), 8-slot decode, whole-prompt buckets 256 and 512 (and 4096 of
+# ``[xl long]``), the loss's 2 x 512; M = 1 besides.
+XL_ARCH = "xlstm-1.3b"
+XL_ROWS = (1, 4, 8, 16, 64, 256, 512, 1024, 4096)
+# packed projections per block kind (an attention block's 7)
+KIND_PROJECTIONS = {"rglru": 6, "mlstm": 5, "slstm": 4}
 
 
 def _fail(msg: str) -> None:
@@ -783,7 +814,7 @@ def check_paged_prefill(torch, cfg, timer, peaks, gen):
 # Phase 4: small-input agreement, card against CPU
 # ---------------------------------------------------------------------------
 def _has_recurrence(cfg) -> bool:
-    return any(k == "rglru" for s in cfg.stages for k in s.pattern)
+    return any(k in KIND_PROJECTIONS for s in cfg.stages for k in s.pattern)
 
 
 def check_small_reference(torch, registry, arch="llama-7b"):
@@ -792,9 +823,16 @@ def check_small_reference(torch, registry, arch="llama-7b"):
     same weights: the largest logit gap relative to the CPU's magnitude.
     Prefill is chunked, or for a model with recurrent blocks (which
     chunked prefill does not serve) one whole-prompt prefill left-padded
-    to 64 and spliced into the pages and slot 0."""
+    to 64 and spliced into the pages and slot 0.  An xLSTM model decodes
+    each step on the card from the CPU's state of that step: its carried
+    state turns an f32 gap of 1e-7 that straddles a bf16 rounding of a
+    packed product's input into logits about 1e-2 apart within a few
+    steps (measured on the CPU against the JAX package), which says
+    nothing of the kernels; from the same state each step compares
+    them."""
     from repro_torch.core.pipeline import quantize_params_data_free
     from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.core.select import map_tree
     from repro_torch.models import model as M
     from repro_torch.models.param import tree_to
     from repro_torch.runtime.paged_cache import (BlockTables, PagePool,
@@ -810,6 +848,9 @@ def check_small_reference(torch, registry, arch="llama-7b"):
     pool = PagePool(16, ps)
     tables = BlockTables(pool, 1, pages_for_tokens(128, ps))
     tables.ensure_blocks(0, pages_for_tokens(plen + steps, ps))
+    xlstm = any(k in ("mlstm", "slstm") for s in cfg.stages
+                for k in s.pattern)
+    cpu_states = []
     outs = {}
     for dev in ("cpu", "cuda"):
         pd = tree_to(p, dev)
@@ -837,6 +878,10 @@ def check_small_reference(torch, registry, arch="llama-7b"):
                     length)
                 logits.append(lg)
         for pos in range(plen, plen + steps):
+            if xlstm and dev == "cpu":
+                cpu_states.append(map_tree(caches, lambda _, t: t.clone()))
+            elif xlstm:
+                caches = tree_to(cpu_states[pos - plen], dev)
             lg, caches = M.decode_step_paged(
                 cfg, pd, seq[pos - 1:pos].to(dev),
                 torch.tensor([pos], dtype=torch.int32, device=dev), caches,
@@ -967,10 +1012,19 @@ def check_small_engines(torch, arch="llama-7b") -> dict:
             "tokens": toks}
 
 
+# The block pattern ``check_small_calibrated`` runs twice, where it is
+# not the config's own: xlstm's 8-block pattern twice amplifies a
+# one-ulp change of one gate weight to α's 1.3e-2 apart by the 14th block
+# (the learning meets ever other streams; measured on the CPU), so the
+# card-vs-CPU check calibrates (mlstm, slstm) twice, where the same
+# change stays within 5.6e-6.
+SMALL_CAL_PATTERN = {XL_ARCH: ("mlstm", "slstm")}
+
+
 def check_small_calibrated(torch, registry, arch="llama-7b"):
-    """Calibrated PTQ1.61 of ``arch`` reduced (its first stage's pattern
-    twice, f32) on the card and on the CPU from the same weights and
-    segments."""
+    """Calibrated PTQ1.61 of ``arch`` reduced (its first stage's pattern,
+    or ``SMALL_CAL_PATTERN``, twice, f32) on the card and on the CPU from
+    the same weights and segments."""
     import dataclasses
     from repro_torch.configs.base import Stage
     from repro_torch.core.pipeline import quantize_model_ptq161
@@ -980,8 +1034,9 @@ def check_small_calibrated(torch, registry, arch="llama-7b"):
     from repro_torch.models import model as M
     from repro_torch.models.param import tree_to
     cfg = registry.get(arch).reduced()
-    cfg = dataclasses.replace(cfg, stages=(Stage(cfg.stages[0].pattern, 2),))
-    n_proj = 2 * sum(6 if k == "rglru" else 7 for k in cfg.stages[0].pattern)
+    pattern = SMALL_CAL_PATTERN.get(arch, cfg.stages[0].pattern)
+    cfg = dataclasses.replace(cfg, stages=(Stage(pattern, 2),))
+    n_proj = 2 * sum(KIND_PROJECTIONS.get(k, 7) for k in pattern)
     qcfg = QuantConfig(ratio=0.2, multiple=16, steps=3)
     p = tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
@@ -2045,17 +2100,19 @@ def run_moe_calibrated(torch, cfg, kernels, path_kernels, peaks) -> dict:
     return summary
 
 
-def run_moe_baselines(torch, cfg, kernels, ptq_bits: float,
-                      ptq_loss: float) -> dict:
-    """rtn-2 and pbllm on granite's bf16 weights of seed 0 at full width
-    and depth through ``quantize_model_baseline`` (per expert on the
-    stacked expert weights) at ``run_baselines``' calibration settings:
-    quantize seconds, peak device memory, bits per weight over granite's
-    leaf shapes (each expert slice a (K, N) matrix) and the loss on the
-    ``[moe loss]`` tokens beside the fp loss and the data-free PTQ1.61
-    loss; every loss finite and no packed kernel launched."""
+def run_model_baselines(torch, cfg, kernels, ptq_bits: float,
+                        ptq_loss: float, tag: str,
+                        methods=MOE_BASELINES) -> dict:
+    """``methods`` on ``cfg``'s bf16 weights of seed 0 at full width and
+    depth through ``quantize_model_baseline`` (per expert on stacked
+    expert weights) at ``run_baselines``' calibration settings: quantize
+    seconds, peak device memory, bits per weight over the model's
+    quantizable leaves (each expert slice a (K, N) matrix) and the loss
+    on the tokens of ``run_loss`` beside the fp loss and the data-free
+    PTQ1.61 loss; every loss finite and no packed kernel launched."""
     from repro_torch.core.baselines.driver import (method_bits,
                                                    quantize_model_baseline)
+    from repro_torch.core.select import is_quantizable, map_tree
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.models import model as M
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
@@ -2063,16 +2120,15 @@ def run_moe_baselines(torch, cfg, kernels, ptq_bits: float,
              corpus.batches(1, 256, 32, split="calib")]
     params = M.init_params(cfg, seed=0, device="cuda")
     fp_loss = run_loss(torch, cfg, params)["loss"]
-    shapes = [(math.prod(x.shape[:-2]), x.shape[-2], x.shape[-1])
-              for leaves in params["stages"][0][0][0].values()
-              if isinstance(leaves, dict)
-              for name, x in leaves.items()
-              if x.ndim >= 2 and name != "router"]
+    shapes = []
+    map_tree(params["stages"], lambda path, x: shapes.append(
+        (math.prod(x.shape[:-2]), x.shape[-2], x.shape[-1]))
+        if is_quantizable(path, x, 64) else None)
     n_w = sum(e * k * n for e, k, n in shapes)
     for k in kernels.values():
         k.launches = 0
     rows = {}
-    for method in MOE_BASELINES:
+    for method in methods:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -2085,21 +2141,22 @@ def run_moe_baselines(torch, cfg, kernels, ptq_bits: float,
         del q
         rows[method] = {
             "quantize_s": dt, "peak_mem_gb": peak, "loss": loss,
-            "bits_granite": sum(method_bits(method, k, n) * e * k * n
-                                for e, k, n in shapes) / n_w}
-        print(f"[moe baselines] {method}: quantized in {dt:.1f}s, peak "
+            "bits_per_weight": sum(method_bits(method, k, n) * e * k * n
+                                   for e, k, n in shapes) / n_w}
+        print(f"[{tag} baselines] {method}: quantized in {dt:.1f}s, peak "
               f"device memory {peak:.2f} GB, "
-              f"{rows[method]['bits_granite']:.4f} bits/weight, loss "
+              f"{rows[method]['bits_per_weight']:.4f} bits/weight, loss "
               f"{loss:.4f}", flush=True)
         if not math.isfinite(loss):
-            _fail(f"moe baselines: {method}'s loss is {loss}")
+            _fail(f"{tag} baselines: {method}'s loss is {loss}")
     launches = {name: k.launches for name, k in kernels.items()}
     if any(launches.values()):
-        _fail(f"moe baselines: fake-quant models launched packed kernels: "
-              f"{launches}")
+        _fail(f"{tag} baselines: fake-quant models launched packed "
+              f"kernels: {launches}")
     del params
     return {"methods": rows, "fp_loss": fp_loss, "ptq161_datafree_loss":
             ptq_loss, "ptq161_datafree_bits": ptq_bits,
+            "quantized_weights": n_w,
             "calibration": {"segments": 32, "seq": 256, "min_dim": 64},
             "launches": launches}
 
@@ -2345,6 +2402,304 @@ def run_rg_calibrated(torch, cfg, kernels, peaks) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the xLSTM block kinds (mlstm and slstm) at full width and depth
+# ---------------------------------------------------------------------------
+def xlstm(registry):
+    cfg = registry.get(XL_ARCH)
+    kinds = [k for s in cfg.stages for _ in range(s.repeats)
+             for k in s.pattern]
+    print(f"[xl] {XL_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"mlstm_proj_factor={cfg.mlstm_proj_factor} "
+          f"slstm_ff={int(round(cfg.slstm_ff_factor * cfg.d_model / 128)) * 128}"
+          f" norm={cfg.norm} vocab={cfg.vocab} tied={cfg.tied_embeddings} "
+          f"layers={cfg.n_layers} ({kinds.count('mlstm')} mlstm, "
+          f"{kinds.count('slstm')} slstm)", flush=True)
+    return cfg
+
+
+def xl_projections(torch, cfg, gen):
+    """The nine packed projections of xlstm-1.3b as data-free PTQ1.61
+    quantizes them (none fused, as in the reference): an mlstm block's
+    w_q, w_k (2048 x 2048), w_v, w_gate (2048 -> 4096) and w_out (4096 ->
+    2048); an slstm block's w_gates (2048 -> 8192), w_up, w_gate (2048 ->
+    5504) and w_down (5504 -> 2048)."""
+    from repro_torch.core.qlinear import QuantConfig, quantize_linear
+    from repro_torch.models.recurrent import init_mlstm, init_slstm
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    out = {}
+    for kind, decl in (("mlstm", init_mlstm(cfg)), ("slstm", init_slstm(cfg))):
+        for name, p in decl.items():
+            if name in ("w_if", "r_gates", "b_gates"):
+                continue
+            k, n = p.shape
+            w = (torch.randn((k, n), generator=gen, device="cuda")
+                 / math.sqrt(k)).to(torch.bfloat16)
+            out[f"{kind}.{name}"] = quantize_linear(w, None, qcfg)
+    return out
+
+
+def xlstm_costs(torch, cfg, qparams, peaks, slots: int = 8,
+                seq: int = 512) -> dict:
+    """Device time of the xLSTM cells' plain PyTorch parts: the mLSTM
+    state update of one decode step at ``slots`` slots
+    (``recurrent.mlstm_state_step_`` on a (B, H, dk, dv) f32 memory; the
+    ``Timer``'s CUDA events, L2 flushed, and its kernels by ``device_us``
+    without the flush's fill), times the mlstm layers, beside its bound:
+    the memory and the normalizer read and written once; and one sLSTM
+    scan over a ``seq``-token prefill (``recurrent._slstm_scan`` of the
+    first slstm layer at batch 1: kernel time under ``torch.profiler``,
+    kernels and the host's wall time), times the slstm layers of one
+    prefill."""
+    from repro_torch.models import recurrent as R
+    kinds = [k for s in cfg.stages for _ in range(s.repeats)
+             for k in s.pattern]
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    st = R.init_recurrent_state(cfg, "mlstm", slots, 1, "cuda")
+    c, n = st["c"][0], st["n"][0]
+    b, h, dk, dv = c.shape
+    q, k = (torch.randn((b, h, dk), generator=gen, device="cuda")
+            for _ in range(2))
+    v = torch.randn((b, h, dv), generator=gen, device="cuda")
+    li, lf = (torch.randn((b, h), generator=gen, device="cuda") - 2.0
+              for _ in range(2))
+    upd_ms = Timer(torch).ms(
+        lambda: R.mlstm_state_step_(c, n, q, k, v, li, lf))
+    upd = {name: us for name, us in device_us(
+        torch, lambda: R.mlstm_state_step_(c, n, q, k, v, li, lf)).items()
+        if "FillFunctor<unsigned char>" not in name}
+    nbytes = 2 * (c.numel() + n.numel()) * 4
+    b_ms, by = bound_ms(nbytes, 0.0, peaks)
+    scan_p = next(lp[i]["cell"] for lp in qparams["stages"][0]
+                  for i, kd in enumerate(cfg.stages[0].pattern)
+                  if kd == "slstm")
+    zx = torch.randn((1, seq, 4 * cfg.d_model), generator=gen,
+                     device="cuda")
+    z = torch.zeros((1, cfg.d_model), device="cuda")
+    state = {"h": z, "c": z, "n": z + 1e-6, "m": z}
+
+    def scan():
+        R._slstm_scan(cfg, {"r_gates": scan_p["r_gates"],
+                            "b_gates": scan_p["b_gates"]}, zx, state)
+    scan()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan()
+        torch.cuda.synchronize()
+    busy_us, _, n_k = _kernel_time(prof)
+    return {"mlstm_state_update": {
+                "slots": slots, "state_bytes_per_layer": c.numel() * 4,
+                "ms_per_layer": upd_ms, "ms_per_step": n_m * upd_ms,
+                "bound_ms_per_step": n_m * b_ms, "bound_by": by,
+                "kernel_names": len(upd), "us_by_kernel": upd},
+            "slstm_scan": {
+                "tokens": seq, "kernel_ms": busy_us / 1e3,
+                "kernels": n_k, "wall_ms": wall_ms,
+                "wall_ms_per_prefill": n_s * wall_ms,
+                "kernel_ms_per_prefill": n_s * busy_us / 1e3}}
+
+
+def _no_attention(tag, launches):
+    """An xLSTM path runs no attention kernel: their launches read 0."""
+    for name in ("paged_attention", "paged_prefill"):
+        if launches[name]:
+            _fail(f"{tag}: {name} launched on a model without attention")
+
+
+def run_xl_path(torch, registry, kernels, peaks):
+    """xlstm-1.3b at full width and depth (48 layers: 42 mlstm, 6 slstm;
+    layernorm, vocab 50304, untied head), random bf16 weights of seed 0,
+    data-free PTQ1.61 (``fuse=True``, which leaves the xLSTM projections
+    unfused as in the reference), served with whole-prompt prefill on
+    the paged tables (``[xl]``) and on the contiguous backend (``[xl
+    contiguous]``) on the prompts of phase 5; the device time of the
+    mLSTM state update and of the sLSTM scan (``[xl cells]``); ``[xl
+    long]``: 4 prompts of 2100-3000 tokens at max_seq 4096 on 4 paged
+    slots; ``[xl loss]`` on 2 x 512 tokens; chunked prefill refused with
+    the reference's ValueError; ``[xl serve]``, ``launch.serve.run
+    --arch xlstm-1.3b --quantize datafree --fused --paged``.  No path
+    launches an attention kernel."""
+    import numpy as np
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch.serve import parse_args, run
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+
+    cfg = xlstm(registry)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_params_data_free(
+        params, QuantConfig(ratio=0.2, multiple=16), min_dim=32, fuse=True)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    print(f"[xl] data-free quantization {t_quant:.2f}s", flush=True)
+    bits = check_moe_bits(qparams, 0.2, 16, "xl")
+    quantized = sum(e * k * n for e, k, n in _packed_shapes(qparams))
+    out = {}
+    for tag, kw in (("xl", WHOLE_PAGED), ("xl contiguous", WHOLE)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        engine, out[tag] = serve_prompts(torch, cfg, qparams, kernels,
+                                         ("mixed_matmul",), tag, kw)
+        _no_attention(tag, out[tag]["launches"])
+        out[tag]["decode_busy"] = decode_busy_share(torch, cfg, engine)
+        del engine
+        print(f"[{tag}] " + json.dumps(out[tag]), flush=True)
+    out["xl"].update(quantize_s=t_quant, quantized_weights=quantized,
+                     **bits)
+    cells = xlstm_costs(torch, cfg, qparams, peaks)
+    out["xl"]["cells"] = cells
+    print("[xl cells] device time of the mLSTM state update of an 8-slot "
+          "decode step and of the sLSTM scans of a 512-token prefill: "
+          + json.dumps(cells), flush=True)
+
+    # long prompts at a constant state
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=2))
+    rng = np.random.default_rng(2)
+    prompts = [corpus.document(30_000 + i, int(rng.integers(2100, 3000)))
+               for i in range(4)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, qparams, n_slots=4, max_seq=4096, seed=0,
+                    prefill_buckets=(2048, 4096), device="cuda", paged=True,
+                    page_size=16)
+    _, wave = serve_wave(torch, cfg, engine, prompts, kernels,
+                         ("mixed_matmul",), "xl long")
+    _no_attention("xl long", wave["launches"])
+    shapes = engine.metrics.snapshot()["shape_step_s"]
+    out["xl long"] = {
+        "backend": engine.backend.name, "max_seq": 4096,
+        "prompt_tokens": [len(p) for p in prompts],
+        **{k: wave[k] for k in ("tokens_per_s", "ttft_mean_s", "ttft_p95_s",
+                                "decode_step_ms", "decode_steps",
+                                "launches", "peak_pages")},
+        "prefill_ms_4096": {
+            "first_ms": 1e3 * shapes["prefill_compile@4096"]["mean_s"],
+            "mean_ms_after_first": 1e3 * shapes["prefill@4096"]["mean_s"]
+            if "prefill@4096" in shapes else None},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del engine
+    print("[xl long] " + json.dumps(out["xl long"]), flush=True)
+
+    for k in kernels.values():
+        k.launches = 0
+    out["xl loss"] = run_loss(torch, cfg, qparams)
+    out["xl loss"]["launches"] = {n: k.launches for n, k in kernels.items()}
+    if out["xl loss"]["launches"]["mixed_matmul"] <= 0:
+        _fail("xl loss: kernel mixed_matmul was not launched")
+    print("[xl loss] forward_loss of the data-free xlstm-1.3b: "
+          + json.dumps(out["xl loss"]), flush=True)
+    try:
+        Engine(cfg, qparams, paged=True, chunked_prefill=True, device="cuda")
+    except ValueError as e:
+        if "recurrent cells carry sequential state" not in str(e):
+            _fail(f"xl: chunked prefill refused with another message: {e}")
+        print(f"[xl chunked] refused: {e}", flush=True)
+    else:
+        _fail("xl: the engine took chunked prefill on an xLSTM model")
+    del qparams
+    torch.cuda.empty_cache()
+    for k in kernels.values():
+        k.launches = 0
+    served = run(parse_args(["--arch", XL_ARCH, "--quantize", "datafree",
+                             "--fused", "--paged", "--max-new", "8"]))
+    launches = {name: k.launches for name, k in kernels.items()}
+    if not served["all_done"] or served["cache_backend"] != "paged":
+        _fail("xl serve: not every request finished on the paged backend")
+    if launches["mixed_matmul"] <= 0:
+        _fail("xl serve: kernel mixed_matmul was not launched")
+    _no_attention("xl serve", launches)
+    m = served["engine_metrics"]
+    out["xl serve"] = {k: served[k] for k in (
+        "requests", "generated_tokens", "tokens_per_s", "bits_per_weight",
+        "cache_backend", "quantize_s")}
+    out["xl serve"].update(ttft_mean_s=m["ttft_mean_s"],
+                           tbt_p50_s=m["tbt_p50_s"], launches=launches)
+    print("[xl serve] " + json.dumps(out["xl serve"]), flush=True)
+    return out, cfg
+
+
+def run_xl_calibrated(torch, cfg, kernels, peaks) -> dict:
+    """xlstm-1.3b quantized with calibrated PTQ1.61 at the serve defaults
+    (4 segments of 64 tokens, 3 epochs; the Eq.-7 learning takes its
+    gradients through the chunkwise mLSTM and the sLSTM scan's autograd
+    Function); every block's loss before and after learning (none may
+    rise); the projections of its first mlstm and first slstm layer held
+    against the plain version at the rows the served path gives them
+    (8-slot decode, buckets 256 and 512); then served on the paged
+    tables with whole-prompt prefill, as ``[xl]``."""
+    from repro_torch.core.pipeline import quantize_model_ptq161
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.launch.serve import parse_args
+    from repro_torch.models import model as M
+
+    d = parse_args([])
+    qcfg = QuantConfig(ratio=d.ratio, multiple=d.multiple, steps=d.opt_steps)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    calib = [{"tokens": torch.from_numpy(t).to("cuda")} for t, _ in
+             corpus.batches(1, d.calib_seq, d.calib_segments,
+                            split="calib")]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_model_ptq161(cfg, params, calib, qcfg,
+                                    min_dim=d.min_dim,
+                                    attn_chunk=d.attn_chunk,
+                                    block_losses=losses)
+    del params
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[xl calibrated] {len(losses)} blocks quantized in "
+          f"{t_quant:.1f}s, peak {peak:.2f} GB; Eq.-7 loss before -> after "
+          "per block: " + json.dumps(losses), flush=True)
+    raised = [i for i, (b, a) in enumerate(losses) if not a <= b]
+    if raised:
+        _fail(f"xl calibrated: learning raised the loss of blocks {raised}")
+    bits = check_moe_bits(qparams, d.ratio, d.multiple, "xl calibrated")
+    layer0 = qparams["stages"][0][0]
+    pattern = cfg.stages[0].pattern
+    projs = {f"{kind}.{name}": w
+             for kind in ("mlstm", "slstm")
+             for name, w in layer0[pattern.index(kind)]["cell"].items()
+             if hasattr(w, "w4")}
+    timer = Timer(torch)
+    cal_mm = check_mixed_matmul(torch, projs, timer, peaks,
+                                torch.Generator(device="cuda").manual_seed(16),
+                                ms=(8, 256, 512))
+    del timer
+    print("[xl calibrated mixed_matmul] " + json.dumps(cal_mm), flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, summary = serve_prompts(torch, cfg, qparams, kernels,
+                               ("mixed_matmul",), "xl calibrated",
+                               WHOLE_PAGED)
+    _no_attention("xl calibrated", summary["launches"])
+    summary.update(
+        quantize_s=t_quant, quantize_peak_gb=peak, block_losses=losses,
+        blocks=len(losses), layer0_mixed_matmul=cal_mm, **bits,
+        calibration={"segments": d.calib_segments, "seq": d.calib_seq,
+                     "steps": d.opt_steps, "ratio": d.ratio,
+                     "multiple": d.multiple})
+    return summary
+
+
 def _entry(name, replaces, checked, rows, launches, shape, source=None):
     """One kernel's entry of the ``kernels`` line: max error over every
     shape ``checked``, times summed over ``rows``, launches per path."""
@@ -2502,6 +2857,23 @@ def main() -> int:
                                   freed=(0, 150), f32=True)
     print(f"[rg paged_attention] (tolerance rtol {ATT_RTOL}, atol "
           f"{ATT_ATOL}, bf16 and f32) " + json.dumps(rg_pa), flush=True)
+    # xlstm's nine packed projections: K and N of 5504 = 43 x 128
+    xprojs = xl_projections(torch, registry.get(XL_ARCH),
+                            torch.Generator(device="cuda").manual_seed(17))
+    xl_mm = check_mixed_matmul(
+        torch, xprojs, timer, peaks,
+        torch.Generator(device="cuda").manual_seed(18), ms=XL_ROWS,
+        host=True)
+    for m in XL_ROWS:
+        rows = [r for r in xl_mm if r["M"] == m]
+        print(f"[xl mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
+              f"{MM_ATOL}) the 9 projections: kernel "
+              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
+              f"torch.matmul "
+              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
+              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
+              + json.dumps(rows), flush=True)
+    del xprojs
     spans = check_spans(torch, projs, timer, peaks,
                         torch.Generator(device="cuda").manual_seed(1))
     for name, rows in spans.items():
@@ -2576,6 +2948,19 @@ def main() -> int:
           "equal; " + json.dumps(check_small_calibrated(torch, registry,
                                                         RG_ARCH)),
           flush=True)
+    # and on reduced xlstm: the mLSTM's chunkwise form and in-place step,
+    # the sLSTM's loop and its autograd Function (calibration)
+    worst = check_small_reference(torch, registry, XL_ARCH)
+    print(f"[xl reference] reduced xlstm, f32: card vs CPU logits agree to "
+          f"{worst:.2e} (relative, limit {REF_RTOL})", flush=True)
+    print("[xl reference] reduced xlstm, f32, greedy tokens of the "
+          "contiguous, paged and shared-prefix whole-prompt engines, card = "
+          "CPU: " + json.dumps(check_small_engines(torch, XL_ARCH)),
+          flush=True)
+    print("[xl reference] reduced xlstm (its pattern twice), f32, calibrated "
+          "on the card and on the CPU: perm and packed bytes equal; "
+          + json.dumps(check_small_calibrated(torch, registry, XL_ARCH)),
+          flush=True)
 
     # -- 5. the data-free main path, then whole-prompt prefill -------------
     # from here on the packed matmul counts its launches by (M, K, N)
@@ -2624,9 +3009,9 @@ def main() -> int:
     moe_cal = run_moe_calibrated(torch, gcfg, kernels, path_kernels, peaks)
     print("[moe calibrated] " + json.dumps(moe_cal), flush=True)
     torch.cuda.empty_cache()
-    moe_base = run_moe_baselines(torch, gcfg, kernels,
-                                 moe["moe"]["bits_per_weight"],
-                                 moe["moe loss"]["loss"])
+    moe_base = run_model_baselines(torch, gcfg, kernels,
+                                   moe["moe"]["bits_per_weight"],
+                                   moe["moe loss"]["loss"], "moe")
     print("[moe baselines] " + json.dumps(moe_base), flush=True)
 
     # -- 9. the hybrid kinds: recurrentgemma-2b at full width and depth ----
@@ -2635,12 +3020,24 @@ def main() -> int:
     rg_cal = run_rg_calibrated(torch, rcfg, kernels, peaks)
     print("[rg calibrated] " + json.dumps(rg_cal), flush=True)
 
-    # -- 10. every packed-matmul shape of the paths was checked; the kernels
+    # -- 10. the xLSTM kinds: xlstm-1.3b at full width and depth ----------
+    torch.cuda.empty_cache()
+    xl, xcfg = run_xl_path(torch, registry, kernels, peaks)
+    xl_cal = run_xl_calibrated(torch, xcfg, kernels, peaks)
+    print("[xl calibrated] " + json.dumps(xl_cal), flush=True)
+    torch.cuda.empty_cache()
+    xl_base = run_model_baselines(torch, xcfg, kernels,
+                                  xl["xl"]["bits_per_weight"],
+                                  xl["xl loss"]["loss"], "xl")
+    print("[xl baselines] " + json.dumps(xl_base), flush=True)
+
+    # -- 11. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
-               + rg_cal["layer0_mixed_matmul"]}
+               + rg_cal["layer0_mixed_matmul"] + xl_mm
+               + xl_cal["layer0_mixed_matmul"]}
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
     if unchecked:
@@ -2649,8 +3046,8 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-9 was held against its plain version in phase 3, "
-          "6, 8 or 9; launches by shape: " + json.dumps(by_shape),
+          "at in phases 5-10 was held against its plain version in phase 3, "
+          "6, 8, 9 or 10; launches by shape: " + json.dumps(by_shape),
           flush=True)
     launches = {"datafree": summary["launches"],
                 "calibrated": cal_summary["launches"],
@@ -2676,7 +3073,14 @@ def main() -> int:
                 "rg long contiguous": rg["rg long contiguous"]["launches"],
                 "rg loss": rg["rg loss"]["launches"],
                 "rg serve": rg["rg serve"]["launches"],
-                "rg calibrated": rg_cal["launches"]}
+                "rg calibrated": rg_cal["launches"],
+                "xl": xl["xl"]["launches"],
+                "xl contiguous": xl["xl contiguous"]["launches"],
+                "xl long": xl["xl long"]["launches"],
+                "xl loss": xl["xl loss"]["launches"],
+                "xl serve": xl["xl serve"]["launches"],
+                "xl calibrated": xl_cal["launches"],
+                "xl baselines": xl_base["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -2684,11 +3088,12 @@ def main() -> int:
         _entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:158",
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
-               + rg_cal["layer0_mixed_matmul"]
+               + rg_cal["layer0_mixed_matmul"] + xl_mm
+               + xl_cal["layer0_mixed_matmul"]
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         dict(_entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:166",
-                    mm + mm_rows + moe_mm + rg_mm, gather, launches,
+                    mm + mm_rows + moe_mm + rg_mm + xl_mm, gather, launches,
                     "the perm gather (gather_kernel) of a decode call at "
                     "M=8, wqkv+wgu+wo+wd; one per mixed_matmul launch, "
                     "held through the product"),

@@ -9,18 +9,22 @@ a stream of requests through the continuous-batching engine.
         --arch granite-moe-1b-a400m --fused --paged --chunked-prefill
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --quantize datafree --fused --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch xlstm-1.3b --quantize datafree --fused --paged
 
 ``--quantize datafree`` ranks channels by |w| with analytic scales;
 ``--quantize calibrated`` runs the paper's method on
 ``--calib-segments`` synthetic segments of ``--calib-seq`` tokens
 (activation-driven mask, ``--opt-steps`` epochs of block-wise scale
 learning) and serves one unfused packed projection per weight;
-``--fused`` is ignored for it, as in ``repro.launch.serve``.  Dense, MoE
-and hybrid architectures are served (granite-moe-1b-a400m: the experts'
-gate and up projections fuse like the MLP's; recurrentgemma-2b: RG-LRU
-and windowed local blocks, whole-prompt prefill only, so
-``--chunked-prefill`` raises the reference's ``ValueError``); the xLSTM
-kinds raise ``NotImplementedError``.
+``--fused`` is ignored for it, as in ``repro.launch.serve``.  Dense, MoE,
+hybrid and xLSTM architectures are served (granite-moe-1b-a400m: the
+experts' gate and up projections fuse like the MLP's; recurrentgemma-2b:
+RG-LRU and windowed local blocks; xlstm-1.3b: mLSTM and sLSTM blocks,
+whose projections ``--fused`` leaves unfused, as the reference does).
+Models with recurrent blocks take whole-prompt prefill only, so
+``--chunked-prefill`` raises the reference's ``ValueError`` for them;
+encoder-decoder and frontend models raise ``NotImplementedError``.
 
 By default, as in ``repro.launch.serve``, requests are served from the
 contiguous ring caches with whole-prompt prefill, prompts left-padded to

@@ -1,24 +1,39 @@
-"""The Griffin RG-LRU block of RecurrentGemma (the RG-LRU half of
-``repro.models.recurrent``).
+"""Recurrent blocks (twin of ``repro.models.recurrent``): the Griffin
+RG-LRU block of RecurrentGemma and the xLSTM cells (mLSTM, sLSTM).
 
-    in-proj -> [causal depthwise conv -> RG-LRU] * gelu(gate) -> out-proj
+    RG-LRU: in-proj -> [causal depthwise conv -> RG-LRU] * gelu(gate)
+            -> out-proj
 
-The recurrence ``h_t = a_t * h_{t-1} + b_t`` is elementwise.  Over a
-whole sequence (calibration, the loss, whole-prompt prefill) it runs as
-a log-depth doubling scan in plain PyTorch: ceil(log2 S) rounds of
-``(a, b) <- (a * a_shift, a * b_shift + b)``, which autograd follows
+The RG-LRU recurrence ``h_t = a_t * h_{t-1} + b_t`` is elementwise.
+Over a whole sequence (calibration, the loss, whole-prompt prefill) it
+runs as a log-depth doubling scan in plain PyTorch: ceil(log2 S) rounds
+of ``(a, b) <- (a * a_shift, a * b_shift + b)``, which autograd follows
 (the Eq.-7 scale learning takes its gradients through it).  The
 reference leaves the scan to XLA's ``associative_scan``; the two sum in
-another order, so they agree to rounding, not bit for bit.  Decode is a
-single-step update of the carried state.
+another order, so they agree to rounding, not bit for bit.
+
+The mLSTM (matrix memory) runs a sequence chunkwise: within a chunk of
+``chunk`` positions a gated linear attention with the decay matrix
+masked to -inf above the diagonal before ``exp`` (the reference's
+``where(causal, exp(decay), 0)`` gives the same values, but its
+gradient is ``0 * inf`` there); across chunks the (dk x dv) state C and
+the normalizer n, in f32.  The sLSTM (scalar memory, block-diagonal
+recurrent matrices per head) is strictly sequential: a Python loop over
+the positions, wrapped in :class:`SLSTMScan`, an autograd Function whose
+backward walks the positions in reverse and takes the recurrent weight's
+gradient as one contraction at the end, as the reference's custom VJP.
+Decode is a single-step update of the carried state for every kind.
 
 Every weight matmul goes through :func:`repro_torch.models.linear.dense`,
-so ``w_x``, ``w_gate`` and ``w_out`` quantize; the block-diagonal gate
-weights ``w_inp`` / ``w_rec`` (RG_HEADS, hd, hd), the conv and ``lam``
-stay in floating point.
+so the projections quantize (``w_x``, ``w_gate``, ``w_out``; ``w_q``,
+``w_k``, ``w_v``; ``w_gates``, ``w_up``, ``w_down``); the block-diagonal
+gate weights ``w_inp`` / ``w_rec`` and ``r_gates``, the conv, ``lam``,
+the mLSTM's gate projection ``w_if`` and ``b_gates`` stay in floating
+point (``w_if`` and ``b_gates`` f32).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -157,3 +172,372 @@ def init_rglru_state(cfg: ArchConfig, batch: int, n_layers: int,
                              device=device),
             "conv": torch.zeros((n_layers, batch, cfg.conv_width - 1, r),
                                 dtype=CONV_STATE_DTYPE, device=device)}
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log sigmoid(x) = -softplus(-x), softplus as log(exp(x) + 1)
+    (``jax.nn.softplus``; torch's ``softplus`` turns linear above 20)."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory cell), chunkwise gated linear attention
+# ---------------------------------------------------------------------------
+def init_mlstm(cfg: ArchConfig) -> Tree:
+    d = cfg.d_model
+    m = int(cfg.mlstm_proj_factor * d)          # value / gate width
+    h = cfg.n_heads
+    return {
+        "w_q": P((d, d), "scaled"),
+        "w_k": P((d, d), "scaled"),
+        "w_v": P((d, m), "scaled"),
+        "w_gate": P((d, m), "scaled"),
+        "w_if": P((d, 2 * h), "scaled", torch.float32),
+        "w_out": P((m, d), "scaled"),
+    }
+
+
+def _mlstm_qkvg(cfg: ArchConfig, p: Tree, x: torch.Tensor):
+    """x (..., D) -> q, k (scaled by 1/sqrt(dk)), v per head in f32, the
+    output gate silu(x @ w_gate) in x's dtype, and the log input and
+    forget gates (..., H) in f32."""
+    h = cfg.n_heads
+    q = dense(x, p["w_q"])
+    k = dense(x, p["w_k"])
+    v = dense(x, p["w_v"])
+    g = F.silu(dense(x, p["w_gate"]))
+    shp = x.shape[:-1]
+    q = q.reshape(shp + (h, -1)).to(torch.float32)
+    k = k.reshape(shp + (h, -1)).to(torch.float32) / torch.tensor(
+        math.sqrt(q.shape[-1]), dtype=torch.float32, device=x.device)
+    v = v.reshape(shp + (h, -1)).to(torch.float32)
+    gates = (x.to(torch.float32) @ p["w_if"].to(torch.float32)).reshape(
+        shp + (2, h))
+    return (q, k, v, g, _log_sigmoid(gates[..., 0, :]),
+            _log_sigmoid(gates[..., 1, :]))
+
+
+def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+              state: Optional[Tree] = None, chunk: int = 256):
+    """The block over a whole sequence, chunk by chunk: x (B, S, D) ->
+    (out (B, S, D), {"c": (B, H, dk, dv), "n": (B, H, dk)} f32).  S must
+    be a multiple of min(chunk, S)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x)
+    dk, dv = q.shape[-1], v.shape[-1]
+    l = min(chunk, s)
+    assert s % l == 0, (s, l)
+    if state is None:
+        c = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=x.device)
+        n = torch.zeros((b, h, dk), dtype=torch.float32, device=x.device)
+    else:
+        c = state["c"].to(torch.float32)
+        n = state["n"].to(torch.float32)
+    above = ~torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    outs = []
+    for c0 in range(0, s, l):
+        qc, kc, vc = q[:, c0:c0 + l], k[:, c0:c0 + l], v[:, c0:c0 + l]
+        lic, lfc = log_i[:, c0:c0 + l], log_f[:, c0:c0 + l]
+        cum_f = torch.cumsum(lfc, dim=1)                    # (B, L, H)
+        # A[t, s] = exp(cum_f[t] - cum_f[s] + log_i[s]) for s <= t
+        decay = cum_f[:, :, None, :] - cum_f[:, None, :, :] + lic[:, None]
+        a = torch.exp(decay.masked_fill(above[None, :, :, None],
+                                        float("-inf")))
+        scores = torch.einsum("blhd,bmhd->blmh", qc, kc) * a
+        o_intra = torch.einsum("blmh,bmhv->blhv", scores, vc)
+        n_intra = torch.einsum("blmh,bmhd->blhd", a, kc)
+        # the carried state, decayed to each position
+        dec_t = torch.exp(cum_f)
+        o_inter = torch.einsum("blhd,bhdv->blhv", qc, c) * dec_t[..., None]
+        n_inter = torch.einsum("blhd,bhd->blh", qc, n) * dec_t
+        den = torch.abs(torch.einsum("blhd,blhd->blh", qc, n_intra)
+                        + n_inter)
+        outs.append((o_intra + o_inter)
+                    / torch.clamp_min(den, 1.0)[..., None])
+        # the state at the end of the chunk
+        tail = torch.exp(cum_f[:, -1:, :] - cum_f + lic)     # (B, L, H)
+        f_all = torch.exp(cum_f[:, -1])
+        c = c * f_all[:, :, None, None] + torch.einsum(
+            "blhd,blhv,blh->bhdv", kc, vc, tail)
+        n = n * f_all[:, :, None] + torch.einsum("blhd,blh->bhd", kc, tail)
+    o = torch.cat(outs, dim=1).reshape(b, s, h * dv).to(x.dtype)
+    return dense(o * g, p["w_out"]), {"c": c, "n": n}
+
+
+def mlstm_state_step_(c: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, log_i: torch.Tensor,
+                      log_f: torch.Tensor) -> torch.Tensor:
+    """The state arithmetic of one decode step, in place on the f32
+    state c (B, H, dk, dv), n (B, H, dk), in the reference's order (c * f
+    + i * (k ⊗ v)): q, k (B, H, dk), v (B, H, dv), log gates (B, H) ->
+    the normalized read-out (B, H, dv)."""
+    i_t = torch.exp(log_i)[..., None, None]
+    f_t = torch.exp(log_f)[..., None, None]
+    kv = k[..., :, None] * v[..., None, :]
+    c.mul_(f_t).add_(kv.mul_(i_t))
+    del kv
+    n.mul_(f_t[..., 0]).add_(i_t[..., 0] * k)
+    num = torch.einsum("bhd,bhdv->bhv", q, c)
+    den = torch.abs(torch.einsum("bhd,bhd->bh", q, n))
+    return num / torch.clamp_min(den, 1.0)[..., None]
+
+
+def mlstm_step_(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                c: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """One decode step that updates the f32 state in place: x (B, 1, D),
+    c (B, H, dk, dv), n (B, H, dk) -> out (B, 1, D)."""
+    q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x)
+    o = mlstm_state_step_(c, n, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
+                          log_f[:, 0])
+    return dense(o.reshape(x.shape[0], 1, -1).to(x.dtype) * g, p["w_out"])
+
+
+def mlstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree):
+    """One decode step: x (B, 1, D), state {c, n} -> (out (B, 1, D), the
+    new f32 state); the state given is left as it was."""
+    c = state["c"].to(torch.float32, copy=True)
+    n = state["n"].to(torch.float32, copy=True)
+    return mlstm_step_(cfg, p, x, c, n), {"c": c, "n": n}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory cell, block-diagonal recurrence) and its gated FFN
+# ---------------------------------------------------------------------------
+SLSTM_STATE = ("h", "c", "n", "m")
+
+
+def init_slstm(cfg: ArchConfig) -> Tree:
+    d = cfg.d_model
+    h = cfg.n_heads
+    hd = d // h
+    f = int(round(cfg.slstm_ff_factor * d / 128) * 128)
+    return {
+        "w_gates": P((d, 4 * d), "scaled"),
+        "r_gates": P((4, h, hd, hd), "scaled"),
+        "b_gates": P((4 * d,), "zeros", torch.float32),
+        "w_up": P((d, f), "scaled"),
+        "w_gate": P((d, f), "scaled"),
+        "w_down": P((f, d), "scaled"),
+    }
+
+
+def _cell_nopar(cfg: ArchConfig, pre: torch.Tensor, st: Tree) -> Tree:
+    """One sLSTM step from its pre-activations pre (B, 4D) = zx + R·h +
+    b (gates z, i, f, o), stabilized by the running max m; no weights."""
+    zi, ii, fi, oi = pre.to(torch.float32).chunk(4, dim=-1)
+    z = torch.tanh(zi)
+    o = torch.sigmoid(oi)
+    log_i = _log_sigmoid(ii)
+    log_f = _log_sigmoid(fi)
+    m_new = torch.maximum(log_f + st["m"], log_i)
+    i_s = torch.exp(log_i - m_new)
+    f_s = torch.exp(log_f + st["m"] - m_new)
+    c = f_s * st["c"] + i_s * z
+    n = torch.clamp_min(f_s * st["n"] + i_s, 1e-6)
+    return {"h": o * (c / n), "c": c, "n": n, "m": m_new}
+
+
+def _slstm_cell(cfg: ArchConfig, p: Tree, zx: torch.Tensor, st: Tree
+                ) -> Tree:
+    """One timestep: zx (B, 4D), the input's contribution; the recurrent
+    term through the (4, H, hd, hd) blocks of ``r_gates``."""
+    b, d = zx.shape[0], zx.shape[1] // 4
+    hh = st["h"].reshape(b, cfg.n_heads, -1)
+    rec = torch.einsum("bhd,ghde->bghe", hh,
+                       p["r_gates"].to(torch.float32)).reshape(b, 4 * d)
+    pre = zx.to(torch.float32) + rec + p["b_gates"].to(torch.float32)
+    return _cell_nopar(cfg, pre, st)
+
+
+def _slstm_scan_ref(cfg: ArchConfig, p_rec: Tree, zx: torch.Tensor,
+                    state: Tree):
+    """Plain-autograd scan (the oracle of :class:`SLSTMScan`): zx
+    (B, T, 4D) -> (final state, hs (B, T, D))."""
+    hs = []
+    for t in range(zx.shape[1]):
+        state = _slstm_cell(cfg, p_rec, zx[:, t], state)
+        hs.append(state["h"])
+    return state, torch.stack(hs, dim=1)
+
+
+def _rec_term(rgF: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """R·h with the weight laid out once as (H, hd, 4·hd): h (B, D) ->
+    (B, 4D) in the (gate, head, e) order of the pre-activations."""
+    b = h.shape[0]
+    nh = rgF.shape[0]
+    rec = torch.einsum("bhd,hdk->bhk", h.reshape(b, nh, -1), rgF)
+    return rec.reshape(b, nh, 4, -1).transpose(1, 2).reshape(b, -1)
+
+
+def _rg_fwd_layout(r_gates: torch.Tensor) -> torch.Tensor:
+    """(g, h, hd, he) -> (h, hd, g·he)."""
+    g, h, d, e = r_gates.shape
+    return r_gates.to(torch.float32).permute(1, 2, 0, 3).reshape(h, d, g * e)
+
+
+def _rg_bwd_layout(r_gates: torch.Tensor) -> torch.Tensor:
+    """(g, h, hd, he) -> (h, g·he, hd), for the gradient of h_{t-1}."""
+    g, h, d, e = r_gates.shape
+    return r_gates.to(torch.float32).permute(1, 0, 3, 2).reshape(h, g * e, d)
+
+
+def _scan_forward(cfg: ArchConfig, rgF: torch.Tensor, bg: torch.Tensor,
+                  zx: torch.Tensor, state: Tree, keep: bool):
+    """The f32 recurrence over zx (B, T, 4D).  Returns (final state, hs
+    (B, T, D), and with ``keep`` the per-step pre-activations (T, B, 4D)
+    and the states entering each step, stacked (T, B, D))."""
+    hs, pres, prev = [], [], {k: [] for k in SLSTM_STATE}
+    for t in range(zx.shape[1]):
+        pre = zx[:, t] + _rec_term(rgF, state["h"]) + bg
+        if keep:
+            pres.append(pre)
+            for k in SLSTM_STATE:
+                prev[k].append(state[k])
+        state = _cell_nopar(cfg, pre, state)
+        hs.append(state["h"])
+    saved = ((torch.stack(pres), {k: torch.stack(v) for k, v in prev.items()})
+             if keep else None)
+    return state, torch.stack(hs, dim=1), saved
+
+
+class SLSTMScan(torch.autograd.Function):
+    """The sLSTM scan with the reference's deferred weight gradient
+    (``repro.models.recurrent._slstm_scan_f32`` and its custom VJP):
+    the forward keeps each step's pre-activations and the states that
+    entered it; the backward walks the steps in reverse, taking each
+    step's VJP of :func:`_cell_nopar`, and forms dR = Σ_t h_{t-1} ⊗
+    dpre_t and db = Σ_t dpre_t as one contraction over (T, B) each.
+
+    apply(cfg, r_gates, b_gates, zx, h0, c0, n0, m0) -> (hs (B, T, D),
+    hN, cN, nN, mN), all f32; the gradients come back in the inputs'
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, cfg, r_gates, b_gates, zx, h0, c0, n0, m0):
+        rg = r_gates.to(torch.float32)
+        state = {"h": h0.to(torch.float32), "c": c0.to(torch.float32),
+                 "n": n0.to(torch.float32), "m": m0.to(torch.float32)}
+        state, hs, (pres, prev) = _scan_forward(
+            cfg, _rg_fwd_layout(rg), b_gates.to(torch.float32),
+            zx.to(torch.float32), state, keep=True)
+        ctx.cfg = cfg
+        ctx.dtypes = tuple(t.dtype for t in (r_gates, b_gates, zx, h0, c0,
+                                             n0, m0))
+        ctx.save_for_backward(rg, pres, *(prev[k] for k in SLSTM_STATE))
+        return (hs,) + tuple(state[k] for k in SLSTM_STATE)
+
+    @staticmethod
+    def backward(ctx, d_hs, *d_final):
+        rg, pres, *prev_l = ctx.saved_tensors
+        prev = dict(zip(SLSTM_STATE, prev_l))
+        cfg = ctx.cfg
+        g4, nh = rg.shape[0], rg.shape[1]
+        t_len, b = pres.shape[0], pres.shape[1]
+        rgB = _rg_bwd_layout(rg)
+        zeros = torch.zeros_like(prev["h"][0])
+        dst = {k: (zeros if d is None else d.to(torch.float32))
+               for k, d in zip(SLSTM_STATE, d_final)}
+        d_hs = (torch.zeros((b, t_len, zeros.shape[-1]), device=rg.device)
+                if d_hs is None else d_hs.to(torch.float32))
+        dpres = [None] * t_len
+        for t in reversed(range(t_len)):
+            dst = dict(dst, h=dst["h"] + d_hs[:, t])   # h_t feeds the output
+            with torch.enable_grad():
+                pre = pres[t].detach().requires_grad_(True)
+                st = {k: prev[k][t].detach().requires_grad_(True)
+                      for k in SLSTM_STATE}
+                out = _cell_nopar(cfg, pre, st)
+                grads = torch.autograd.grad(
+                    [out[k] for k in SLSTM_STATE],
+                    [pre] + [st[k] for k in SLSTM_STATE],
+                    [dst[k] for k in SLSTM_STATE], allow_unused=True)
+            dpre = grads[0]
+            dprev = {k: (torch.zeros_like(zeros) if gr is None else gr)
+                     for k, gr in zip(SLSTM_STATE, grads[1:])}
+            # dpre reaches h_{t-1} through the recurrent term too
+            dp_h = dpre.reshape(b, g4, nh, -1).transpose(1, 2).reshape(
+                b, nh, -1)
+            dh_rec = torch.einsum("bhk,hkd->bhd", dp_h, rgB).reshape(b, -1)
+            dst = dict(dprev, h=dprev["h"] + dh_rec)
+            dpres[t] = dpre
+        dpres = torch.stack(dpres)                          # (T, B, 4D)
+        # deferred weight gradients: one contraction over (T, B) each
+        hh_prev = prev["h"].reshape(t_len, b, nh, -1)
+        dp = dpres.reshape(t_len, b, g4, nh, -1)
+        d_rg = torch.einsum("tbhd,tbghe->ghde", hh_prev, dp)
+        d_bg = dpres.sum(dim=(0, 1))
+        d_zx = dpres.transpose(0, 1)
+        grads = [d_rg, d_bg, d_zx] + [dst[k] for k in SLSTM_STATE]
+        return (None,) + tuple(
+            gr.to(dt) if need else None
+            for gr, dt, need in zip(grads, ctx.dtypes,
+                                    ctx.needs_input_grad[1:]))
+
+
+def _slstm_scan(cfg: ArchConfig, p_rec: Tree, zx: torch.Tensor, state: Tree):
+    """zx (B, T, 4D), state {h, c, n, m} (B, D) -> (final state, hs
+    (B, T, D)) in f32.  Under autograd, when any input needs a gradient,
+    through :class:`SLSTMScan`; otherwise the same loop keeps nothing."""
+    args = (p_rec["r_gates"], p_rec["b_gates"], zx) + tuple(
+        state[k] for k in SLSTM_STATE)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        hs, *final = SLSTMScan.apply(cfg, *args)
+        return dict(zip(SLSTM_STATE, final)), hs
+    st = {k: state[k].to(torch.float32) for k in SLSTM_STATE}
+    st, hs, _ = _scan_forward(
+        cfg, _rg_fwd_layout(p_rec["r_gates"]),
+        p_rec["b_gates"].to(torch.float32), zx.to(torch.float32), st,
+        keep=False)
+    return st, hs
+
+
+def _slstm_ffn(p: Tree, hs: torch.Tensor) -> torch.Tensor:
+    up = _gelu(dense(hs, p["w_up"])) * dense(hs, p["w_gate"])
+    return dense(up, p["w_down"])
+
+
+def slstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+              state: Optional[Tree] = None):
+    """The block over a whole sequence: x (B, S, D) -> (out (B, S, D),
+    the final state {h, c, n, m} (B, D) f32).  The state starts at h = c
+    = m = 0, n = 1e-6."""
+    b, _, d = x.shape
+    zx = dense(x, p["w_gates"])                             # (B, S, 4D)
+    if state is None:
+        z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        state = {"h": z, "c": z, "n": z + 1e-6, "m": z}
+    state, hs = _slstm_scan(
+        cfg, {"r_gates": p["r_gates"], "b_gates": p["b_gates"]}, zx, state)
+    return _slstm_ffn(p, hs.to(x.dtype)), state
+
+
+def slstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree):
+    """One decode step: x (B, 1, D), state {h, c, n, m} (B, D) -> (out
+    (B, 1, D), the new state)."""
+    zx = dense(x, p["w_gates"])[:, 0]
+    state = _slstm_cell(cfg, p, zx, state)
+    return _slstm_ffn(p, state["h"][:, None].to(x.dtype)), state
+
+
+def init_recurrent_state(cfg: ArchConfig, kind: str, batch: int,
+                         n_layers: int, device="cpu"
+                         ) -> Dict[str, torch.Tensor]:
+    """Zero decode state of a stage's layers of a recurrent ``kind``,
+    stacked on a leading layer axis: rglru ``h`` (L, B, R) f32 and
+    ``conv`` (L, B, cw-1, R); mlstm ``c`` (L, B, H, dk, dv) and ``n``
+    (L, B, H, dk) f32; slstm ``h``, ``c``, ``n``, ``m`` (L, B, D) f32."""
+    d = cfg.d_model
+    if kind == "rglru":
+        return init_rglru_state(cfg, batch, n_layers, device)
+    if kind == "mlstm":
+        h = cfg.n_heads
+        dv = int(cfg.mlstm_proj_factor * d) // h
+        return {"c": torch.zeros((n_layers, batch, h, d // h, dv),
+                                 dtype=torch.float32, device=device),
+                "n": torch.zeros((n_layers, batch, h, d // h),
+                                 dtype=torch.float32, device=device)}
+    if kind == "slstm":
+        return {k: torch.zeros((n_layers, batch, d), dtype=torch.float32,
+                               device=device) for k in SLSTM_STATE}
+    raise ValueError(kind)

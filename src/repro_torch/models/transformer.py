@@ -1,23 +1,26 @@
-"""Transformer assembly (the ``dense``, ``moe``, ``local`` and
-``rglru`` kinds of ``repro.models.transformer``): the full-sequence
-forward (calibration, loss), whole-prompt prefill with its decode
-caches, decode over the contiguous ring caches, and the paged serving
-path.
+"""Transformer assembly (the decoder block kinds of
+``repro.models.transformer``: ``dense``, ``moe``, ``local``, ``rglru``,
+``mlstm`` and ``slstm``): the full-sequence forward (calibration, loss),
+whole-prompt prefill with its decode caches, decode over the contiguous
+ring caches, and the paged serving path.
 
 ``dense``, ``moe`` and ``local`` are attention blocks (``ATTN_KINDS``);
 a ``moe`` block's feed-forward is ``layers.apply_moe`` over stacked
 expert weights, and its full-sequence forward can report the router's
 load-balancing loss; a ``local`` block attends a sliding window of
-``cfg.local_window`` keys.  An ``rglru`` block is the Griffin recurrent
-block (``models.recurrent``) and the gated MLP; it carries per-slot
-state (``h``, ``conv``) instead of keys and values.
+``cfg.local_window`` keys.  The recurrent kinds (``models.recurrent``)
+carry per-slot state instead of keys and values: an ``rglru`` block is
+the Griffin recurrent block and the gated MLP (state ``h``, ``conv``);
+an ``mlstm`` block is the xLSTM matrix-memory cell alone (``c``, ``n``)
+and an ``slstm`` block the scalar-memory cell with its gated FFN (``h``,
+``c``, ``n``, ``m``).
 
 A stage's parameters are a list over its layers, each a tuple over the
 stage's block pattern.  Depth is a Python loop; a stage's caches are a
 tuple over the pattern of stacked tensors — ring caches ``(L, B, W,
 hkv, dh)`` with positions ``(L, B, W)``, page pools ``(L, P+1, ps, hkv,
-dh)``, recurrent state ``h`` ``(L, B, R)`` and ``conv`` ``(L, B, cw-1,
-R)`` at the decode batch — updated in place layer by layer.
+dh)``, recurrent state ``(L, B, ...)`` at the decode batch
+(``recurrent.init_recurrent_state``) — updated in place layer by layer.
 """
 from __future__ import annotations
 
@@ -32,14 +35,14 @@ from repro_torch.models import recurrent as R
 
 Tree = Any
 ATTN_KINDS = ("dense", "moe", "local")
-KINDS = ATTN_KINDS + ("rglru",)
+XLSTM_KINDS = ("mlstm", "slstm")
+KINDS = ATTN_KINDS + ("rglru",) + XLSTM_KINDS
 
 
 def _check_kind(kind: str) -> None:
+    """An unknown kind raises the reference's ``ValueError(kind)``."""
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; the port serves "
-            f"{KINDS} blocks")
+        raise ValueError(kind)
 
 
 def init_block(cfg: ArchConfig, kind: str) -> Tree:
@@ -47,6 +50,10 @@ def init_block(cfg: ArchConfig, kind: str) -> Tree:
     if kind == "rglru":
         return {"ln1": L.init_norm(cfg), "rec": R.init_rglru(cfg),
                 "ln2": L.init_norm(cfg), "mlp": L.init_mlp(cfg)}
+    if kind == "mlstm":
+        return {"ln1": L.init_norm(cfg), "cell": R.init_mlstm(cfg)}
+    if kind == "slstm":
+        return {"ln1": L.init_norm(cfg), "cell": R.init_slstm(cfg)}
     return {"ln1": L.init_norm(cfg), "attn": L.init_attention(cfg),
             "ln2": L.init_norm(cfg),
             "mlp": L.init_moe(cfg) if kind == "moe" else L.init_mlp(cfg)}
@@ -154,9 +161,13 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                attn_chunk: int = 1024,
                aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
     """One block over a whole sequence: x (B, S, D), positions (B, S)
-    -> x + attention (or the RG-LRU), then + MLP or MoE.  With ``aux``
-    given, a moe block appends its router's load-balancing loss to it."""
+    -> x + attention (or the RG-LRU), then + MLP or MoE; x + the xLSTM
+    cell for mlstm and slstm (whose FFN is inside the cell).  With
+    ``aux`` given, a moe block appends its router's load-balancing loss
+    to it."""
     _check_kind(kind)
+    if kind in XLSTM_KINDS:
+        return block_prefill(cfg, kind, p, x, positions, 0)[0]
     if kind == "rglru":
         h, _, _ = R.rglru_seq(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x))
         x = x + h
@@ -197,10 +208,17 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                   attn_chunk: int = 1024):
     """One block over a whole (left-padded) prompt.  Returns (x, cache):
     the ring cache {"k", "v": (B, W, hkv, dh), "p": (B, W)} of an
-    attention block, or an rglru block's final state {"h": (B, R),
-    "conv": (B, cw-1, R)}.  The recurrence runs over the padding too,
-    as in the reference."""
+    attention block, or a recurrent block's final state: rglru {"h":
+    (B, R), "conv": (B, cw-1, R)}, mlstm {"c", "n"}, slstm {"h", "c",
+    "n", "m"}.  The recurrence runs over the padding too, as in the
+    reference."""
     _check_kind(kind)
+    if kind == "mlstm":
+        h, state = R.mlstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x))
+        return x + h, state
+    if kind == "slstm":
+        h, state = R.slstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x))
+        return x + h, state
     if kind == "rglru":
         h, h_n, conv = R.rglru_seq(cfg, p["rec"],
                                    L.apply_norm(cfg, p["ln1"], x))
@@ -251,9 +269,27 @@ def _rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, cache: Tree,
     return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
 
 
+def _xlstm_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
+                cache: Tree, layer: int) -> torch.Tensor:
+    """One decode step of an mlstm or slstm block against its stacked
+    f32 state, written back at ``layer``: the mLSTM's (B, H, dk, dv)
+    matrix memory is updated where it lies."""
+    z = L.apply_norm(cfg, p["ln1"], x)
+    if kind == "mlstm":
+        return x + R.mlstm_step_(cfg, p["cell"], z, cache["c"][layer],
+                                 cache["n"][layer])
+    out, state = R.slstm_step(cfg, p["cell"], z,
+                              {k: v[layer] for k, v in cache.items()})
+    for k, v in state.items():
+        cache[k][layer] = v
+    return x + out
+
+
 def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                pos: torch.Tensor, cache: Tree, max_seq: int, layer: int):
     _check_kind(kind)
+    if kind in XLSTM_KINDS:
+        return _xlstm_step(cfg, kind, p, x, cache, layer), cache
     if kind == "rglru":
         return _rglru_step(cfg, p, x, cache, layer, promote=True), cache
     h, cache = L.attention_decode(
@@ -279,13 +315,14 @@ def init_stage_cache(cfg: ArchConfig, stage: Stage, batch: int,
                      max_seq: int, dtype=torch.bfloat16,
                      device="cpu") -> Tuple[Dict[str, torch.Tensor], ...]:
     """Empty decode caches for a stage: per pattern position
-    ``L.make_cache`` with every position -1, or an rglru block's zero
+    ``L.make_cache`` with every position -1, or a recurrent block's zero
     state at the decode batch."""
     out = []
     for kind in stage.pattern:
         _check_kind(kind)
-        if kind == "rglru":
-            out.append(R.init_rglru_state(cfg, batch, stage.repeats, device))
+        if kind not in ATTN_KINDS:
+            out.append(R.init_recurrent_state(cfg, kind, batch,
+                                              stage.repeats, device))
             continue
         c = L.make_cache(cfg, batch, _cache_window(cfg, kind, max_seq),
                          stage.repeats, dtype, device)
@@ -301,9 +338,13 @@ def block_step_paged(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                      pos: torch.Tensor, cache: Tree,
                      block_tables: torch.Tensor, context_lens: torch.Tensor,
                      layer: int):
-    """Paged variant of :func:`block_step` for attention blocks; an rglru
-    block keeps its per-slot state and steps as on the contiguous path."""
+    """Paged variant of :func:`block_step` for attention blocks; a
+    recurrent block keeps its per-slot state and steps as on the
+    contiguous path (an rglru block's conv state keeps its buffer's
+    dtype)."""
     _check_kind(kind)
+    if kind in XLSTM_KINDS:
+        return _xlstm_step(cfg, kind, p, x, cache, layer), cache
     if kind == "rglru":
         return _rglru_step(cfg, p, x, cache, layer, promote=False), cache
     h, cache = L.attention_decode_paged(
@@ -394,8 +435,10 @@ def init_stage_cache_paged(cfg: ArchConfig, stage: Stage, num_pages: int,
                            device="cpu", n_slots: int = 1
                            ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Attention blocks share one ``(num_pages, page_size)`` pool per
-    pattern position; an rglru block keeps per-slot state at the decode
-    batch ``n_slots`` (at its own dtypes, not the pools')."""
+    pattern position; a recurrent block keeps per-slot state at the
+    decode batch ``n_slots`` (at its own dtypes, not the pools').  A
+    stage of recurrent blocks alone has no pool: its requests still hold
+    pages in the engine's tables, as in the reference."""
     out = []
     for kind in stage.pattern:
         _check_kind(kind)
@@ -403,6 +446,6 @@ def init_stage_cache_paged(cfg: ArchConfig, stage: Stage, num_pages: int,
             out.append(L.make_paged_cache(cfg, num_pages, page_size,
                                           stage.repeats, dtype, device))
         else:
-            out.append(R.init_rglru_state(cfg, n_slots, stage.repeats,
-                                          device))
+            out.append(R.init_recurrent_state(cfg, kind, n_slots,
+                                              stage.repeats, device))
     return tuple(out)

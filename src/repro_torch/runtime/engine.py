@@ -1,5 +1,5 @@
 """Serving engine: continuous batching over contiguous or paged KV (the
-dense, moe, local and rglru subset of ``repro.runtime.engine``).
+decoder-only part of ``repro.runtime.engine``).
 
 A fixed decode batch of ``n_slots``; each slot holds one request and its
 own position, and one batched decode step advances every slot.  Two
@@ -38,13 +38,16 @@ as they happen (:meth:`Engine.subscribe`, :meth:`Engine.event_queue`);
 :meth:`Engine.run` drives ticks until the work drains;
 :meth:`Engine.cancel` aborts a request wherever it is.
 
-A recurrent (rglru) block keeps its state per decode slot on either
-backend: a whole-prompt prefill splices it into the slot, and a
-preempted request rebuilds it by prefilling its whole context again.
+A recurrent block (rglru, mlstm, slstm) keeps its state per decode slot
+on either backend: a whole-prompt prefill splices it into the slot, and
+a preempted request rebuilds it by prefilling its whole context again.
 Chunked prefill does not carry recurrent state across chunks, so the
 constructor refuses it for such models with the reference's
-``ValueError``.  Not ported yet, and refused with
-``NotImplementedError``: the mlstm and slstm kinds.
+``ValueError``.  A paged model with recurrent blocks alone (xLSTM) has
+no page pool on the device, yet its requests hold pages in the block
+tables and are admitted, preempted and freed by them, as in the
+reference.  Not ported yet, and refused with ``NotImplementedError``:
+encoder-decoder and frontend (vision, audio) models.
 """
 from __future__ import annotations
 
@@ -331,11 +334,11 @@ class Engine:
         state keeps its own dtypes on both backends.
         ``attn_chunk`` is the key chunk of whole-prompt prefill attention
         (the reference's ``Parallel.attn_chunk``)."""
-        kinds = {k for s in cfg.stages for k in s.pattern}
-        if not kinds <= set(T.KINDS):
+        if cfg.enc_dec or cfg.frontend:
             raise NotImplementedError(
-                f"block kinds {sorted(kinds - set(T.KINDS))} are not "
-                f"ported yet")
+                "encoder-decoder and frontend models are not ported yet: "
+                "the port serves decoder-only LMs")
+        kinds = {k for s in cfg.stages for k in s.pattern}
         if chunked_prefill:
             if not paged:
                 raise ValueError("chunked_prefill requires paged=True "

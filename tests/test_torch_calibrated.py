@@ -267,11 +267,15 @@ def test_block_full_matches_repro(subject, attn_chunk, window, softcap):
 
 
 def test_block_full_refuses_other_kinds(subject):
+    """Every block kind of the reference is ported; an unknown kind
+    raises the reference's ``ValueError(kind)``."""
     _, tcfg, _, tp, _ = subject
     x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(NotImplementedError):
-        TT.block_full(tcfg, "mlstm", tp["stages"][0][0][0], x,
+    with pytest.raises(ValueError, match="^conv$"):
+        TT.block_full(tcfg, "conv", tp["stages"][0][0][0], x,
                       torch.zeros(1, 4, dtype=torch.int32))
+    assert set(TT.KINDS) == {"dense", "moe", "local", "rglru", "mlstm",
+                             "slstm"}
 
 
 # ---------------------------------------------------------------------------

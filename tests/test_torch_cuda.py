@@ -533,3 +533,34 @@ def test_hybrid_engine_tokens_match_the_cpu(cuda, mode):
     toks = chip_smoke.small_engine_tokens(
         torch, (f"{mode}/cpu", f"{mode}/cuda"), arch=chip_smoke.RG_ARCH)
     assert toks[f"{mode}/cuda"] == toks[f"{mode}/cpu"]
+
+
+@pytest.mark.parametrize("mode", ["contiguous", "paged-whole",
+                                  "shared-whole"])
+def test_xlstm_engine_tokens_match_the_cpu(cuda, mode):
+    """Reduced xlstm-1.3b (mlstm and slstm blocks) in f32, data-free
+    quantized, served on the card (kernels) and on the CPU (plain
+    versions): the same greedy tokens in each whole-prompt engine mode
+    (``chip_smoke.small_engine_tokens``)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    toks = chip_smoke.small_engine_tokens(
+        torch, (f"{mode}/cpu", f"{mode}/cuda"), arch=chip_smoke.XL_ARCH)
+    assert toks[f"{mode}/cuda"] == toks[f"{mode}/cpu"]
+
+
+@pytest.mark.parametrize("k,n", [(5504, 2048), (2048, 5504)])
+def test_mixed_matmul_at_a_span_of_43_tiles(cuda, k, n):
+    """xlstm-1.3b's sLSTM FFN: K or N of 5504 = 43 x 128 (at K 5504 and
+    ratio 0.2, k_s 1104 and k_b 4400), at the row counts its paths give
+    the kernel."""
+    q = _qlinear(k, n, 0.2, seed=k + 1, device=cuda)
+    assert q.k_s == {5504: 1104, 2048: 416}[k]
+    for m in (1, 4, 8, 64, 512):
+        x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+        args = (x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
+                q.alpha_r2)
+        torch.testing.assert_close(
+            tmm.mixed_matmul(*args, perm=q.perm).float(),
+            ref.mixed_matmul_ref(*args, perm=q.perm), rtol=2 ** -7,
+            atol=1e-3)

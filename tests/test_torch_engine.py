@@ -98,15 +98,18 @@ def test_engine_greedy_tokens_match_repro_across_preemption(
 
 
 def test_engine_refuses_what_is_not_ported(subject):
-    """Block kinds other than dense, moe, local and rglru (xlstm's mlstm
-    and slstm) are not ported and raise NotImplementedError; the
-    reference's ValueErrors for modes that need the paged backend or
-    prefix sharing are kept."""
+    """Encoder-decoder and frontend models (seamless-m4t-medium,
+    llava-next-34b) are not ported: the engine's constructor raises
+    NotImplementedError for them on either backend, before it reads the
+    parameters; the reference's ValueErrors for modes that need the
+    paged backend or prefix sharing are kept."""
     _, _, tp = subject
-    for arch in ("xlstm-1.3b",):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TEngine(t_registry.get(arch).reduced(), tp, paged=True,
-                    device="cpu")
+    for arch in ("seamless-m4t-medium", "llava-next-34b"):
+        cfg = t_registry.get(arch).reduced()
+        assert cfg.enc_dec or cfg.frontend
+        for kw in (dict(), dict(paged=True)):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                TEngine(cfg, None, device="cpu", **kw)
     cfg = t_registry.get("tiny-lm").reduced()
     for kw in (dict(chunked_prefill=True), dict(prefix_sharing=True),
                dict(paged=True, prefix_retain_pages=4)):

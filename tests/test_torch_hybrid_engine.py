@@ -165,8 +165,9 @@ def test_prefix_sharing_on_a_hybrid_matches_repro(subject,
 
 def test_chunked_prefill_and_unported_kinds_are_refused(subject):
     """Chunked prefill on a hybrid raises the reference's ValueError,
-    word for word; the mlstm / slstm kinds still raise
-    NotImplementedError, with or without it."""
+    word for word; so it does on xlstm, whose mlstm / slstm kinds are
+    ported: without chunked prefill its engine builds on both
+    backends."""
     rcfg, tcfg, rp, tp, _ = subject
     kw = dict(paged=True, chunked_prefill=True, page_size=8,
               prefill_chunk=16)
@@ -176,10 +177,16 @@ def test_chunked_prefill_and_unported_kinds_are_refused(subject):
         TEngine(tcfg, tp, device="cpu", **kw)
     assert str(got.value) == str(want.value)
     assert "recurrent cells carry sequential state" in str(got.value)
+    xl_r = registry.get("xlstm-1.3b").reduced()
     xl = t_registry.get("xlstm-1.3b").reduced()
-    for extra in (dict(), dict(paged=True), kw):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TEngine(xl, tp, device="cpu", **extra)
+    xl_p = TM.init_params(xl, 0)
+    with pytest.raises(ValueError) as want:
+        REngine(xl_r, PAR, None, **kw)
+    with pytest.raises(ValueError) as got:
+        TEngine(xl, xl_p, device="cpu", **kw)
+    assert str(got.value) == str(want.value)
+    for extra in (dict(), dict(paged=True)):
+        assert TEngine(xl, xl_p, device="cpu", **extra).cfg is xl
 
 
 def test_prefill_bucket_moves_the_state_as_in_repro(subject,
