@@ -40,7 +40,14 @@ Phases, each of which raises on failure:
    (w_q, w_k 2048 x 2048, w_v, w_gate 2048 → 4096, w_out 4096 → 2048,
    w_gates 2048 → 8192, the sLSTM FFN's w_up, w_gate 2048 → 5504 and
    w_down 5504 → 2048: K and N of 43 x 128) at ``XL_ROWS`` (``[xl
-   mixed_matmul M=...]``);
+   mixed_matmul M=...]``); at seamless-m4t-medium's: its five packed
+   shapes (K 1024 with N 1024, 3072, 4096 and 8192; 4096 → 1024) at
+   ``S2T_ROWS``, the encoder's 8 x 1024 frame rows included (``[s2t
+   mixed_matmul M=...]``); and at llava-next-34b's: its fused layer
+   (wqkv 7168 → 9216, wgu 7168 → 40960, wo 7168², wd 20480 → 7168) at
+   ``VLM_ROWS`` (``[vlm mixed_matmul M=...]``) and both attention
+   kernels at GQA group 7, head dim 128 (``[vlm paged_attention]``,
+   ``[vlm paged_prefill]``, ``[vlm plan]``);
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
    gives the same logits within tolerance; the calibrated pipeline run
@@ -58,7 +65,13 @@ Phases, each of which raises on failure:
    recurrentgemma (``[rg reference]``: logits after a whole-prompt
    prefill, greedy tokens of the contiguous, paged and shared-prefix
    whole-prompt engines, calibrated bytes, each card = CPU); and on
-   reduced xlstm (``[xl reference]``, the same checks);
+   reduced xlstm (``[xl reference]``, the same checks); then reduced
+   seamless (``[s2t reference]``: the prefill logits over 40 encoder
+   frames, the cross K/V and 4 decode steps, each step on the card from
+   the CPU's caches) and reduced llava (``[vlm reference]``: the same
+   with 8 vision embeddings, and the greedy tokens of its engines), and
+   ``launch.serve.run --arch llava-next-34b --reduced`` through the
+   paged chunked-prefill engine (``[vlm serve]``);
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
@@ -140,8 +153,22 @@ Phases, each of which raises on failure:
    projections held against the plain version; served as ``[xl]``);
    rtn-2 and pbllm at full size (``[xl baselines]``).  The mLSTM and
    sLSTM cells are plain PyTorch, as the reference leaves them to XLA;
-11. check that every (M, K, N) the packed matmul launched at in phases
-   5-10 was held against its plain version in phase 3, 6, 8, 9 or 10, then
+11. the encoder-decoder inputs: seamless-m4t-medium at full width and
+   depth (12 encoder and 12 decoder layers, d 1024, vocab 256206),
+   random bf16 weights of seed 0, data-free fused PTQ1.61 (bits in
+   (1.5, 1.75)); the encoder over 1024 stub frames for 8 rows, prefill
+   of 8 prompts of 64 tokens, 32 greedy decode steps over the rings and
+   the cached cross K/V, the busy share of a decode step (``[s2t]``),
+   and ``forward_loss`` with frames (``[s2t loss]``); the engine
+   refuses the model, as the reference's cannot serve it;
+12. the vision-prefix inputs: llava-next-34b at full width and all 60
+   layers, built and quantized one layer at a time (data-free fused),
+   the model-level prefill of 8 rows of 576 stub vision embeddings and
+   64 text tokens and 16 decode steps beside the step's weight-read
+   bound (``[vlm model]``), then the engine on text prompts through
+   paged chunked prefill with all three kernels, as phase 5 (``[vlm]``);
+13. check that every (M, K, N) the packed matmul launched at in phases
+   5-12 was held against its plain version in phase 3, 6, 8, 9 or 10, then
    print the ``kernels`` JSON line (six entries, one per TPU kernel: the
    five wrappers and the perm gather of ``mixed_matmul``) and the result
    line.
@@ -223,12 +250,38 @@ RG_ATT_LENS = (3000, 2600, 2049, 2048, 1500, 700, 64, 0)
 # ``[xl long]``), the loss's 2 x 512; M = 1 besides.
 XL_ARCH = "xlstm-1.3b"
 XL_ROWS = (1, 4, 8, 16, 64, 256, 512, 1024, 4096)
+# The encoder-decoder phase's model and what it runs: 8 rows of
+# ``models.model.ENC_FRAMES`` (1024) stub frames, prompts of S2T_PROMPT
+# tokens and S2T_STEPS decode steps; the packed matmul's rows: 8-row
+# decode, the 8 prompts (prefill and the loss) and the encoder's 8 x
+# 1024 frames (the encoder and the cross-attention's K/V).
+S2T_ARCH = "seamless-m4t-medium"
+S2T_PROMPT, S2T_STEPS = 64, 32
+S2T_ROWS = (8, 512, 8192)
+# The vision-prefix phase's model and what it runs: all 60 layers, 8
+# rows of VLM_VISION stub vision embeddings and VLM_TEXT text tokens,
+# VLM_STEPS decode steps; the packed matmul's rows: 8-slot decode, the
+# engine's 64-token chunks and the 8 x 640 rows of the model's prefill.
+VLM_ARCH = "llava-next-34b"
+VLM_DEPTH, VLM_VISION, VLM_TEXT, VLM_STEPS = 60, 576, 64, 16
+VLM_ROWS = (8, 64, 5120)
 # packed projections per block kind (an attention block's 7)
 KIND_PROJECTIONS = {"rglru": 6, "mlstm": 5, "slstm": 4}
 
 
 def _fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def _launches(kernels) -> dict:
+    """Each wrapper's launch count, by kernel name."""
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def _reset(kernels) -> None:
+    """Set every wrapper's launch count to 0."""
+    for k in kernels.values():
+        k.launches = 0
 
 
 def nvidia_smi() -> str:
@@ -355,6 +408,19 @@ def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64),
             del dense
             rows.append(row)
     return rows
+
+
+def print_rows(tag: str, what: str, rows, ms) -> None:
+    """One ``[tag M=m]`` line per row count of ``ms``: the summed kernel,
+    dense ``torch.matmul`` and bound times of ``what``, then the rows."""
+    for m in ms:
+        at = [r for r in rows if r["M"] == m]
+        print(f"[{tag} M={m}] (tolerance rtol {MM_RTOL}, atol {MM_ATOL}) "
+              f"{what}: kernel {sum(r['ms'] for r in at) * 1e3:.1f} us, "
+              f"dense bf16 torch.matmul "
+              f"{sum(r['library_ms'] for r in at) * 1e3:.1f} us, bound "
+              f"{sum(r['bound_ms'] for r in at) * 1e3:.1f} us; "
+              + json.dumps(at), flush=True)
 
 
 # Ragged and one-sided shapes the packing allows: (K, N, k_s) with k_s
@@ -1244,14 +1310,13 @@ def serve_wave(torch, cfg, engine, prompts, kernels, path_kernels, tag: str,
     be = engine.backend
     engine.metrics = EngineMetrics()
     calls0 = getattr(be, "prefill_chunk_calls", 0)
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     reqs = [engine.submit(p, max_new=max_new) for p in prompts]
     t0 = time.perf_counter()
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     if not all(r.done for r in reqs):
         _fail(f"{tag}: not every request finished")
     if any(len(r.out_tokens) != max_new for r in reqs):
@@ -1365,6 +1430,31 @@ def _kernel_time(prof):
     return busy, by_kind, len(kernels)
 
 
+def step_busy_share(torch, step, steps: int = 4) -> dict:
+    """Device-busy share of ``steps`` calls of ``step`` (one decode step
+    each): timed on the host's clock, then again under torch.profiler
+    for the CUDA kernels' intervals; kernel union over wall time, per
+    step, with the card synchronized."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    busy_us, by_kind, n = _kernel_time(prof)
+    return {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+            "kernel_ms_per_step": busy_us / steps / 1e3,
+            "device_busy_share": busy_us / wall_us if n else None,
+            "kernel_ms_per_step_by_kind": {k: v / steps / 1e3
+                                           for k, v in by_kind.items()},
+            "kernels_per_step": n / steps}
+
+
 def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
     """Device-busy share of a data-free decode step at 8 slots: 8 prompts
     of 256 tokens are admitted and prefilled; then ``steps`` engine ticks
@@ -1373,32 +1463,15 @@ def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
     (the profiler slows the host).  The share is the union of the kernel
     intervals over the unprofiled wall time, both per step with the card
     synchronized."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=1))
     reqs = [engine.submit(corpus.document(20_000 + i, 256),
                           max_new=2 * steps + 4) for i in range(8)]
     while not all(r.out_tokens for r in reqs):
         engine.tick()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        engine.tick()
-    torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            engine.tick()
-        torch.cuda.synchronize()
+    busy = step_busy_share(torch, engine.tick, steps)
     engine.run()
-    busy_us, by_kind, n = _kernel_time(prof)
-    return {"steps": steps, "slots": 8, "context_tokens": 256,
-            "wall_ms_per_step": wall_us / steps / 1e3,
-            "kernel_ms_per_step": busy_us / steps / 1e3,
-            "device_busy_share": busy_us / wall_us if n else None,
-            "kernel_ms_per_step_by_kind": {k: v / steps / 1e3
-                                           for k, v in by_kind.items()},
-            "kernels_per_step": n / steps}
+    return {"slots": 8, "context_tokens": 256, **busy}
 
 
 def prefill_busy_share(torch, cfg, qparams, buckets=(256, 512),
@@ -1639,8 +1712,7 @@ def run_preprocess(torch, cfg, qparams, kernels) -> dict:
     pcfg = PreprocessConfig(rank=16, steps=PREPROCESS_STEPS, lr=3e-4)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     params = M.init_params(cfg, seed=0, device="cuda")
     losses = []
     torch.cuda.synchronize()
@@ -1671,7 +1743,7 @@ def run_preprocess(torch, cfg, qparams, kernels) -> dict:
     bits_orig = check_bits(qparams, "preprocess original")
     loss_pre = run_loss(torch, cfg, qpre)
     loss_orig = run_loss(torch, cfg, qparams)
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     if launches["mixed_matmul"] <= 0:
         _fail("preprocess: kernel mixed_matmul was not launched")
     del qpre
@@ -1716,8 +1788,7 @@ def run_baselines(torch, cfg, kernels, ptq_bits: float, ptq_loss: float
               for leaves in lp[0].values() if isinstance(leaves, dict)
               for x in leaves.values() if x.ndim == 2]
     n_w = sum(k * n for k, n in shapes)
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     rows, layer0 = {}, {}
     for method in BASELINES:
         torch.cuda.empty_cache()
@@ -1742,7 +1813,7 @@ def run_baselines(torch, cfg, kernels, ptq_bits: float, ptq_loss: float
               f"bits/weight, loss {loss:.4f}", flush=True)
         if not math.isfinite(loss):
             _fail(f"baselines: {method}'s loss is {loss}")
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     if any(launches.values()):
         _fail(f"baselines: fake-quant models launched packed kernels: "
               f"{launches}")
@@ -1771,11 +1842,10 @@ def run_serve_default(torch, kernels) -> dict:
     max_seq 128): LLaMA-7B data-free with fused projections, 8 new
     tokens per request; it builds and quantizes its own weights."""
     from repro_torch.launch.serve import parse_args, run
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     out = run(parse_args(["--arch", "llama-7b", "--quantize", "datafree",
                           "--fused", "--max-new", "8"]))
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     if not out["all_done"]:
         _fail("serve-default: not every request finished")
     if out["cache_backend"] != "contiguous":
@@ -1798,13 +1868,12 @@ def run_serve_share_prefix(torch, kernels) -> dict:
     64-token common prefix by the reference's rule): every request must
     finish, the prefix cache must hit, and no page is copied."""
     from repro_torch.launch.serve import parse_args, run
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     out = run(parse_args(["--arch", "llama-7b", "--quantize", "datafree",
                           "--fused", "--paged", "--chunked-prefill",
                           "--share-prefix", "--prefix-retain", "16",
                           "--max-seq", "512", "--max-new", "8"]))
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     st = out["prefix_sharing"]
     if not out["all_done"]:
         _fail("serve-share-prefix: not every request finished")
@@ -2027,10 +2096,9 @@ def run_moe_path(torch, registry, kernels, path_kernels, peaks):
     out["moe whole"]["decode_busy"] = decode_busy_share(torch, cfg, engine)
     del engine
     print("[moe whole] " + json.dumps(out["moe whole"]), flush=True)
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     out["moe loss"] = run_loss(torch, cfg, qparams)
-    out["moe loss"]["launches"] = {n: k.launches for n, k in kernels.items()}
+    out["moe loss"]["launches"] = _launches(kernels)
     if out["moe loss"]["launches"]["mixed_matmul"] <= 0:
         _fail("moe loss: kernel mixed_matmul was not launched")
     print("[moe loss] forward_loss of the data-free granite (with 0.01 x "
@@ -2125,8 +2193,7 @@ def run_model_baselines(torch, cfg, kernels, ptq_bits: float,
         (math.prod(x.shape[:-2]), x.shape[-2], x.shape[-1]))
         if is_quantizable(path, x, 64) else None)
     n_w = sum(e * k * n for e, k, n in shapes)
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     rows = {}
     for method in methods:
         torch.cuda.empty_cache()
@@ -2149,7 +2216,7 @@ def run_model_baselines(torch, cfg, kernels, ptq_bits: float,
               f"{loss:.4f}", flush=True)
         if not math.isfinite(loss):
             _fail(f"{tag} baselines: {method}'s loss is {loss}")
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     if any(launches.values()):
         _fail(f"{tag} baselines: fake-quant models launched packed "
               f"kernels: {launches}")
@@ -2299,10 +2366,9 @@ def run_rg_path(torch, registry, kernels, peaks):
         del engine
         print(f"[{tag}] " + json.dumps(out[tag]), flush=True)
 
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     out["rg loss"] = run_loss(torch, cfg, qparams)
-    out["rg loss"]["launches"] = {n: k.launches for n, k in kernels.items()}
+    out["rg loss"]["launches"] = _launches(kernels)
     if out["rg loss"]["launches"]["mixed_matmul"] <= 0:
         _fail("rg loss: kernel mixed_matmul was not launched")
     print("[rg loss] forward_loss of the data-free recurrentgemma-2b: "
@@ -2316,11 +2382,10 @@ def run_rg_path(torch, registry, kernels, peaks):
         _fail("rg: the engine took chunked prefill on a recurrent model")
     del qparams
     torch.cuda.empty_cache()
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     served = run(parse_args(["--arch", RG_ARCH, "--quantize", "datafree",
                              "--fused", "--paged", "--max-new", "8"]))
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     if not served["all_done"] or served["cache_backend"] != "paged":
         _fail("rg serve: not every request finished on the paged backend")
     for name in ("mixed_matmul", "paged_attention"):
@@ -2593,10 +2658,9 @@ def run_xl_path(torch, registry, kernels, peaks):
     del engine
     print("[xl long] " + json.dumps(out["xl long"]), flush=True)
 
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     out["xl loss"] = run_loss(torch, cfg, qparams)
-    out["xl loss"]["launches"] = {n: k.launches for n, k in kernels.items()}
+    out["xl loss"]["launches"] = _launches(kernels)
     if out["xl loss"]["launches"]["mixed_matmul"] <= 0:
         _fail("xl loss: kernel mixed_matmul was not launched")
     print("[xl loss] forward_loss of the data-free xlstm-1.3b: "
@@ -2611,11 +2675,10 @@ def run_xl_path(torch, registry, kernels, peaks):
         _fail("xl: the engine took chunked prefill on an xLSTM model")
     del qparams
     torch.cuda.empty_cache()
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     served = run(parse_args(["--arch", XL_ARCH, "--quantize", "datafree",
                              "--fused", "--paged", "--max-new", "8"]))
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _launches(kernels)
     if not served["all_done"] or served["cache_backend"] != "paged":
         _fail("xl serve: not every request finished on the paged backend")
     if launches["mixed_matmul"] <= 0:
@@ -2698,6 +2761,381 @@ def run_xl_calibrated(torch, cfg, kernels, peaks) -> dict:
                      "steps": d.opt_steps, "ratio": d.ratio,
                      "multiple": d.multiple})
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Phases 11 and 12: the encoder-decoder and vision-prefix inputs
+# ---------------------------------------------------------------------------
+def _synced(torch, fn):
+    """(fn's result, its wall ms with the card synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _rel_gap(torch, a, r) -> float:
+    """Largest gap of ``a`` (card) from ``r`` (CPU) over the CPU's
+    largest magnitude (at least 1)."""
+    a, r = a.float().cpu(), r.float().cpu()
+    if not torch.isfinite(a).all():
+        _fail("non-finite values on the card")
+    return (a - r).abs().max().item() / max(1.0, r.abs().max().item())
+
+
+def check_small_prefix_model(torch, registry, arch: str) -> dict:
+    """``arch`` reduced (f32, data-free fused) on the card and on the
+    CPU from the same weights: the logits of a whole-prompt ``prefill``
+    of 2 rows with its stub input (seamless: 40 frames for its encoder;
+    llava: 8 vision embeddings over the first token positions), the
+    cross K/V it caches (seamless), and the logits of 4 ``decode_step``s
+    over the contiguous rings, each step on the card from the CPU's
+    caches of that step (a packed product that rounds its operands to
+    bf16 turns an f32 gap of 1e-7 at a rounding boundary into one bf16
+    ulp, which the carried caches would keep; from the same caches each
+    step compares the kernels).  Every gap relative to the CPU's largest
+    magnitude, within ``REF_RTOL``."""
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.core.select import map_tree
+    from repro_torch.models import model as M
+    from repro_torch.models.param import tree_to
+    cfg = registry.get(arch).reduced()
+    p = tree_to(M.init_params(cfg, 0, "cpu"), float_dtype=torch.float32)
+    p = quantize_params_data_free(p, QuantConfig(ratio=0.25, multiple=16),
+                                  min_dim=32, fuse=True)
+    g = torch.Generator().manual_seed(2)
+    b, s, steps, max_seq = 2, 45, 4, 64
+    seq = torch.randint(1, cfg.vocab, (b, s + steps), generator=g,
+                        dtype=torch.int32)
+    extra = ({"frames": torch.randn((b, 40, cfg.d_model), generator=g)}
+             if cfg.enc_dec else
+             {"vision_embeds": 0.02 * torch.randn(
+                 (b, cfg.frontend_tokens, cfg.d_model), generator=g)})
+    out = {}
+    cpu_caches = []
+    for dev in ("cpu", "cuda"):
+        pd = tree_to(p, dev)
+        batch = {"tokens": seq[:, :s].to(dev),
+                 **{k: v.to(dev) for k, v in extra.items()}}
+        logits, caches = M.prefill(cfg, pd, batch, max_seq)
+        res = {"prefill": logits[:, 0]}
+        if cfg.enc_dec:
+            res.update(xk=caches[0][0]["xk"], xv=caches[0][0]["xv"])
+        for i, pos in enumerate(range(s, s + steps)):
+            if dev == "cpu":
+                cpu_caches.append(map_tree(caches, lambda _, t: t.clone()))
+            else:
+                caches = tree_to(cpu_caches[i], dev)
+            pos_t = torch.full((b,), pos, dtype=torch.int32, device=dev)
+            res[f"step{i}"], caches = M.decode_step(
+                cfg, pd, seq[:, pos].to(dev), pos_t, caches, max_seq)
+        out[dev] = res
+    gaps = {k: _rel_gap(torch, out["cuda"][k], out["cpu"][k])
+            for k in out["cpu"]}
+    if max(gaps.values()) > REF_RTOL:
+        _fail(f"{arch} reduced: card vs CPU differ (relative): {gaps}")
+    return gaps
+
+
+def s2t_projections(torch, cfg, gen):
+    """seamless-m4t-medium's packed projections as data-free fused
+    PTQ1.61 quantizes them: the decoder's fused wqkv (1024 -> 3072) and
+    wgu (1024 -> 8192), wo and the cross-attention's four (1024 x 1024),
+    wd (4096 -> 1024); the encoder's unfused wq, wk, wv, wo (1024 x
+    1024), wg, wu (1024 -> 4096) and wd."""
+    from repro_torch.core.qlinear import QuantConfig, quantize_linear
+    projs = llama_projections(torch, cfg, gen)
+    w = (torch.randn((cfg.d_model, cfg.d_ff), generator=gen, device="cuda")
+         / math.sqrt(cfg.d_model)).to(torch.bfloat16)
+    projs["enc.wg"] = quantize_linear(w, None, QuantConfig(ratio=0.2,
+                                                           multiple=16))
+    return projs
+
+
+def run_s2t_path(torch, registry, kernels, peaks) -> dict:
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers with cross-attention; d 1024, 16 heads of 64, gated
+    gelu 4096, layernorm, vocab 256206 padded to 256256, untied head),
+    random bf16 weights of seed 0, data-free fused PTQ1.61 (the
+    decoder's QKV and gate+up fused; the encoder's and the
+    cross-attention's projections one by one, as the reference): the
+    encoder over ``model.ENC_FRAMES`` stub frames (from the seed) for 8
+    rows, ``prefill`` of 8 prompts of ``S2T_PROMPT`` tokens with those frames,
+    ``S2T_STEPS`` greedy ``decode_step``s over the rings and the cached
+    cross K/V, the device-busy share of 4 more steps, and
+    ``forward_loss`` with the frames.  The engine refuses the model, as
+    the reference's cannot serve it; every product runs the packed
+    matmul, attention is plain PyTorch (ring decode, as the reference's
+    XLA)."""
+    import numpy as np
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.models import model as M
+    from repro_torch.runtime.engine import Engine
+    cfg = registry.get(S2T_ARCH)
+    print(f"[s2t] {S2T_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} "
+          f"d_ff={cfg.d_ff} ({cfg.act}) norm={cfg.norm} vocab={cfg.vocab} "
+          f"(padded {cfg.vocab_padded}) encoder layers={cfg.n_enc_layers} "
+          f"decoder layers={cfg.n_layers}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    n_params = _n_params(torch, params)
+    qparams, t_quant = _synced(torch, lambda: quantize_params_data_free(
+        params, QuantConfig(ratio=0.2, multiple=16), min_dim=32, fuse=True))
+    del params
+    print(f"[s2t] {n_params:,} parameters; data-free fused quantization "
+          f"{t_quant / 1e3:.2f}s", flush=True)
+    bits = check_moe_bits(qparams, 0.2, 16, "s2t")
+    b, s, steps, n_enc = 8, S2T_PROMPT, S2T_STEPS, M.ENC_FRAMES
+    max_seq = s + steps + 8
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    frames = torch.randn((b, n_enc, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    toks = torch.from_numpy(np.stack([corpus.document(40_000 + i, s)
+                                      for i in range(b)])).to("cuda")
+    _reset(kernels)
+    with torch.no_grad():
+        (enc_out, _), enc_ms = _synced(
+            torch, lambda: M.encode(cfg, qparams, frames))
+        _, enc_ms2 = _synced(torch, lambda: M.encode(cfg, qparams, frames))
+        (logits, caches), pre_ms = _synced(torch, lambda: M.prefill(
+            cfg, qparams, {"tokens": toks, "frames": frames}, max_seq))
+        xk = caches[0][0]["xk"]
+        if tuple(xk.shape) != (cfg.n_layers, b, n_enc, cfg.n_kv_heads,
+                               cfg.head_dim_):
+            _fail(f"s2t: cross K cache of shape {tuple(xk.shape)}")
+        tok = logits[:, 0].argmax(-1).to(torch.int32)
+        out_toks, step_ms = [], []
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            (lg, caches), ms = _synced(torch, lambda: M.decode_step(
+                cfg, qparams, tok, pos, caches, max_seq))
+            if not torch.isfinite(lg).all():
+                _fail(f"s2t: non-finite logits at decode step {i}")
+            tok = lg.argmax(-1).to(torch.int32)
+            out_toks.append(tok.cpu())
+            step_ms.append(ms)
+        launches = _launches(kernels)
+        pos = torch.full((b,), s + steps, dtype=torch.int32, device="cuda")
+        busy = step_busy_share(torch, lambda: M.decode_step(
+            cfg, qparams, tok, pos, caches, max_seq))
+        tgts = torch.roll(toks, -1, dims=1)
+        tgts[:, -1] = -1
+        _reset(kernels)
+        loss, loss_ms = _synced(torch, lambda: float(M.forward_loss(
+            cfg, qparams, {"tokens": toks, "targets": tgts,
+                           "frames": frames})))
+        loss_launches = _launches(kernels)
+    if any(not (0 <= int(t) < cfg.vocab) for x in out_toks for t in x):
+        _fail("s2t: a generated token lies outside the vocabulary")
+    if not math.isfinite(loss):
+        _fail(f"s2t: forward_loss gave {loss}")
+    for tag, n in (("s2t", launches), ("s2t loss", loss_launches)):
+        if n["mixed_matmul"] <= 0:
+            _fail(f"{tag}: kernel mixed_matmul was not launched")
+        if n["paged_attention"] or n["paged_prefill"]:
+            _fail(f"{tag}: a paged attention kernel launched off the "
+                  "paged path")
+    for kw in (dict(), dict(paged=True)):
+        try:
+            Engine(cfg, qparams, device="cuda", **kw)
+        except NotImplementedError as e:
+            refused = str(e)
+        else:
+            _fail(f"s2t: the engine took an encoder-decoder model ({kw})")
+    decode_ms = sum(step_ms) / steps
+    summary = {
+        "layers": {"encoder": cfg.n_enc_layers, "decoder": cfg.n_layers},
+        "parameters": n_params, "quantize_s": t_quant / 1e3, **bits,
+        "rows": b, "frames": n_enc, "prompt_tokens": s,
+        "generated_tokens": b * steps,
+        "encode_ms": enc_ms, "encode_ms_second": enc_ms2,
+        "prefill_ms": pre_ms, "decode_step_ms": decode_ms,
+        "decode_step_ms_first": step_ms[0],
+        "tokens_per_s": b * steps / ((pre_ms + sum(step_ms)) / 1e3),
+        "decode_tokens_per_s": b * 1e3 / decode_ms,
+        "cross_kv_gb": 2 * xk.numel() * xk.element_size() / 1e9,
+        "decode_busy": busy, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "engine_refused": refused}
+    print("[s2t] " + json.dumps(summary), flush=True)
+    loss_out = {"rows": b, "tokens": s, "frames": n_enc, "loss": loss,
+                "ln_vocab": math.log(cfg.vocab), "wall_ms": loss_ms,
+                "launches": loss_launches}
+    print("[s2t loss] forward_loss of the data-free seamless-m4t-medium "
+          "with frames: " + json.dumps(loss_out), flush=True)
+    return {"s2t": summary, "s2t loss": loss_out}
+
+
+def _n_params(torch, tree) -> int:
+    from repro_torch.core.select import map_tree
+    n = [0]
+
+    def visit(_, x):
+        if isinstance(x, torch.Tensor):
+            n[0] += x.numel()
+        return x
+    map_tree(tree, visit)
+    return n[0]
+
+
+def _weight_bytes(qparams) -> int:
+    """Bytes a decode step reads of the weights: every packed field of
+    every quantized projection, and the head."""
+    from repro_torch.core.qlinear import FIELDS, QLinear, QLinearGroup
+    from repro_torch.core.select import map_tree
+    total = [0]
+
+    def visit(_, x):
+        q = x.inner if isinstance(x, QLinearGroup) else x
+        if isinstance(q, QLinear):
+            total[0] += sum(getattr(q, f).numel() * getattr(q, f)
+                            .element_size() for f in FIELDS)
+        return x
+    map_tree(qparams["stages"], visit)
+    head = qparams.get("lm_head", qparams["embed"])
+    return total[0] + head.numel() * head.element_size()
+
+
+def build_vlm(torch, cfg, depth: int):
+    """llava-next-34b's data-free fused PTQ1.61 model built one layer at
+    a time on the card: each layer's bf16 weights are materialized
+    (``materialize`` with the layer's path, so they are those of a
+    whole ``init_params``), quantized with QKV and gate+up fused, and
+    freed.  Returns (qparams, seconds)."""
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.models import model as M
+    from repro_torch.models.param import materialize
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    decl = M.declare_params(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = materialize({k: v for k, v in decl.items() if k != "stages"},
+                          0, "cuda")
+    layers = []
+    for i, lp in enumerate(decl["stages"][0][:depth]):
+        block = materialize(lp, 0, "cuda", prefix=("stages", 0, i))
+        layers.append(quantize_params_data_free(
+            {"stages": [[block]]}, qcfg, min_dim=32,
+            fuse=True)["stages"][0][0])
+        del block
+    qparams["stages"] = [layers]
+    torch.cuda.synchronize()
+    return qparams, time.perf_counter() - t0
+
+
+def run_vlm_path(torch, registry, kernels, path_kernels, peaks) -> dict:
+    """llava-next-34b at full width (d 7168, 56/8 heads of 128, d_ff
+    20480, vocab 64000, untied head) and ``VLM_DEPTH`` of its 60
+    layers, random bf16 weights of seed 0 built and quantized layer by
+    layer (``build_vlm``): the model-level ``prefill`` of 8 rows of
+    ``VLM_VISION`` stub vision embeddings (from the seed) and
+    ``VLM_TEXT`` text tokens, ``VLM_STEPS`` greedy ``decode_step``s
+    beside the decode step's weight-read bound, then the engine on text
+    prompts (the reference's engine serves no vision embeddings) through
+    paged chunked prefill with all three kernels, as phase 5, and its
+    decode busy share."""
+    import numpy as np
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    from repro_torch.models import model as M
+    cfg = registry.get(VLM_ARCH)
+    print(f"[vlm] {VLM_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab} layers={VLM_DEPTH} of "
+          f"{cfg.n_layers} (frontend stub: {cfg.frontend_tokens} vision "
+          "embeddings)", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qparams, t_build = build_vlm(torch, cfg, VLM_DEPTH)
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[vlm] {VLM_DEPTH} layers built and quantized one at a time in "
+          f"{t_build:.1f}s, peak {build_peak:.2f} GB", flush=True)
+    bits = check_moe_bits(qparams, 0.2, 16, "vlm")
+    nbytes = _weight_bytes(qparams)
+    bound, _ = bound_ms(nbytes, 0.0, peaks)
+    b, ft, s, steps = 8, VLM_VISION, VLM_VISION + VLM_TEXT, VLM_STEPS
+    max_seq = s + steps
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    ve = (0.02 * torch.randn((b, ft, cfg.d_model), generator=gen,
+                             device="cuda")).to(torch.bfloat16)
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    toks = torch.zeros((b, s), dtype=torch.int32)
+    toks[:, ft:] = torch.from_numpy(np.stack(
+        [corpus.document(50_000 + i, VLM_TEXT) for i in range(b)]))
+    toks = toks.to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    with torch.no_grad():
+        (logits, caches), pre_ms = _synced(torch, lambda: M.prefill(
+            cfg, qparams, {"tokens": toks, "vision_embeds": ve}, max_seq))
+        (text_logits, _), _ = _synced(torch, lambda: M.prefill(
+            cfg, qparams, {"tokens": toks}, max_seq))
+        if torch.equal(logits, text_logits):
+            _fail("vlm: the vision embeddings did not reach the logits")
+        del text_logits
+        tok = logits[:, 0].argmax(-1).to(torch.int32)
+        step_ms = []
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            (lg, caches), ms = _synced(torch, lambda: M.decode_step(
+                cfg, qparams, tok, pos, caches, max_seq))
+            if not torch.isfinite(lg).all():
+                _fail(f"vlm: non-finite logits at decode step {i}")
+            tok = lg.argmax(-1).to(torch.int32)
+            step_ms.append(ms)
+    model_launches = _launches(kernels)
+    if model_launches["mixed_matmul"] <= 0:
+        _fail("vlm model: kernel mixed_matmul was not launched")
+    del caches
+    model = {"rows": b, "vision_tokens": ft, "text_tokens": VLM_TEXT,
+             "prefill_ms": pre_ms, "decode_steps": steps,
+             "decode_step_ms": sum(step_ms) / steps,
+             "decode_step_ms_first": step_ms[0],
+             "weight_bytes_per_step": nbytes,
+             "decode_bound_ms": bound,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "launches": model_launches}
+    print(f"[vlm model] prefill of {b} x ({ft} vision + {VLM_TEXT} text) "
+          f"in {pre_ms:.1f} ms; decode step {model['decode_step_ms']:.1f} "
+          f"ms beside its weight-read bound {bound:.2f} ms "
+          f"({nbytes / 1e9:.2f} GB at {peaks[0] / 1e12:.2f} TB/s); "
+          + json.dumps(model), flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, summary = serve_prompts(torch, cfg, qparams, kernels,
+                                    path_kernels, "vlm", CHUNKED)
+    summary["decode_busy"] = decode_busy_share(torch, cfg, engine)
+    summary.update(layers=VLM_DEPTH, build_s=t_build,
+                   build_peak_gb=build_peak, decode_bound_ms=bound, **bits)
+    print("[vlm] " + json.dumps(summary), flush=True)
+    return {"vlm model": model, "vlm": summary}
+
+
+def run_vlm_serve(torch, kernels) -> dict:
+    """``repro_torch.launch.serve.run --arch llava-next-34b --reduced``
+    on the card (serve materializes a whole tree: the reduced config),
+    fused data-free weights through the paged chunked-prefill engine."""
+    from repro_torch.launch.serve import parse_args, run
+    _reset(kernels)
+    out = run(parse_args(["--arch", VLM_ARCH, "--reduced", "--fused",
+                          "--paged", "--chunked-prefill", "--prefill-chunk",
+                          "16", "--max-new", "8"]))
+    launches = _launches(kernels)
+    if not out["all_done"] or out["cache_backend"] != "paged":
+        _fail("vlm serve: not every request finished on the paged backend")
+    for name in ("mixed_matmul", "paged_attention", "paged_prefill"):
+        if launches[name] <= 0:
+            _fail(f"vlm serve: kernel {name} was not launched")
+    return {k: out[k] for k in ("requests", "generated_tokens",
+                                "tokens_per_s", "bits_per_weight",
+                                "cache_backend")} | {"launches": launches}
 
 
 def _entry(name, replaces, checked, rows, launches, shape, source=None):
@@ -2789,15 +3227,7 @@ def main() -> int:
         torch, projs, timer, peaks,
         torch.Generator(device="cuda").manual_seed(6), ms=PATH_ROWS,
         host=True)
-    for m in PATH_ROWS:
-        rows = [r for r in mm_rows if r["M"] == m]
-        print(f"[mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
-              f"{MM_ATOL}) one fused layer: kernel "
-              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
-              f"torch.matmul "
-              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
-              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
-              + json.dumps(rows), flush=True)
+    print_rows("mixed_matmul", "one fused layer", mm_rows, PATH_ROWS)
     pa = check_paged_attention(torch, cfg, timer, peaks, gen)
     print("[paged_attention] " + json.dumps(pa), flush=True)
     pf = check_paged_prefill(torch, cfg, timer, peaks, gen)
@@ -2813,15 +3243,7 @@ def main() -> int:
         torch, gprojs, timer, peaks,
         torch.Generator(device="cuda").manual_seed(11), ms=MOE_ROWS,
         host=True)
-    for m in MOE_ROWS:
-        rows = [r for r in moe_mm if r["M"] == m]
-        print(f"[moe mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
-              f"{MM_ATOL}) granite wqkv+wo: kernel "
-              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
-              f"torch.matmul "
-              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
-              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
-              + json.dumps(rows), flush=True)
+    print_rows("moe mixed_matmul", "granite wqkv+wo", moe_mm, MOE_ROWS)
     moe_pa = check_paged_attention(torch, gcfg, timer, peaks, gen)
     print("[moe paged_attention] " + json.dumps(moe_pa), flush=True)
     moe_pf = check_paged_prefill(torch, gcfg, timer, peaks, gen)
@@ -2842,15 +3264,7 @@ def main() -> int:
         torch, rprojs, timer, peaks,
         torch.Generator(device="cuda").manual_seed(14), ms=RG_ROWS,
         host=True)
-    for m in RG_ROWS:
-        rows = [r for r in rg_mm if r["M"] == m]
-        print(f"[rg mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
-              f"{MM_ATOL}) the 7 projections: kernel "
-              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
-              f"torch.matmul "
-              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
-              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
-              + json.dumps(rows), flush=True)
+    print_rows("rg mixed_matmul", "the 7 projections", rg_mm, RG_ROWS)
     del rprojs
     rg_pa = check_paged_attention(torch, rcfg, timer, peaks, gen,
                                   lens=RG_ATT_LENS, window=rcfg.local_window,
@@ -2864,16 +3278,34 @@ def main() -> int:
         torch, xprojs, timer, peaks,
         torch.Generator(device="cuda").manual_seed(18), ms=XL_ROWS,
         host=True)
-    for m in XL_ROWS:
-        rows = [r for r in xl_mm if r["M"] == m]
-        print(f"[xl mixed_matmul M={m}] (tolerance rtol {MM_RTOL}, atol "
-              f"{MM_ATOL}) the 9 projections: kernel "
-              f"{sum(r['ms'] for r in rows) * 1e3:.1f} us, dense bf16 "
-              f"torch.matmul "
-              f"{sum(r['library_ms'] for r in rows) * 1e3:.1f} us, bound "
-              f"{sum(r['bound_ms'] for r in rows) * 1e3:.1f} us; "
-              + json.dumps(rows), flush=True)
+    print_rows("xl mixed_matmul", "the 9 projections", xl_mm, XL_ROWS)
     del xprojs
+    # seamless's packed projections, the encoder's 8 x 1024 frame rows too
+    s2t_mm = check_mixed_matmul(
+        torch, s2t_projections(torch, registry.get(S2T_ARCH),
+                               torch.Generator(device="cuda").manual_seed(19)),
+        timer, peaks, torch.Generator(device="cuda").manual_seed(20),
+        ms=S2T_ROWS, host=True)
+    print_rows("s2t mixed_matmul", "the 5 projection shapes", s2t_mm,
+               S2T_ROWS)
+    # llava's four fused projections and both attention kernels at its
+    # GQA group of 7 (56 / 8 heads, dh 128)
+    vcfg = registry.get(VLM_ARCH)
+    print("[vlm plan] attention split plans at llava's heads: "
+          + json.dumps(attention_plans(torch, vcfg)), flush=True)
+    vlm_mm = check_mixed_matmul(
+        torch, llama_projections(
+            torch, vcfg, torch.Generator(device="cuda").manual_seed(23)),
+        timer, peaks, torch.Generator(device="cuda").manual_seed(24),
+        ms=VLM_ROWS, host=True)
+    print_rows("vlm mixed_matmul", "one fused layer", vlm_mm, VLM_ROWS)
+    vgen = torch.Generator(device="cuda").manual_seed(25)
+    vlm_pa = check_paged_attention(torch, vcfg, timer, peaks, vgen)
+    print(f"[vlm paged_attention] (tolerance rtol {ATT_RTOL}, atol "
+          f"{ATT_ATOL}) " + json.dumps(vlm_pa), flush=True)
+    vlm_pf = check_paged_prefill(torch, vcfg, timer, peaks, vgen)
+    print(f"[vlm paged_prefill] (tolerance rtol {ATT_RTOL}, atol "
+          f"{ATT_ATOL}) " + json.dumps(vlm_pf), flush=True)
     spans = check_spans(torch, projs, timer, peaks,
                         torch.Generator(device="cuda").manual_seed(1))
     for name, rows in spans.items():
@@ -2961,6 +3393,22 @@ def main() -> int:
           "on the card and on the CPU: perm and packed bytes equal; "
           + json.dumps(check_small_calibrated(torch, registry, XL_ARCH)),
           flush=True)
+    # and on reduced seamless (the encoder, cross-attention and its cached
+    # K/V) and reduced llava (the vision splice, its engines, its serve)
+    print("[s2t reference] reduced seamless, f32, card vs CPU (relative, "
+          f"limit {REF_RTOL}): prefill logits, cross K/V, 4 decode steps "
+          "each from the CPU's caches: " + json.dumps(
+              check_small_prefix_model(torch, registry, S2T_ARCH)),
+          flush=True)
+    print("[vlm reference] reduced llava, f32, card vs CPU (relative, "
+          f"limit {REF_RTOL}): prefill logits with vision embeddings, 4 "
+          "decode steps each from the CPU's caches: " + json.dumps(
+              check_small_prefix_model(torch, registry, VLM_ARCH)),
+          flush=True)
+    print("[vlm reference] reduced llava, f32, greedy tokens: "
+          + json.dumps(check_small_engines(torch, VLM_ARCH)), flush=True)
+    vlm_serve = run_vlm_serve(torch, kernels)
+    print("[vlm serve] " + json.dumps(vlm_serve), flush=True)
 
     # -- 5. the data-free main path, then whole-prompt prefill -------------
     # from here on the packed matmul counts its launches by (M, K, N)
@@ -3031,13 +3479,21 @@ def main() -> int:
                                   xl["xl loss"]["loss"], "xl")
     print("[xl baselines] " + json.dumps(xl_base), flush=True)
 
-    # -- 11. every packed-matmul shape of the paths was checked; the kernels
+    # -- 11. the encoder-decoder inputs: seamless-m4t-medium ----------------
+    torch.cuda.empty_cache()
+    s2t = run_s2t_path(torch, registry, kernels, peaks)
+
+    # -- 12. the vision-prefix inputs: llava-next-34b at full width ---------
+    torch.cuda.empty_cache()
+    vlm = run_vlm_path(torch, registry, kernels, path_kernels, peaks)
+
+    # -- 13. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
                + rg_cal["layer0_mixed_matmul"] + xl_mm
-               + xl_cal["layer0_mixed_matmul"]}
+               + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm}
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
     if unchecked:
@@ -3046,7 +3502,7 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-10 was held against its plain version in phase 3, "
+          "at in phases 5-12 was held against its plain version in phase 3, "
           "6, 8, 9 or 10; launches by shape: " + json.dumps(by_shape),
           flush=True)
     launches = {"datafree": summary["launches"],
@@ -3080,7 +3536,12 @@ def main() -> int:
                 "xl loss": xl["xl loss"]["launches"],
                 "xl serve": xl["xl serve"]["launches"],
                 "xl calibrated": xl_cal["launches"],
-                "xl baselines": xl_base["launches"]}
+                "xl baselines": xl_base["launches"],
+                "vlm serve": vlm_serve["launches"],
+                "s2t": s2t["s2t"]["launches"],
+                "s2t loss": s2t["s2t loss"]["launches"],
+                "vlm model": vlm["vlm model"]["launches"],
+                "vlm": vlm["vlm"]["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -3089,20 +3550,21 @@ def main() -> int:
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
                + rg_cal["layer0_mixed_matmul"] + xl_mm
-               + xl_cal["layer0_mixed_matmul"]
+               + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         dict(_entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:166",
-                    mm + mm_rows + moe_mm + rg_mm + xl_mm, gather, launches,
+                    mm + mm_rows + moe_mm + rg_mm + xl_mm + s2t_mm + vlm_mm,
+                    gather, launches,
                     "the perm gather (gather_kernel) of a decode call at "
                     "M=8, wqkv+wgu+wo+wd; one per mixed_matmul launch, "
                     "held through the product"),
              name="mixed_matmul(perm)"),
         _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",
-               [pa, moe_pa, rg_pa], [pa], launches,
+               [pa, moe_pa, rg_pa, vlm_pa], [pa], launches,
                "B=8 hkv=32 dh=128 ps=16, lens up to 1000"),
         _entry("paged_prefill", "src/repro/kernels/paged_prefill.py:258",
-               pf + moe_pf, pf[:1], launches,
+               pf + moe_pf + vlm_pf, pf[:1], launches,
                "C=64 over 192 context tokens, hkv=32 dh=128"),
         _entry("binary_matmul", "src/repro/kernels/binary_matmul.py:75",
                bm, [r for r in bm if r["M"] == 8], launches,

@@ -9,7 +9,11 @@ cross through a 16-bit integer view.
 ``repro`` stacks each stage's layers on a leading axis and scans them;
 the port keeps one entry per layer, so stage trees are split along that
 axis here (``stages[s][pattern_pos][leaf][layer]`` becomes
-``stages[s][layer][pattern_pos][leaf]``).
+``stages[s][layer][pattern_pos][leaf]``), an encoder-decoder model's
+``enc.stages`` too.  Decode caches keep the reference's layout (per
+stage and pattern position, tensors stacked over layers; ``{"self",
+"xk", "xv"}`` for a cross-attention block), so ``convert`` carries
+them across as they are.
 """
 from __future__ import annotations
 
@@ -79,14 +83,17 @@ def _n_layers(tree: Tree) -> int:
     return tree.shape[0]
 
 
+def _unstack_stages(stages) -> list:
+    return [[tuple(_layer(bp, i) for bp in stage)
+             for i in range(_n_layers(stage[0]))] for stage in stages]
+
+
 def params_from_repro(tree: Tree, device="cpu") -> Tree:
     """A ``repro`` model parameter tree (numpy leaves) -> the port's
     per-layer parameter tree on ``device``."""
     t = convert(tree, device)
     out = dict(t)
-    out["stages"] = []
-    for stage in t["stages"]:
-        n = _n_layers(stage[0])
-        out["stages"].append([tuple(_layer(bp, i) for bp in stage)
-                              for i in range(n)])
+    out["stages"] = _unstack_stages(t["stages"])
+    if "enc" in t:
+        out["enc"] = dict(t["enc"], stages=_unstack_stages(t["enc"]["stages"]))
     return out

@@ -16,6 +16,12 @@ own channel means but the row sample of every expert at once (mostly
 expert 0's capacity rows), BiLLM the diagonal of the Hessian merged over
 every expert, and GPTQ the identity in place of a Hessian (the
 reference tracks no per-expert Hessian).
+
+On an encoder-decoder model it does what the reference does, faults
+included: it quantizes the decoder's ``stages`` alone (the encoder
+stays in its dtype), and each decoder block is calibrated without the
+encoder's output, so its cross-attention attends the block's own
+stream.
 """
 from __future__ import annotations
 

@@ -8,7 +8,10 @@ one layout (shared permutation, int4 scales and α_r2), so each block
 runs 2 packed matmuls for its input projections instead of 5; a MoE
 block's stacked expert pair (E, K, F) becomes one (E, K, 2F) group with
 one such layout per expert.  Stacked expert weights are quantized slice
-by slice (``qlinear.quantize_linear``), with a mask per expert.
+by slice (``qlinear.quantize_linear``), with a mask per expert.  An
+encoder-decoder model's encoder and cross-attention projections are
+quantized one by one: the fusion walks the decoder's ``stages`` alone,
+as the reference's does.
 
 ``quantize_model_ptq161`` is the calibrated method (paper Fig. 2),
 block by block in depth order with error propagation:
@@ -83,11 +86,11 @@ def quantize_model_ptq161(
     """Calibrated PTQ1.61 over a decoder-only model.  Returns params with
     every quantizable leaf replaced by a learned QLinear, in the port's
     per-layer layout.  With ``block_losses`` given, appends each block's
-    Eq.-7 loss before and after learning (two extra passes per block)."""
+    Eq.-7 loss before and after learning (two extra passes per block).
+    An encoder-decoder model raises the reference's AssertionError."""
     from repro_torch.models import model as M
     if cfg.enc_dec:
-        raise NotImplementedError("the calibrated pipeline targets "
-                                  "decoder-only LMs")
+        raise AssertionError("calibrated PTQ driver targets decoder-only LMs")
 
     with torch.no_grad():
         x_fp = [M.embed_tokens(cfg, params, b["tokens"])

@@ -11,6 +11,8 @@ a stream of requests through the continuous-batching engine.
         --arch recurrentgemma-2b --quantize datafree --fused --paged
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch xlstm-1.3b --quantize datafree --fused --paged
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llava-next-34b --fused --paged --chunked-prefill
 
 ``--quantize datafree`` ranks channels by |w| with analytic scales;
 ``--quantize calibrated`` runs the paper's method on
@@ -23,8 +25,11 @@ experts' gate and up projections fuse like the MLP's; recurrentgemma-2b:
 RG-LRU and windowed local blocks; xlstm-1.3b: mLSTM and sLSTM blocks,
 whose projections ``--fused`` leaves unfused, as the reference does).
 Models with recurrent blocks take whole-prompt prefill only, so
-``--chunked-prefill`` raises the reference's ``ValueError`` for them;
-encoder-decoder and frontend models raise ``NotImplementedError``.
+``--chunked-prefill`` raises the reference's ``ValueError`` for them.
+llava-next-34b is served on text prompts alone, as the reference
+serves it (no request carries vision embeddings); an encoder-decoder
+model (seamless-m4t-medium) raises ``NotImplementedError`` before its
+weights are built, as the engine refuses it.
 
 By default, as in ``repro.launch.serve``, requests are served from the
 contiguous ring caches with whole-prompt prefill, prompts left-padded to
@@ -76,7 +81,7 @@ from repro_torch.core.pipeline import (quantize_model_ptq161,
 from repro_torch.core.qlinear import QuantConfig
 from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
 from repro_torch.models import model as M
-from repro_torch.runtime.engine import Engine, resolve_device
+from repro_torch.runtime.engine import Engine, refuse_enc_dec, resolve_device
 from repro_torch.runtime.events import FinishEvent, TokenEvent
 
 
@@ -134,6 +139,7 @@ def run(args) -> dict:
     cfg = registry.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    refuse_enc_dec(cfg)
     params = M.init_params(cfg, args.seed, device)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=args.seed))
 

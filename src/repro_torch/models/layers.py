@@ -1,9 +1,9 @@
 """Transformer layers (subset of ``repro.models.layers``): norms, RoPE,
 the fused QKV projection, the gated MLP, the token-choice mixture of
-experts (single device), full-sequence self-attention (the calibration
-forward and whole-prompt prefill), decode against the contiguous ring
-caches, and paged decode / chunked-prefill attention over the shared KV
-page pool.
+experts (single device), full-sequence attention (the calibration
+forward and whole-prompt prefill; self- or cross-attention), decode
+against the contiguous ring caches, and paged decode / chunked-prefill
+attention over the shared KV page pool.
 
 All linear weights are (in_features, out_features) and every matmul
 goes through :func:`repro_torch.models.linear.dense`, so packed
@@ -73,7 +73,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 # Attention projections
 # ---------------------------------------------------------------------------
-def init_attention(cfg: ArchConfig) -> Tree:
+def init_attention(cfg: ArchConfig, cross: bool = False) -> Tree:
+    """Q/K/V/O projections; a cross-attention block (``cross``) has no
+    q/k/v biases and no q/k norms, as in the reference."""
     d, dh = cfg.d_model, cfg.head_dim_
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     p = {
@@ -82,11 +84,11 @@ def init_attention(cfg: ArchConfig) -> Tree:
         "wv": P((d, hkv * dh), "scaled"),
         "wo": P((hq * dh, d), "scaled"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = P((hq * dh,), "zeros")
         p["bk"] = P((hkv * dh,), "zeros")
         p["bv"] = P((hkv * dh,), "zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = P((dh,), "ones")
         p["k_norm"] = P((dh,), "ones")
     return p
@@ -99,12 +101,18 @@ def _qk_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                 positions: torch.Tensor):
-    """x (B, S, D) -> q (B, S, hq, dh), k/v (B, S, hkv, dh), roped.  The
+                 positions: torch.Tensor, xkv: Optional[torch.Tensor] = None,
+                 kv_positions: Optional[torch.Tensor] = None,
+                 use_rope: bool = True):
+    """x (B, S, D) -> q (B, S, hq, dh) and, from ``xkv`` (B, Sk, D; x by
+    default), k/v (B, Sk, hkv, dh); roped at ``positions`` and
+    ``kv_positions`` unless ``use_rope`` is off (cross-attention).  The
     fused ``wqkv`` group runs one matmul (one activation gather) for all
     three projections."""
     dh, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
-    if "wqkv" in p:
+    if xkv is None:
+        xkv, kv_positions = x, positions
+    if "wqkv" in p and xkv is x:
         g = p["wqkv"]
         q, k, v = g.split_out(dense(x, g))
         if "bq" in p:
@@ -113,16 +121,17 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             v = v + p["bv"].to(v.dtype)
     else:
         q = dense(x, p["wq"], p.get("bq"))
-        k = dense(x, p["wk"], p.get("bk"))
-        v = dense(x, p["wv"], p.get("bv"))
+        k = dense(xkv, p["wk"], p.get("bk"))
+        v = dense(xkv, p["wv"], p.get("bv"))
     q = q.reshape(q.shape[:-1] + (hq, dh))
     k = k.reshape(k.shape[:-1] + (hkv, dh))
     v = v.reshape(v.shape[:-1] + (hkv, dh))
     if "q_norm" in p:
         q = _qk_norm(q, p["q_norm"])
         k = _qk_norm(k, p["k_norm"])
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -199,19 +208,29 @@ def make_cache(cfg: ArchConfig, batch: int, window: int, n_layers: int,
 def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                    positions: torch.Tensor, *, causal: bool = True,
                    window: Optional[int] = None, attn_chunk: int = 1024,
-                   cache_window: Optional[int] = None):
-    """Self-attention over a whole sequence (the calibration forward and
+                   use_rope: bool = True, xkv: Optional[torch.Tensor] = None,
+                   kv_positions: Optional[torch.Tensor] = None,
+                   cache_window: Optional[int] = None,
+                   return_kv: bool = False):
+    """Attention over a whole sequence (the calibration forward and
     whole-prompt prefill).  x (B, S, D), positions (B, S) int32, -1 for
-    padding (never attended).  Sequences longer than ``attn_chunk``
-    that it divides stream over key chunks.  With ``cache_window``, also
-    returns the decode ring cache built from the K/V computed here."""
-    q, k, v = _project_qkv(cfg, p, x, positions)
+    padding (never attended).  Cross-attention passes ``xkv`` (B, Sk, D)
+    with its ``kv_positions`` (the keys and values come from it; x by
+    default) and ``use_rope=False``.  Key lengths longer than
+    ``attn_chunk`` that it divides stream over key chunks.  With
+    ``cache_window``, also returns the decode ring cache built from the
+    K/V computed here; with ``return_kv``, those K/V themselves (the
+    cross-attention's decode cache)."""
+    if xkv is None:
+        xkv, kv_positions = x, positions
+    q, k, v = _project_qkv(cfg, p, x, positions, xkv, kv_positions,
+                           use_rope)
     sk = k.shape[1]
     if sk > attn_chunk and sk % attn_chunk == 0:
-        o = _attend_chunked(q, k, v, positions, positions, causal, window,
-                            cfg.logit_softcap, attn_chunk)
+        o = _attend_chunked(q, k, v, positions, kv_positions, causal,
+                            window, cfg.logit_softcap, attn_chunk)
     else:
-        qp, kp = positions[:, :, None], positions[:, None, :]
+        qp, kp = positions[:, :, None], kv_positions[:, None, :]
         mask = kp <= qp if causal else torch.ones_like(kp <= qp)
         mask = mask & (kp >= 0)
         if window is not None:
@@ -219,6 +238,8 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         o = _attend(q, k, v, mask, cfg.logit_softcap)
     o = o.to(x.dtype).reshape(x.shape[:-1] + (-1,))
     out = dense(o, p["wo"])
+    if return_kv:
+        return out, k, v
     if cache_window is None:
         return out
     return out, ring_cache_from_kv(k, v, positions, cache_window)
@@ -271,6 +292,20 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     o = _attend(q, ck[layer], cv[layer], mask, cfg.logit_softcap)
     o = o.to(x.dtype).reshape(b, 1, -1)
     return dense(o, p["wo"]), cache
+
+
+def attention_cross_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                           xk: torch.Tensor, xv: torch.Tensor
+                           ) -> torch.Tensor:
+    """One decode step of cross-attention: x (B, 1, D) projected to the
+    query alone (no RoPE), attending every position of the cached
+    encoder K/V (B, S_enc, hkv, dh), then ``wo``."""
+    b = x.shape[0]
+    q = dense(x, p["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim_)
+    mask = torch.ones((b, 1, xk.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    o = _attend(q, xk, xv, mask, cfg.logit_softcap)
+    return dense(o.to(x.dtype).reshape(b, 1, -1), p["wo"])
 
 
 # ---------------------------------------------------------------------------

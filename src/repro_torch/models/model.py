@@ -1,8 +1,17 @@
-"""Model facade (decoder-only subset of ``repro.models.model``): parameter
-declaration, embedding and head, the causal-LM loss, whole-prompt
-prefill and decode over the contiguous ring caches, and the paged
-serving path (page pools, one paged decode step, one chunked paged
-prefill step, and the splice of a whole-prompt prefill into pages).
+"""Model facade (twin of ``repro.models.model``): parameter declaration,
+embedding and head, the causal-LM loss, whole-prompt prefill and decode
+over the contiguous ring caches, and the paged serving path (page
+pools, one paged decode step, one chunked paged prefill step, and the
+splice of a whole-prompt prefill into pages).
+
+The frontends are stubs over precomputed embeddings, as in the
+reference: a vision model (``cfg.frontend == "vision"``) takes
+``vision_embeds`` (B, F, D) in place of its first F token embeddings
+when a batch carries them, and text alone otherwise; an
+encoder-decoder model (``cfg.enc_dec``) encodes ``frames`` (B, S_enc,
+D) with a non-causal dense stack (``params["enc"]``) whose output every
+decoder block cross-attends.  The paged path refuses encoder-decoder
+models, as the reference does.
 """
 from __future__ import annotations
 
@@ -11,7 +20,7 @@ from typing import Any, Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, Stage
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.linear import dense
@@ -19,19 +28,26 @@ from repro_torch.models.param import P, materialize
 
 Tree = Any
 XENT_CHUNK = 512
+ENC_FRAMES = 1024       # seamless stub: the speech-frame budget a request has
+
+
+def _enc_stage(cfg: ArchConfig) -> Stage:
+    return Stage(("dense",), cfg.n_enc_layers)
 
 
 def declare_params(cfg: ArchConfig) -> Tree:
-    if cfg.enc_dec or cfg.frontend:
-        raise NotImplementedError("the port serves decoder-only LMs")
     d, v = cfg.d_model, cfg.vocab_padded
     p: Dict[str, Tree] = {
         "embed": P((v, d), "normal"),
-        "stages": [T.init_stage(cfg, s) for s in cfg.stages],
+        "stages": [T.init_stage(cfg, s, cross=cfg.enc_dec)
+                   for s in cfg.stages],
         "final_norm": L.init_norm(cfg),
     }
     if not cfg.tied_embeddings:
         p["lm_head"] = P((d, v), "scaled")
+    if cfg.enc_dec:
+        p["enc"] = {"stages": [T.init_stage(cfg, _enc_stage(cfg))],
+                    "final_norm": L.init_norm(cfg)}
     return p
 
 
@@ -99,9 +115,14 @@ def softmax_xent_chunked(cfg: ArchConfig, params: Tree, x: torch.Tensor,
 
 def _backbone_inputs(cfg: ArchConfig, params: Tree,
                      batch: Dict[str, torch.Tensor]):
-    """Token embeddings and positions (default 0..S-1 per row)."""
+    """Token embeddings, the first F of them replaced by the batch's
+    ``vision_embeds`` (B, F, D) in a vision model, and positions
+    (default 0..S-1 per row)."""
     tokens = batch["tokens"]
     x = embed_tokens(cfg, params, tokens)
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        ve = batch["vision_embeds"]
+        x = torch.cat([ve.to(x.dtype), x[:, ve.shape[1]:]], dim=1)
     positions = batch.get("positions")
     if positions is None:
         b, s = tokens.shape
@@ -110,17 +131,46 @@ def _backbone_inputs(cfg: ArchConfig, params: Tree,
     return x, positions
 
 
+def encode(cfg: ArchConfig, params: Tree, frames: torch.Tensor,
+           attn_chunk: int = 1024):
+    """The encoder over precomputed frame embeddings (the stub
+    frontend): frames (B, S_enc, D) -> (enc_out (B, S_enc, D), enc_pos
+    (B, S_enc) = 0..S_enc-1), non-causal, then the encoder's final
+    norm."""
+    b, s, _ = frames.shape
+    pos = torch.arange(s, dtype=torch.int32,
+                       device=frames.device).expand(b, s)
+    x = frames
+    for sp in params["enc"]["stages"]:
+        x, _ = T.stage_full(cfg, _enc_stage(cfg), sp, x, pos, causal=False,
+                            attn_chunk=attn_chunk)
+    return L.apply_norm(cfg, params["enc"]["final_norm"], x), pos
+
+
+def _encoded(cfg: ArchConfig, params: Tree, batch, attn_chunk: int):
+    """(enc_out, enc_pos) of the batch's ``frames`` for an
+    encoder-decoder model (a batch without them raises the reference's
+    KeyError), else (None, None)."""
+    if not cfg.enc_dec:
+        return None, None
+    return encode(cfg, params, batch["frames"], attn_chunk)
+
+
 def forward_loss(cfg: ArchConfig, params: Tree,
                  batch: Dict[str, torch.Tensor],
                  attn_chunk: int = 1024) -> torch.Tensor:
     """Causal-LM loss plus 0.01 times the MoE blocks' load-balancing
     loss (0 for a dense decoder).  batch: tokens (B, S) and targets
-    (B, S) int (-1 = masked), optional positions (B, S)."""
+    (B, S) int (-1 = masked), optional positions (B, S); optional
+    ``vision_embeds`` (B, F, D) for a vision model, ``frames`` (B,
+    S_enc, D) for an encoder-decoder one."""
     x, positions = _backbone_inputs(cfg, params, batch)
+    enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stage, sp in zip(cfg.stages, params["stages"]):
         x, a = T.stage_full(cfg, stage, sp, x, positions, causal=True,
-                            attn_chunk=attn_chunk)
+                            attn_chunk=attn_chunk, enc_out=enc_out,
+                            enc_pos=enc_pos)
         aux = aux + a
     loss = softmax_xent_chunked(cfg, params, x, batch["targets"])
     return loss + 0.01 * aux
@@ -132,24 +182,30 @@ def forward_loss(cfg: ArchConfig, params: Tree,
 def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
             max_seq: int, attn_chunk: int = 1024):
     """Whole-sequence prefill.  batch: tokens (B, S) int32 and optional
-    positions (B, S) int32 (-1 = left padding).  Returns (last-token
-    logits (B, 1, V), caches): per stage and pattern position, ring
-    caches {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)}, or recurrent
-    state {"h": (L, B, R), "conv": (L, B, cw-1, R)}."""
+    positions (B, S) int32 (-1 = left padding); ``vision_embeds`` or
+    ``frames`` as for :func:`forward_loss`.  Returns (last-token logits
+    (B, 1, V), caches): per stage and pattern position, ring caches
+    {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)} (under "self", beside
+    the cross K/V "xk", "xv" (L, B, S_enc, hkv, dh) of an
+    encoder-decoder model), or recurrent state {"h": (L, B, R), "conv":
+    (L, B, cw-1, R)}."""
     x, positions = _backbone_inputs(cfg, params, batch)
+    enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
     caches = []
     for stage, sp in zip(cfg.stages, params["stages"]):
         x, c = T.stage_prefill(cfg, stage, sp, x, positions, max_seq,
-                               attn_chunk)
+                               attn_chunk, enc_out, enc_pos)
         caches.append(c)
     return logits_fn(cfg, params, x[:, -1:]), tuple(caches)
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
-                dtype=torch.bfloat16, device="cpu"):
+                dtype=torch.bfloat16, device="cpu", enc_len: int = 0):
     """Empty decode caches for every stage: ring caches (positions -1)
-    and zero recurrent state, ``batch`` rows each."""
-    return tuple(T.init_stage_cache(cfg, s, batch, max_seq, dtype, device)
+    and zero recurrent state, ``batch`` rows each; with ``enc_len``, an
+    encoder-decoder model's zero cross K/V of that many positions."""
+    return tuple(T.init_stage_cache(cfg, s, batch, max_seq, dtype, device,
+                                    enc_len)
                  for s in cfg.stages)
 
 
@@ -178,7 +234,11 @@ def init_paged_caches(cfg: ArchConfig, num_pages: int, page_size: int,
                       dtype=torch.bfloat16, device="cpu", n_slots: int = 1):
     """Page pools for every stage: per attention block
     ``(L, num_pages + 1, ps, hkv, dh)`` with the dump page last; per
-    recurrent block its state at the decode batch ``n_slots``."""
+    recurrent block its state at the decode batch ``n_slots``.  An
+    encoder-decoder model keeps static cross K/V per request and is not
+    paged (the reference's ``NotImplementedError``)."""
+    if cfg.enc_dec:
+        raise NotImplementedError("paged serving does not support enc-dec")
     return tuple(T.init_stage_cache_paged(cfg, s, num_pages, page_size,
                                           dtype, device, n_slots)
                  for s in cfg.stages)
@@ -221,7 +281,10 @@ def prefill_step_paged(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
     int32, zero-padded past ``length``; bt_read/bt_write (nblk,) its
     block-table row and writable twin; start the page-aligned chunk
     origin and length the live tokens (host ints or device int32
-    scalars).  Returns (logits (1, V) at chunk row length-1, caches)."""
+    scalars).  Returns (logits (1, V) at chunk row length-1, caches).
+    Attention stages of a decoder-only model alone, as the reference."""
+    if cfg.enc_dec:
+        raise NotImplementedError("chunked prefill does not support enc-dec")
     c = tokens.shape[1]
     dev = tokens.device
     if isinstance(start, torch.Tensor):

@@ -47,8 +47,12 @@ def _init_leaf(p: P, gen: torch.Generator, device) -> torch.Tensor:
     raise ValueError(f"unknown init {p.init!r}")
 
 
-def materialize(tree: Any, seed: int, device="cpu") -> Any:
-    """P tree -> tensors on ``device``."""
+def materialize(tree: Any, seed: int, device="cpu",
+                prefix: Tuple = ()) -> Any:
+    """P tree -> tensors on ``device``.  A subtree given with its
+    ``prefix`` (its path in the whole tree) gets the tensors a whole
+    materialize gives it, so a model too large to hold in bf16 can be
+    built part by part."""
     device = torch.device(device)
 
     def leaf(path, p):
@@ -60,7 +64,7 @@ def materialize(tree: Any, seed: int, device="cpu") -> Any:
                         % (2 ** 63))
         return _init_leaf(p, gen, device)
 
-    return map_tree(tree, leaf)
+    return map_tree(tree, leaf, tuple(prefix))
 
 
 def tree_to(tree: Any, device=None, float_dtype=None) -> Any:

@@ -15,6 +15,14 @@ an ``mlstm`` block is the xLSTM matrix-memory cell alone (``c``, ``n``)
 and an ``slstm`` block the scalar-memory cell with its gated FFN (``h``,
 ``c``, ``n``, ``m``).
 
+An encoder-decoder model's decoder blocks (``cross=True``) add a
+cross-attention (``ln_x``, ``xattn``) between the self-attention and
+the feed-forward: no RoPE, every encoder position attended.  Its K/V are
+projected once at prefill and cached beside the ring cache, ``{"self":
+ring, "xk", "xv": (L, B, S_enc, hkv, dh)}``; a decode step projects the
+query alone against them.  The paged path does not serve such blocks
+(``models.model`` refuses it, as the reference does).
+
 A stage's parameters are a list over its layers, each a tuple over the
 stage's block pattern.  Depth is a Python loop; a stage's caches are a
 tuple over the pattern of stacked tensors — ring caches ``(L, B, W,
@@ -45,8 +53,16 @@ def _check_kind(kind: str) -> None:
         raise ValueError(kind)
 
 
-def init_block(cfg: ArchConfig, kind: str) -> Tree:
+def init_block(cfg: ArchConfig, kind: str, cross: bool = False) -> Tree:
     _check_kind(kind)
+    p = _init_block(cfg, kind)
+    if cross:
+        p["ln_x"] = L.init_norm(cfg)
+        p["xattn"] = L.init_attention(cfg, cross=True)
+    return p
+
+
+def _init_block(cfg: ArchConfig, kind: str) -> Tree:
     if kind == "rglru":
         return {"ln1": L.init_norm(cfg), "rec": R.init_rglru(cfg),
                 "ln2": L.init_norm(cfg), "mlp": L.init_mlp(cfg)}
@@ -68,8 +84,9 @@ def _ffn(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor
     return L.apply_mlp(cfg, p, x)
 
 
-def init_stage(cfg: ArchConfig, stage: Stage) -> List[Tuple[Tree, ...]]:
-    return [tuple(init_block(cfg, k) for k in stage.pattern)
+def init_stage(cfg: ArchConfig, stage: Stage, cross: bool = False
+               ) -> List[Tuple[Tree, ...]]:
+    return [tuple(init_block(cfg, k, cross) for k in stage.pattern)
             for _ in range(stage.repeats)]
 
 
@@ -156,15 +173,32 @@ def _cache_window(cfg: ArchConfig, kind: str, max_seq: int) -> int:
 # ---------------------------------------------------------------------------
 # Full sequence (calibration)
 # ---------------------------------------------------------------------------
+def _cross(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+           positions: torch.Tensor, enc_out, enc_pos, attn_chunk: int,
+           return_kv: bool = False):
+    """A decoder block's cross-attention on its ``ln_x``-normed input
+    over ``enc_out`` at ``enc_pos``: non-causal, no RoPE.  Without
+    ``enc_out`` the keys come from the block's own normed stream, as in
+    the reference (its ``quantize_model_baseline`` calibrates a block
+    so)."""
+    return L.attention_full(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x),
+                            positions, causal=False, attn_chunk=attn_chunk,
+                            use_rope=False, xkv=enc_out,
+                            kv_positions=enc_pos, return_kv=return_kv)
+
+
 def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
                attn_chunk: int = 1024,
-               aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+               aux: Optional[List[torch.Tensor]] = None,
+               enc_out: Optional[torch.Tensor] = None,
+               enc_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block over a whole sequence: x (B, S, D), positions (B, S)
-    -> x + attention (or the RG-LRU), then + MLP or MoE; x + the xLSTM
-    cell for mlstm and slstm (whose FFN is inside the cell).  With
-    ``aux`` given, a moe block appends its router's load-balancing loss
-    to it."""
+    -> x + attention (or the RG-LRU), + the cross-attention over
+    ``enc_out`` (B, S_enc, D) at ``enc_pos`` in a decoder block of an
+    encoder-decoder model, then + MLP or MoE; x + the xLSTM cell for
+    mlstm and slstm (whose FFN is inside the cell).  With ``aux`` given,
+    a moe block appends its router's load-balancing loss to it."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
         return block_prefill(cfg, kind, p, x, positions, 0)[0]
@@ -177,6 +211,8 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                          window=_kind_window(cfg, kind),
                          attn_chunk=attn_chunk)
     x = x + h
+    if "xattn" in p:
+        x = x + _cross(cfg, p, x, positions, enc_out, enc_pos, attn_chunk)
     z = L.apply_norm(cfg, p["ln2"], x)
     if kind == "moe" and aux is not None:
         aux.append(L.moe_aux_loss(cfg, z, p["mlp"]["router"]))
@@ -185,16 +221,17 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
 
 def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
-               attn_chunk: int = 1024):
-    """A stage's layers over a whole sequence (the loss forward).
-    Returns (x, aux): aux is the f32 sum of the moe blocks' auxiliary
-    losses in depth order (0 for dense blocks)."""
+               attn_chunk: int = 1024, enc_out=None, enc_pos=None):
+    """A stage's layers over a whole sequence (the loss forward, the
+    encoder).  Returns (x, aux): aux is the f32 sum of the moe blocks'
+    auxiliary losses in depth order (0 for dense blocks)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in sparams:
         for i, kind in enumerate(stage.pattern):
             a: List[torch.Tensor] = []
             x = block_full(cfg, kind, lp[i], x, positions, causal=causal,
-                           attn_chunk=attn_chunk, aux=a)
+                           attn_chunk=attn_chunk, aux=a, enc_out=enc_out,
+                           enc_pos=enc_pos)
             for t in a:
                 aux = aux + t
     return x, aux
@@ -205,13 +242,14 @@ def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int,
-                  attn_chunk: int = 1024):
+                  attn_chunk: int = 1024, enc_out=None, enc_pos=None):
     """One block over a whole (left-padded) prompt.  Returns (x, cache):
     the ring cache {"k", "v": (B, W, hkv, dh), "p": (B, W)} of an
-    attention block, or a recurrent block's final state: rglru {"h":
-    (B, R), "conv": (B, cw-1, R)}, mlstm {"c", "n"}, slstm {"h", "c",
-    "n", "m"}.  The recurrence runs over the padding too, as in the
-    reference."""
+    attention block ({"self": ring, "xk", "xv": (B, S_enc, hkv, dh)} with
+    a cross-attention, whose K/V over ``enc_out`` are kept as they were
+    computed), or a recurrent block's final state: rglru {"h": (B, R),
+    "conv": (B, cw-1, R)}, mlstm {"c", "n"}, slstm {"h", "c", "n", "m"}.
+    The recurrence runs over the padding too, as in the reference."""
     _check_kind(kind)
     if kind == "mlstm":
         h, state = R.mlstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x))
@@ -232,23 +270,35 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         attn_chunk=attn_chunk,
         cache_window=_cache_window(cfg, kind, max_seq))
     x = x + h
+    if "xattn" in p:
+        h, xk, xv = _cross(cfg, p, x, positions, enc_out, enc_pos,
+                           attn_chunk, return_kv=True)
+        x = x + h
+        cache = {"self": cache, "xk": xk, "xv": xv}
     return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
         cache
 
 
+def _stack(caches: List[Tree]) -> Tree:
+    """Per-layer cache dicts (nested for a cross block) -> one dict of
+    tensors stacked on a leading layer axis."""
+    if isinstance(caches[0], dict):
+        return {k: _stack([c[k] for c in caches]) for k in caches[0]}
+    return torch.stack(caches)
+
+
 def stage_prefill(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int,
-                  attn_chunk: int = 1024):
+                  attn_chunk: int = 1024, enc_out=None, enc_pos=None):
     """Prefill a stage.  Returns (x, caches): per pattern position, the
     layers' caches stacked on a leading layer axis."""
     per_pos: List[List[Tree]] = [[] for _ in stage.pattern]
     for lp in sparams:
         for i, kind in enumerate(stage.pattern):
             x, c = block_prefill(cfg, kind, lp[i], x, positions, max_seq,
-                                 attn_chunk)
+                                 attn_chunk, enc_out, enc_pos)
             per_pos[i].append(c)
-    return x, tuple({k: torch.stack([c[k] for c in cs]) for k in cs[0]}
-                    for cs in per_pos)
+    return x, tuple(_stack(cs) for cs in per_pos)
 
 
 def _rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, cache: Tree,
@@ -292,10 +342,16 @@ def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         return _xlstm_step(cfg, kind, p, x, cache, layer), cache
     if kind == "rglru":
         return _rglru_step(cfg, p, x, cache, layer, promote=True), cache
-    h, cache = L.attention_decode(
-        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos, cache,
-        layer=layer, window=_kind_window(cfg, kind))
+    cross = "xattn" in p
+    h, _ = L.attention_decode(
+        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos,
+        cache["self"] if cross else cache, layer=layer,
+        window=_kind_window(cfg, kind))
     x = x + h
+    if cross:
+        x = x + L.attention_cross_decode(
+            cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x),
+            cache["xk"][layer], cache["xv"][layer])
     return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
         cache
 
@@ -312,11 +368,13 @@ def stage_step(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
 
 
 def init_stage_cache(cfg: ArchConfig, stage: Stage, batch: int,
-                     max_seq: int, dtype=torch.bfloat16,
-                     device="cpu") -> Tuple[Dict[str, torch.Tensor], ...]:
+                     max_seq: int, dtype=torch.bfloat16, device="cpu",
+                     enc_len: int = 0) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Empty decode caches for a stage: per pattern position
-    ``L.make_cache`` with every position -1, or a recurrent block's zero
-    state at the decode batch."""
+    ``L.make_cache`` with every position -1 (under ``"self"`` beside
+    zero cross K/V ``"xk"``, ``"xv"`` (L, B, enc_len, hkv, dh) for an
+    encoder-decoder model given ``enc_len``), or a recurrent block's
+    zero state at the decode batch."""
     out = []
     for kind in stage.pattern:
         _check_kind(kind)
@@ -327,6 +385,10 @@ def init_stage_cache(cfg: ArchConfig, stage: Stage, batch: int,
         c = L.make_cache(cfg, batch, _cache_window(cfg, kind, max_seq),
                          stage.repeats, dtype, device)
         c["p"].fill_(-1)
+        if cfg.enc_dec and enc_len:
+            x = L.make_cache(cfg, batch, enc_len, stage.repeats, dtype,
+                             device)
+            c = {"self": c, "xk": x["k"], "xv": x["v"]}
         out.append(c)
     return tuple(out)
 

@@ -46,8 +46,10 @@ constructor refuses it for such models with the reference's
 ``ValueError``.  A paged model with recurrent blocks alone (xLSTM) has
 no page pool on the device, yet its requests hold pages in the block
 tables and are admitted, preempted and freed by them, as in the
-reference.  Not ported yet, and refused with ``NotImplementedError``:
-encoder-decoder and frontend (vision, audio) models.
+reference.  A vision model (llava) is served on text alone, as the
+reference's engine serves it: no request carries ``vision_embeds``.  An
+encoder-decoder model is refused with ``NotImplementedError``
+(``refuse_enc_dec``): the reference's engine cannot serve it either.
 """
 from __future__ import annotations
 
@@ -316,6 +318,17 @@ class _PagedBackend:
         return logits
 
 
+def refuse_enc_dec(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for an encoder-decoder model.  The
+    reference's engine cannot serve one either: its contiguous prefill
+    carries no ``frames`` (KeyError) and its paged caches raise."""
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not served; the "
+            "reference's engine cannot serve them either (its requests "
+            "carry no frames, and paged serving does not support enc-dec)")
+
+
 class Engine:
     def __init__(self, cfg: ArchConfig, params: Tree, *, n_slots: int = 4,
                  max_seq: int = 512, prefill_buckets=(64, 256),
@@ -334,10 +347,7 @@ class Engine:
         state keeps its own dtypes on both backends.
         ``attn_chunk`` is the key chunk of whole-prompt prefill attention
         (the reference's ``Parallel.attn_chunk``)."""
-        if cfg.enc_dec or cfg.frontend:
-            raise NotImplementedError(
-                "encoder-decoder and frontend models are not ported yet: "
-                "the port serves decoder-only LMs")
+        refuse_enc_dec(cfg)
         kinds = {k for s in cfg.stages for k in s.pattern}
         if chunked_prefill:
             if not paged:

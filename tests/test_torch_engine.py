@@ -27,6 +27,7 @@ from repro.runtime.engine import Engine as REngine  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import registry as t_registry  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.runtime.engine import Engine as TEngine  # noqa: E402
 
 PAR = Parallel(tp=1, dp=1, remat=False, attn_chunk=32)
@@ -98,18 +99,23 @@ def test_engine_greedy_tokens_match_repro_across_preemption(
 
 
 def test_engine_refuses_what_is_not_ported(subject):
-    """Encoder-decoder and frontend models (seamless-m4t-medium,
-    llava-next-34b) are not ported: the engine's constructor raises
-    NotImplementedError for them on either backend, before it reads the
-    parameters; the reference's ValueErrors for modes that need the
-    paged backend or prefix sharing are kept."""
+    """An encoder-decoder model (seamless-m4t-medium), which the
+    reference's engine cannot serve either, is refused: the engine's
+    constructor raises NotImplementedError on either backend, before it
+    reads the parameters.  A vision model (llava-next-34b) is served on
+    text (``tests/test_torch_vlm.py``) and is not refused.  The
+    reference's ValueErrors for modes that need the paged backend or
+    prefix sharing are kept."""
     _, _, tp = subject
-    for arch in ("seamless-m4t-medium", "llava-next-34b"):
-        cfg = t_registry.get(arch).reduced()
-        assert cfg.enc_dec or cfg.frontend
-        for kw in (dict(), dict(paged=True)):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                TEngine(cfg, None, device="cpu", **kw)
+    cfg = t_registry.get("seamless-m4t-medium").reduced()
+    assert cfg.enc_dec
+    for kw in (dict(), dict(paged=True)):
+        with pytest.raises(NotImplementedError, match="encoder-decoder"):
+            TEngine(cfg, None, device="cpu", **kw)
+    vlm = t_registry.get("llava-next-34b").reduced()
+    assert vlm.frontend == "vision"
+    TEngine(vlm, TM.init_params(vlm, 0, "cpu"), device="cpu", n_slots=2,
+            max_seq=64)
     cfg = t_registry.get("tiny-lm").reduced()
     for kw in (dict(chunked_prefill=True), dict(prefix_sharing=True),
                dict(paged=True, prefix_retain_pages=4)):

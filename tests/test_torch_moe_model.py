@@ -233,8 +233,8 @@ def test_engine_greedy_tokens_match_repro(subject, mode,
 def test_serve_granite_reduced_on_cpu():
     """``launch.serve --arch granite-moe-1b-a400m`` no longer raises:
     reduced, fused data-free, on the paged chunked-prefill engine and
-    on the contiguous whole-prompt one; what is not ported (a frontend
-    model, llava-next-34b) still raises."""
+    on the contiguous whole-prompt one; what is not served (an
+    encoder-decoder model, seamless-m4t-medium) still raises."""
     common = ["--arch", ARCH, "--reduced", "--fused", "--requests", "3",
               "--slots", "2", "--max-seq", "64", "--max-new", "3",
               "--device", "cpu"]
@@ -244,6 +244,6 @@ def test_serve_granite_reduced_on_cpu():
         out = serve.run(serve.parse_args(common + extra))
         assert out["all_done"] and out["cache_backend"] == backend
         assert 1.5 < out["bits_per_weight"] < 3.0
-    with pytest.raises(NotImplementedError, match="decoder-only"):
-        serve.run(serve.parse_args(["--arch", "llava-next-34b",
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        serve.run(serve.parse_args(["--arch", "seamless-m4t-medium",
                                     "--reduced", "--device", "cpu"]))
