@@ -167,19 +167,37 @@ Phases, each of which raises on failure:
    64 text tokens and 16 decode steps beside the step's weight-read
    bound (``[vlm model]``), then the engine on text prompts through
    paged chunked prefill with all three kernels, as phase 5 (``[vlm]``);
-13. check that every (M, K, N) the packed matmul launched at in phases
+13. training: ``launch.train.run`` of qwen2.5-3b at full width and
+   depth (36 layers, 3.086 B parameters, bf16 weights, f32 AdamW
+   moments) for 30 steps of 8 x 512 tokens with remat (``[train]``:
+   finite losses whose last five average below the first; then the
+   same step timed on its state, tokens/s, the model FLOP share of 989
+   TFLOP/s, peak memory, the busy share and the device ms by kernel of
+   a step); 6 steps with 2 microbatches and int8 gradient compression
+   (``[train mb2 int8]``); the trained params tree (6.17 GB) saved in
+   the reference's checkpoint layout and restored bit for bit, with
+   each way's GB/s (``[train ckpt]``); the reference's restart test on
+   tiny-lm, a failure at step 9 ending within 1e-5 of the uninterrupted
+   run (``[train restart]``); 3 steps of a reduced 3-layer model on the
+   card and on the CPU from one state (``[train reference]``).  The
+   training path reaches no kernel of the port (every launch count
+   reads 0), as the reference's reaches no Pallas kernel;
+14. check that every (M, K, N) the packed matmul launched at in phases
    5-12 was held against its plain version in phase 3, 6, 8, 9 or 10, then
    print the ``kernels`` JSON line (six entries, one per TPU kernel: the
    five wrappers and the perm gather of ``mixed_matmul``) and the result
-   line.
+   line.  Each phase's wall seconds print as it ends (``[phase]``).
 
 It exits non-zero without CUDA, and when run outside a checkout of the
 repository.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -3138,6 +3156,464 @@ def run_vlm_serve(torch, kernels) -> dict:
                                 "cache_backend")} | {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training — qwen2.5-3b at full width and depth
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "30", "--batch", "8",
+              "--seq", "512", "--lr", "3e-4", "--warmup", "5", "--remat",
+              "--log-every", "1"]
+TRAIN_MB2_ARGS = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "8",
+                  "--seq", "512", "--lr", "3e-4", "--warmup", "5",
+                  "--microbatches", "2", "--compression", "int8", "--remat",
+                  "--log-every", "1"]
+# [train topk]: top-k compression with one microbatch, so the bf16
+# gradients are compressed and written back in place
+TRAIN_TOPK_ARGS = ["--arch", TRAIN_ARCH, "--steps", "3", "--batch", "8",
+                   "--seq", "512", "--lr", "3e-4", "--warmup", "5",
+                   "--compression", "topk", "--remat", "--log-every", "1"]
+RESTART_ARGS = ["--arch", "tiny-lm", "--steps", "12", "--batch", "2",
+                "--seq", "32", "--log-every", "100", "--save-every", "4"]
+# [train restart]: the reference's own bound on the final loss
+RESTART_ATOL = 1e-5
+# [train reference], card vs CPU over 3 steps of reduced tiny-lm (a
+# 3-layer stage, f32; int8 compression with 2 microbatches, and top-k
+# with one): losses within 2e-5 and each leaf's update p3 - p0 within
+# 2e-3 relative in norm, the bounds tests/test_torch_train.py holds the
+# port to the JAX package with (the two devices sum the same f32
+# products in other orders).  Parameters: a code flip is an element
+# whose compressed gradient parts the card from the CPU at some step by
+# more than f32 rounding can, by over half an int8 code step (the
+# stacked leaf's largest |value| / 254) or kept by top-k on one side
+# and dropped on the other.  On gradients one ulp apart a flip changes
+# that element's Adam moments, so its parameter parts by a share of an
+# Adam step: each flipped element within 1e-2 (one step at the peak
+# lr), at most 1 in 500 elements flipped; every other element within
+# 2e-6 (a few f32 ulps at 1).  Measured on an NVIDIA H100 80GB HBM3 at
+# 700 W: int8 143 code flips in 176,576 elements (8.1e-4), their gaps
+# 2.1e-4 at most, the rest within 2.4e-7; top-k none, all within 6e-8.
+TRAIN_LOSS_ATOL, TRAIN_DELTA_RTOL = 2e-5, 2e-3
+TRAIN_P_ATOL, TRAIN_FLIP_ATOL, TRAIN_FLIP_FRAC = 2e-6, 1e-2, 2e-3
+TRAIN_REF_CASES = (("int8", 2), ("topk", 1))
+
+
+def _train_losses(text: str) -> list:
+    return [float(x) for x in re.findall(r"loss (\S+)", text)]
+
+
+def _run_train(torch, train, argv) -> tuple:
+    """``train.run`` of ``argv`` on the card: (its result, its per-step
+    losses, the step function it built, its state after the last step).
+    The run's log is captured for its losses and printed."""
+    seen = {}
+    orig = train.make_train_step
+
+    def capture(*a, **k):
+        fn = orig(*a, **k)
+
+        def step(state, batch):
+            out = fn(state, batch)
+            seen["fn"], seen["state"] = fn, out[0]
+            return out
+        return step
+
+    buf = io.StringIO()
+    train.make_train_step = capture
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = train.run(train.parse_args(argv))
+    finally:
+        train.make_train_step = orig
+    sys.stdout.write(buf.getvalue())
+    return res, _train_losses(buf.getvalue()), seen["fn"], seen["state"]
+
+
+def _batch_on(torch, cfg, args, step: int, device):
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=args.seed))
+    tok, tgt = next(corpus.batches(args.batch, args.seq, 1, host=step,
+                                   n_hosts=1 << 30))
+    return {"tokens": torch.from_numpy(tok).to(device),
+            "targets": torch.from_numpy(tgt).to(device)}
+
+
+def _step_ms(torch, fn, state, batch, warm: int, steps: int) -> float:
+    """Mean wall ms of ``steps`` train steps after ``warm``, the card
+    synchronized (each step reads its loss back, as ``run`` does)."""
+    for _ in range(warm):
+        state, m = fn(state, batch)
+        float(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = fn(state, batch)
+        float(m["loss"])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+# cuBLAS and CUTLASS kernel names (nvjet: cuBLAS's Hopper GEMMs)
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_",
+              "ampere_")
+
+
+def step_kernel_groups(torch, step, top: int = 8) -> dict:
+    """Device ms of one call of ``step`` by kernel: the library GEMMs
+    together (cuBLAS / CUTLASS names), then the ``top`` other kernel
+    names by time, each with its count."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    gemm = [0.0, 0]
+    other = {}
+    for e in prof.events():
+        if e.device_type.name != "CUDA":
+            continue
+        us = e.time_range.end - e.time_range.start
+        if any(k in e.name.lower() for k in GEMM_NAMES):
+            gemm[0] += us
+            gemm[1] += 1
+        else:
+            acc = other.setdefault(e.name[:80], [0.0, 0])
+            acc[0] += us
+            acc[1] += 1
+    ranked = sorted(other.items(), key=lambda kv: -kv[1][0])
+    return {"gemm_ms": gemm[0] / 1e3, "gemm_kernels": gemm[1],
+            "other_ms": sum(v[0] for v in other.values()) / 1e3,
+            "other_kernels": sum(v[1] for v in other.values()),
+            "top_other": [{"name": k, "ms": v[0] / 1e3, "count": v[1]}
+                          for k, v in ranked[:top]]}
+
+
+def _no_launches(tag, kernels):
+    """The training path reaches no kernel of the port (the reference's
+    reaches no Pallas kernel): every launch count reads 0."""
+    for name, n in _launches(kernels).items():
+        if n:
+            _fail(f"{tag}: {name} launched {n} times on the training path")
+
+
+def run_train(torch, kernels, smi: str) -> dict:
+    """``[train]``: ``launch.train.run`` of qwen2.5-3b at full width and
+    depth, 30 steps of 8 x 512 tokens with remat; then the same step
+    timed on its state, its busy share, and ``[train mb2 int8]``."""
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    out = {}
+    cfg = registry.get(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    _reset(kernels)
+    t0 = time.perf_counter()
+    res, losses, fn, state = _run_train(torch, train, TRAIN_ARGS)
+    run_s = time.perf_counter() - t0
+    _no_launches("[train]", kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n = sum(t.numel() for t in pytree.leaves(state["params"]))
+    declared = sum(math.prod(p.shape) for p in pytree.leaves(
+        M.declare_params(cfg)))
+    if n != declared:
+        _fail(f"[train] {n} parameters trained, {declared} declared")
+    if len(losses) != 30 or not all(math.isfinite(x) for x in losses):
+        _fail(f"[train] losses not 30 finite values: {losses}")
+    if not sum(losses[-5:]) / 5 < losses[0]:
+        _fail(f"[train] the last 5 losses' mean is not below the first: "
+              f"{losses}")
+    args = train.parse_args(TRAIN_ARGS)
+    batch = _batch_on(torch, cfg, args, 0, "cuda")
+    _reset(kernels)
+    ms = _step_ms(torch, fn, state, batch, warm=2, steps=5)
+    busy = step_busy_share(torch, lambda: fn(state, batch)[1]["loss"],
+                           steps=3)
+    groups = step_kernel_groups(torch, lambda: fn(state, batch))
+    _no_launches("[train] timing", kernels)
+    tokens = args.batch * args.seq
+    flops = 6.0 * cfg.n_params() * tokens
+    out["train"] = {
+        "arch": TRAIN_ARCH, "params": n, "config_params": cfg.n_params(),
+        "steps": 30,
+        "batch": args.batch, "seq": args.seq, "losses": losses,
+        "first_loss": res["first_loss"], "final_loss": res["final_loss"],
+        "run_s": run_s, "step_ms": ms, "tokens_per_s": tokens / ms * 1e3,
+        "model_tflops": flops / ms / 1e9,
+        "model_flop_share_of_989": flops / (ms / 1e3) / 989e12,
+        "peak_mem_gb": peak, "allocated_before_gb": before,
+        "step_busy_share": busy,
+        "step_kernels": groups, "straggler_steps": res["straggler_steps"],
+        "launches": _launches(kernels)}
+    print(f"[train] {smi}; model FLOPs 6 * config_params * tokens a step "
+          "(recomputation not counted) over 989 TFLOP/s: "
+          + json.dumps(out["train"]), flush=True)
+    del fn, state, batch
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    _reset(kernels)
+    res, losses, fn, state = _run_train(torch, train, TRAIN_MB2_ARGS)
+    _no_launches("[train mb2 int8]", kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(losses) != 6 or not all(math.isfinite(x) for x in losses):
+        _fail(f"[train mb2 int8] losses not 6 finite values: {losses}")
+    args = train.parse_args(TRAIN_MB2_ARGS)
+    ms = _step_ms(torch, fn, state, _batch_on(torch, cfg, args, 0, "cuda"),
+                  warm=1, steps=3)
+    _no_launches("[train mb2 int8] timing", kernels)
+    out["train mb2 int8"] = {
+        "losses": losses, "step_ms": ms,
+        "tokens_per_s": args.batch * args.seq / ms * 1e3,
+        "peak_mem_gb": peak, "allocated_before_gb": before,
+        "wire_bytes": res["wire_bytes"],
+        "uncompressed_wire_bytes": 4 * n, "launches": _launches(kernels)}
+    print(f"[train mb2 int8] {smi}: " + json.dumps(out["train mb2 int8"]),
+          flush=True)
+    params = state["params"]
+    del fn, state
+    torch.cuda.empty_cache()
+    out["train ckpt"] = run_train_ckpt(torch, params)
+    print(f"[train ckpt] {smi}: " + json.dumps(out["train ckpt"]),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    out["train topk"] = run_train_topk(torch, kernels, cfg)
+    print(f"[train topk] {smi}: " + json.dumps(out["train topk"]),
+          flush=True)
+    return out
+
+
+def run_train_topk(torch, kernels, cfg) -> dict:
+    """``[train topk]``: 3 steps of qwen2.5-3b with top-k compression
+    and one microbatch (the bf16 gradients compressed in place), its
+    step timed over 2 after 1 of warm-up; and the threshold of the
+    largest stacked leaf alone (the embedding, one ``topk`` over vocab
+    x d elements) timed on random values."""
+    from repro_torch.distributed import compression
+    from repro_torch.launch import train
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 1e9
+    _reset(kernels)
+    res, losses, fn, state = _run_train(torch, train, TRAIN_TOPK_ARGS)
+    _no_launches("[train topk]", kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        _fail(f"[train topk] losses not 3 finite values: {losses}")
+    args = train.parse_args(TRAIN_TOPK_ARGS)
+    ms = _step_ms(torch, fn, state, _batch_on(torch, cfg, args, 0, "cuda"),
+                  warm=1, steps=2)
+    _no_launches("[train topk] timing", kernels)
+    del fn, state
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    emb = torch.randn(cfg.vocab, cfg.d_model, generator=g, device="cuda")
+    thresh = Timer(torch, iters=3).ms(
+        lambda: compression._topk_thresh([emb], 0.1))
+    del emb
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms,
+            "tokens_per_s": args.batch * args.seq / ms * 1e3,
+            "peak_mem_gb": peak, "allocated_before_gb": before,
+            "wire_bytes": res["wire_bytes"],
+            "embed_thresh_ms": thresh,
+            "embed_elements": cfg.vocab * cfg.d_model,
+            "launches": _launches(kernels)}
+
+
+def run_train_ckpt(torch, params) -> dict:
+    """``[train ckpt]``: the full params tree saved by the port's store
+    in the reference's layout (stage leaves stacked on the host), then
+    restored into a template (meta tensors) onto the card; every leaf
+    bit-identical.  In a directory under ``build/`` removed after."""
+    import shutil
+    import tempfile
+    from repro_torch import pytree
+    from repro_torch.bridge import params_from_repro, params_to_repro
+    from repro_torch.checkpoint.store import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.launch.train import _stack_meta, _stack_to_cpu
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    try:
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in pytree.leaves(params))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(d, 30, params_to_repro(params, _stack_to_cpu))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree, step = restore_checkpoint(d, params_to_repro(params,
+                                                           _stack_meta),
+                                        device="cuda")
+        back = params_from_repro(tree, "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        files = len(list(Path(d, "step_00000030").glob("leaf_*.npy")))
+        for (key, a), b in zip(pytree.leaves_with_path(params),
+                               pytree.leaves(back)):
+            if a.dtype != b.dtype or not torch.equal(
+                    a.view(torch.int16), b.view(torch.int16)):
+                _fail(f"[train ckpt] {key} not bit-identical after restore")
+        if step != 30:
+            _fail(f"[train ckpt] restored step {step}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"gb": nbytes / 1e9, "leaf_files": files, "save_s": save_s,
+            "save_gb_per_s": nbytes / 1e9 / save_s, "restore_s": load_s,
+            "restore_gb_per_s": nbytes / 1e9 / load_s,
+            "bit_identical": True}
+
+
+def run_train_restart(torch, kernels) -> dict:
+    """``[train restart]``: the reference's restart test on the card,
+    tiny-lm unreduced (a 4-layer stage): 12 steps saving every 4, plain
+    and with a failure at step 9; one restart, the final losses within
+    the reference's 1e-5."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="train_restart_", dir=ROOT / "build"))
+    _reset(kernels)
+    try:
+        r1 = train.run(train.parse_args(RESTART_ARGS + [
+            "--ckpt-dir", str(d / "a")]))
+        r2 = train.run(train.parse_args(RESTART_ARGS + [
+            "--ckpt-dir", str(d / "b"), "--fail-at-step", "9"]))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    _no_launches("[train restart]", kernels)
+    if r1["restarts"] != 0 or r2["restarts"] != 1:
+        _fail(f"[train restart] restarts {r1['restarts']}, {r2['restarts']}")
+    gap = abs(r1["final_loss"] - r2["final_loss"])
+    if not gap <= RESTART_ATOL:
+        _fail(f"[train restart] final losses {r1['final_loss']} and "
+              f"{r2['final_loss']} part by {gap} > {RESTART_ATOL}")
+    return {"final_loss": r1["final_loss"],
+            "final_loss_restarted": r2["final_loss"], "gap": gap,
+            "bit_identical": r1["final_loss"] == r2["final_loss"],
+            "restarts": r2["restarts"]}
+
+
+def _code_flips(torch, kind: str, card, cpu) -> list:
+    """Per parameter, in ``pytree.leaves`` order, the elements whose
+    compressed gradient (card tree against CPU tree, both in the port's
+    layout) parts by a code flip (see ``TRAIN_P_ATOL``'s comment)."""
+    from repro_torch import pytree
+    from repro_torch.bridge import layer_groups
+    masks = {}
+    for ga, gb in zip(layer_groups(card), layer_groups(cpu)):
+        pa = list(ga) if isinstance(ga, pytree.Layers) else [ga]
+        pb = list(gb) if isinstance(gb, pytree.Layers) else [gb]
+        amax = max(float(b.abs().max()) for b in pb)
+        for a, b in zip(pa, pb):
+            a = a.cpu()
+            masks[id(b)] = ((a - b).abs() > amax / 254 if kind == "int8"
+                            else (a == 0) != (b == 0))
+    return [masks[id(b)] for b in pytree.leaves(cpu)]
+
+
+def check_train_reference(torch, kind: str = "int8",
+                          microbatches: int = 2) -> dict:
+    """``[train reference]``: 3 train steps of reduced tiny-lm with a
+    3-layer stage in f32 (``kind`` compression, ``microbatches``, remat,
+    lr 1e-2, weight decay, clipping, the cosine schedule) on the card
+    and on the CPU from the same state: the losses, each leaf's update
+    and the parameters within ``TRAIN_*`` (above).  Returns the code
+    flips, the gaps of their elements, the largest gap of the rest and
+    the largest leaf's update ratio."""
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import Stage
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.launch import train
+    from repro_torch.models.param import tree_to
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    cfg = dataclasses.replace(registry.get("tiny-lm").reduced(),
+                              stages=(Stage(("dense",), 3),))
+    opt = AdamW(lr=1e-2, weight_decay=0.01, clip_norm=1.0,
+                schedule=cosine_schedule(1, 3))
+    ccfg = CompressionConfig(kind=kind)
+    cpu = train.init_state(cfg, opt, ccfg, seed=0, device="cpu")
+    cpu["params"] = tree_to(cpu["params"], float_dtype=torch.float32)
+    p0 = [t.clone() for t in pytree.leaves(cpu["params"])]
+    dev = pytree.tree_map(lambda t: t.to("cuda", copy=True), cpu)
+    step = train.make_train_step(cfg, opt, ccfg, microbatches=microbatches,
+                                 remat=True)
+    args = train.parse_args(["--batch", "4", "--seq", "32"])
+    sent = []                       # compressed gradients, card then CPU
+    orig = train.compress
+
+    def compress(grads, residual, c):
+        out = orig(grads, residual, c)
+        sent.append(pytree.tree_map(torch.clone, out[0]))
+        return out
+
+    gaps = []
+    flipped = None
+    train.compress = compress
+    try:
+        for s in range(3):
+            b = _batch_on(torch, cfg, args, s, "cpu")
+            dev, md = step(dev, {k: v.to("cuda") for k, v in b.items()})
+            cpu, mc = step(cpu, b)
+            gaps.append(abs(float(md["loss"]) - float(mc["loss"])))
+            f = _code_flips(torch, kind, *sent)
+            flipped = f if flipped is None else [
+                x | y for x, y in zip(flipped, f)]
+            sent.clear()
+    finally:
+        train.compress = orig
+    flip_gaps, total, worst, ratio, ratio_key = [], 0, 0.0, 0.0, ""
+    for (key, a), b, b0, f in zip(pytree.leaves_with_path(dev["params"]),
+                                  pytree.leaves(cpu["params"]), p0, flipped):
+        diff = (a.cpu() - b).abs()
+        flip_gaps += diff[f].tolist()
+        total += diff.numel()
+        if (~f).any():
+            worst = max(worst, float(diff[~f].max()))
+        r = float(torch.linalg.vector_norm(a.cpu() - b)
+                  / torch.linalg.vector_norm(b - b0))
+        if r > ratio:
+            ratio, ratio_key = r, key
+    out = {"compression": kind, "microbatches": microbatches,
+           "loss_gaps": gaps, "code_flips": len(flip_gaps),
+           "elements": total, "flip_gaps": sorted(flip_gaps, reverse=True),
+           "max_gap_unflipped": worst, "max_update_ratio": ratio,
+           "max_update_ratio_leaf": ratio_key,
+           "steps": int(dev["opt"].step)}
+    if max(gaps) > TRAIN_LOSS_ATOL:
+        _fail(f"[train reference {kind}] card vs CPU losses: {out}")
+    if ratio > TRAIN_DELTA_RTOL:
+        _fail(f"[train reference {kind}] a leaf's update: {out}")
+    if worst > TRAIN_P_ATOL:
+        _fail(f"[train reference {kind}] an element without a code flip "
+              f"parts by more than {TRAIN_P_ATOL}: {out}")
+    if len(flip_gaps) > TRAIN_FLIP_FRAC * total:
+        _fail(f"[train reference {kind}] too many code flips: {out}")
+    if flip_gaps and max(flip_gaps) > TRAIN_FLIP_ATOL:
+        _fail(f"[train reference {kind}] a flipped element parts by more "
+              f"than {TRAIN_FLIP_ATOL}: {out}")
+    return out
+
+
+class Laps:
+    """Wall seconds of each phase, printed as it ends (``[phase]``)."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+
+    def __call__(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[phase] {phase}: {now - self.last:.1f}s (run "
+              f"{now - self.t0:.1f}s)", flush=True)
+        self.last = now
+
+
 def _entry(name, replaces, checked, rows, launches, shape, source=None):
     """One kernel's entry of the ``kernels`` line: max error over every
     shape ``checked``, times summed over ``rows``, launches per path."""
@@ -3173,6 +3649,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    laps = Laps()
     # -- 1. the card ----------------------------------------------------
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -3183,6 +3660,7 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
 
+    laps("1")
     # -- 2. build -------------------------------------------------------
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -3216,6 +3694,7 @@ def main() -> int:
           + "; attention split plans: "
           + json.dumps(attention_plans(torch, cfg)), flush=True)
 
+    laps("2")
     # -- 3. kernels against their plain versions --------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
@@ -3332,6 +3811,7 @@ def main() -> int:
           + json.dumps(gather), flush=True)
     del projs, timer
 
+    laps("3")
     # -- 4. small-input agreement, card against CPU -----------------------
     worst = check_small_reference(torch, registry)
     print(f"[reference] reduced llama-7b, f32: card vs CPU logits agree "
@@ -3410,6 +3890,7 @@ def main() -> int:
     vlm_serve = run_vlm_serve(torch, kernels)
     print("[vlm serve] " + json.dumps(vlm_serve), flush=True)
 
+    laps("4")
     # -- 5. the data-free main path, then whole-prompt prefill -------------
     # from here on the packed matmul counts its launches by (M, K, N)
     mixed_matmul.KERNEL.shapes.clear()
@@ -3429,6 +3910,7 @@ def main() -> int:
                               loss["loss"])
     print("[baselines] " + json.dumps(baselines), flush=True)
 
+    laps("5")
     # -- 6. the calibrated path ---------------------------------------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3436,6 +3918,7 @@ def main() -> int:
                                       peaks)
     print("[calibrated] " + json.dumps(cal_summary), flush=True)
 
+    laps("6")
     # -- 7. the serve entry point at the reference's defaults ---------------
     torch.cuda.empty_cache()
     serve_default = run_serve_default(torch, kernels)
@@ -3452,6 +3935,7 @@ def main() -> int:
           f" / {sum(r['library_ms'] for r in unfused) * 1e3:.1f} us",
           flush=True)
 
+    laps("7")
     # -- 8. the MoE block kind: granite at full width and depth ------------
     moe, gcfg = run_moe_path(torch, registry, kernels, path_kernels, peaks)
     moe_cal = run_moe_calibrated(torch, gcfg, kernels, path_kernels, peaks)
@@ -3462,12 +3946,14 @@ def main() -> int:
                                    moe["moe loss"]["loss"], "moe")
     print("[moe baselines] " + json.dumps(moe_base), flush=True)
 
+    laps("8")
     # -- 9. the hybrid kinds: recurrentgemma-2b at full width and depth ----
     torch.cuda.empty_cache()
     rg, rcfg = run_rg_path(torch, registry, kernels, peaks)
     rg_cal = run_rg_calibrated(torch, rcfg, kernels, peaks)
     print("[rg calibrated] " + json.dumps(rg_cal), flush=True)
 
+    laps("9")
     # -- 10. the xLSTM kinds: xlstm-1.3b at full width and depth ----------
     torch.cuda.empty_cache()
     xl, xcfg = run_xl_path(torch, registry, kernels, peaks)
@@ -3479,15 +3965,36 @@ def main() -> int:
                                   xl["xl loss"]["loss"], "xl")
     print("[xl baselines] " + json.dumps(xl_base), flush=True)
 
+    laps("10")
     # -- 11. the encoder-decoder inputs: seamless-m4t-medium ----------------
     torch.cuda.empty_cache()
     s2t = run_s2t_path(torch, registry, kernels, peaks)
 
+    laps("11")
     # -- 12. the vision-prefix inputs: llava-next-34b at full width ---------
     torch.cuda.empty_cache()
     vlm = run_vlm_path(torch, registry, kernels, path_kernels, peaks)
 
-    # -- 13. every packed-matmul shape of the paths was checked; the kernels
+    laps("12")
+    # -- 13. training: qwen2.5-3b at full width and depth -----------------
+    torch.cuda.empty_cache()
+    run_train(torch, kernels, smi)
+    print("[train restart] tiny-lm (4 layers), 12 steps, a failure at step "
+          f"9 (limit {RESTART_ATOL}): "
+          + json.dumps(run_train_restart(torch, kernels)), flush=True)
+    for kind, mb in TRAIN_REF_CASES:
+        print(f"[train reference] reduced tiny-lm (3 layers), f32, 3 steps "
+              f"with {kind} and {mb} microbatch(es), card vs CPU (losses "
+              f"within {TRAIN_LOSS_ATOL}, each leaf within "
+              f"{TRAIN_DELTA_RTOL} of its update's norm, parameters within "
+              f"{TRAIN_P_ATOL} but for code flips, at most "
+              f"{TRAIN_FLIP_FRAC} of them, each within "
+              f"{TRAIN_FLIP_ATOL}): "
+              + json.dumps(check_train_reference(torch, kind, mb)),
+              flush=True)
+
+    laps("13")
+    # -- 14. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
@@ -3577,6 +4084,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
+    laps("14")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

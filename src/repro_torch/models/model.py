@@ -158,19 +158,23 @@ def _encoded(cfg: ArchConfig, params: Tree, batch, attn_chunk: int):
 
 def forward_loss(cfg: ArchConfig, params: Tree,
                  batch: Dict[str, torch.Tensor],
-                 attn_chunk: int = 1024) -> torch.Tensor:
+                 attn_chunk: int = 1024, remat: bool = False
+                 ) -> torch.Tensor:
     """Causal-LM loss plus 0.01 times the MoE blocks' load-balancing
     loss (0 for a dense decoder).  batch: tokens (B, S) and targets
     (B, S) int (-1 = masked), optional positions (B, S); optional
     ``vision_embeds`` (B, F, D) for a vision model, ``frames`` (B,
-    S_enc, D) for an encoder-decoder one."""
+    S_enc, D) for an encoder-decoder one.  ``remat`` recomputes each
+    decoder superblock in the backward pass (the encoder is not
+    rematerialized, as in the reference); the loss and its gradients
+    are the same."""
     x, positions = _backbone_inputs(cfg, params, batch)
     enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for stage, sp in zip(cfg.stages, params["stages"]):
         x, a = T.stage_full(cfg, stage, sp, x, positions, causal=True,
                             attn_chunk=attn_chunk, enc_out=enc_out,
-                            enc_pos=enc_pos)
+                            enc_pos=enc_pos, remat=remat)
         aux = aux + a
     loss = softmax_xent_chunked(cfg, params, x, batch["targets"])
     return loss + 0.01 * aux

@@ -35,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Stage
 from repro_torch.core.qlinear import QLinearGroup
@@ -221,12 +222,16 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
 
 def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
-               attn_chunk: int = 1024, enc_out=None, enc_pos=None):
+               attn_chunk: int = 1024, enc_out=None, enc_pos=None,
+               remat: bool = False):
     """A stage's layers over a whole sequence (the loss forward, the
     encoder).  Returns (x, aux): aux is the f32 sum of the moe blocks'
-    auxiliary losses in depth order (0 for dense blocks)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in sparams:
+    auxiliary losses in depth order (0 for dense blocks).  With
+    ``remat`` each superblock (one pass over the pattern) keeps only
+    its inputs for the backward pass and runs again there
+    (``torch.utils.checkpoint``), as the reference wraps its scanned
+    body in ``jax.checkpoint``."""
+    def superblock(x, aux, lp):
         for i, kind in enumerate(stage.pattern):
             a: List[torch.Tensor] = []
             x = block_full(cfg, kind, lp[i], x, positions, causal=causal,
@@ -234,6 +239,14 @@ def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                            enc_pos=enc_pos)
             for t in a:
                 aux = aux + t
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in sparams:
+        if remat:
+            x, aux = checkpoint(superblock, x, aux, lp, use_reentrant=False)
+        else:
+            x, aux = superblock(x, aux, lp)
     return x, aux
 
 

@@ -1,67 +1,138 @@
-"""AdamW as PTQ1.61's block-wise scale learning uses it (twin of
-``repro.optim.adamw`` at its defaults: b1 0.9, b2 0.999, eps 1e-8, zero
-weight decay, no clipping, no schedule).
+"""AdamW with decoupled weight decay, global-norm clipping and schedules
+(twin of ``repro.optim.adamw``).
+
+Used by the training launcher (weight decay 0.01, clipping at 1.0, the
+cosine schedule) and, at the defaults (no weight decay, clipping or
+schedule), by PTQ1.61's block-wise scale learning and restorative-LoRA
+preprocessing.  b1 0.9, b2 0.999 and eps 1e-8 are the reference's
+defaults, which no caller of either package changes.
 
 Written out rather than taken from ``torch.optim.AdamW`` so that each
 step computes the reference's expression in the reference's order:
-``p − lr·m̂ / (√v̂ + eps)`` with ``m̂ = m / (1 − b1^t)`` and
-``v̂ = v / (1 − b2^t)``, moments in f32.  Parameters are dictionaries of
-dictionaries of tensors (``blockwise.extract_scales``), updated out of
-place under ``torch.no_grad``.
+``p − lr·(m̂ / (√v̂ + eps) + wd·p)`` with ``m̂ = m / (1 − b1^t)`` and
+``v̂ = v / (1 − b2^t)``, moments in f32.  The step counter is a 0-d
+int32 tensor; ``t``, the bias corrections, the clipping scale and the
+schedule are f32 tensors with tensor divisors, as the reference's jitted
+``step.astype(f32)`` computes them (a Python float is f64, and a CUDA
+tensor divided by a Python scalar is multiplied by its reciprocal).
+On the CPU, ``torch.pow`` of two 0-d f32 tensors gives XLA's f32
+``b ** t`` for b2 at every step up to 3000 and for b1 until b1^t is
+subnormal (an integer power does not: ``0.999 ** 3`` is one ulp off).
+
+Clipping promotes each gradient to f32 before it scales it, as JAX's
+``g * scale`` with a strong f32 scale does; torch would keep a bf16
+gradient bf16.  The promotion happens leaf by leaf inside the update,
+so no f32 copy of every gradient is held at once.  The clipping norm
+sums the reference's leaves in its order: a stage leaf's layers
+(stacked in the reference) are summed first, then added as one leaf.
+
+Trees are dicts, lists and tuples of tensors, walked in the reference's
+order (``repro_torch.pytree``).  :meth:`AdamW.update_` writes the new
+parameters and moments into the given tensors (the trainer's state is
+too large to hold twice; the reference donates it);
+:meth:`AdamW.update` runs it on copies.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-Tree = Dict[str, Any]
+from repro_torch import pytree
+from repro_torch.bridge import layer_groups
+
+Tree = Any
+F32 = torch.float32
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
 class AdamWState(NamedTuple):
-    step: int
+    step: torch.Tensor
     mu: Tree
     nu: Tree
 
 
-def _map(fn, *trees: Tree) -> Tree:
-    if isinstance(trees[0], dict):
-        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
+def _f32(x: float, device) -> torch.Tensor:
+    return torch.tensor(x, dtype=F32, device=device)
 
 
 @dataclass(frozen=True)
 class AdamW:
     lr: float = 1e-3
+    weight_decay: float = 0.0
+    clip_norm: Optional[float] = None
+    schedule: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def init(self, params: Tree) -> AdamWState:
+        ps = pytree.leaves(params)
+        dev = ps[0].device if ps else None
+
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return AdamWState(0, _map(zeros, params), _map(zeros, params))
+            return torch.zeros(p.shape, dtype=F32, device=p.device)
+        return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
+                          pytree.tree_map(zeros, params),
+                          pytree.tree_map(zeros, params))
 
     @torch.no_grad()
     def update(self, grads: Tree, state: AdamWState, params: Tree):
+        """(new params, new state), the inputs left as they are."""
+        def copy(tree):
+            return pytree.tree_map(torch.clone, tree)
+        return self.update_(grads, AdamWState(state.step, copy(state.mu),
+                                              copy(state.nu)), copy(params))
+
+    @torch.no_grad()
+    def update_(self, grads: Tree, state: AdamWState, params: Tree):
+        """:meth:`update` written into ``params`` and the moments, leaf
+        by leaf."""
         step = state.step + 1
-        # bias corrections in f32, as the reference computes them
-        c1 = float(1 - torch.tensor(B1, dtype=torch.float32) ** step)
-        c2 = float(1 - torch.tensor(B2, dtype=torch.float32) ** step)
-
-        def upd(g, m, v, p):
-            gf = g.to(torch.float32)
-            m = B1 * m + (1 - B1) * gf
-            v = B2 * v + (1 - B2) * (gf * gf)
+        dev = step.device
+        t = step.to(F32)
+        scale = None
+        if self.clip_norm is not None:
+            gnorm = global_norm(grads)
+            scale = torch.clamp(_f32(self.clip_norm, dev) / (gnorm + 1e-9),
+                                max=1.0)
+        lr = (self.lr if self.schedule is None
+              else _f32(self.lr, dev) * self.schedule(step))
+        c1 = 1 - torch.pow(_f32(B1, dev), t)
+        c2 = 1 - torch.pow(_f32(B2, dev), t)
+        for g, m, v, p in zip(pytree.leaves(grads), pytree.leaves(state.mu),
+                              pytree.leaves(state.nu),
+                              pytree.leaves(params)):
+            gf = g.to(F32) if scale is None else g.to(F32) * scale
+            # b·m + (1 − b)·g, rounded as the reference's expression
+            m.mul_(B1).add_((1 - B1) * gf)
+            v.mul_(B2).add_((1 - B2) * (gf * gf))
             delta = (m / c1) / (torch.sqrt(v / c2) + EPS)
-            return (p.to(torch.float32) - self.lr * delta).to(p.dtype), m, v
+            if self.weight_decay:
+                delta = delta + self.weight_decay * p.to(F32)
+            p.copy_(p.to(F32) - lr * delta)
+        return params, AdamWState(step, state.mu, state.nu)
 
-        out = _map(upd, grads, state.mu, state.nu, params)
-        return (_pick(out, 0),
-                AdamWState(step, _pick(out, 1), _pick(out, 2)))
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the f32 sum of squares, leaf by leaf in the reference's
+    order (a stage leaf's layers summed first)."""
+    def sq(t):
+        return torch.sum(torch.square(t.to(F32)))
+    return torch.sqrt(sum(sum(sq(t) for t in g)
+                          if isinstance(g, pytree.Layers) else sq(g)
+                          for g in layer_groups(tree)))
 
 
-def _pick(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+def cosine_schedule(warmup: int, total: int, floor: float = 0.1):
+    """Linear warm-up to 1 over ``warmup`` steps, then a cosine down to
+    ``floor`` at ``total``; f32 in, f32 out."""
+    def fn(step: torch.Tensor) -> torch.Tensor:
+        s = step.to(F32)
+        dev = s.device
+        warm = s / _f32(max(1, warmup), dev)
+        prog = torch.clamp((s - warmup) / _f32(max(1, total - warmup), dev),
+                           0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return torch.where(s < warmup, warm, cos)
+    return fn

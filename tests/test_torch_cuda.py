@@ -564,3 +564,48 @@ def test_mixed_matmul_at_a_span_of_43_tiles(cuda, k, n):
             tmm.mixed_matmul(*args, perm=q.perm).float(),
             ref.mixed_matmul_ref(*args, perm=q.perm), rtol=2 ** -7,
             atol=1e-3)
+
+
+def test_train_steps_on_the_card_match_the_cpu(cuda):
+    """Three train steps of reduced tiny-lm with a 3-layer stage in f32
+    (int8 compression with 2 microbatches, top-k with one; remat) on the
+    card and on the CPU from the same state, within chip_smoke's
+    ``TRAIN_*`` bounds (``chip_smoke.check_train_reference``, which also
+    holds each leaf's update)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    for kind, mb in chip_smoke.TRAIN_REF_CASES:
+        out = chip_smoke.check_train_reference(torch, kind, mb)
+        assert max(out["loss_gaps"]) <= chip_smoke.TRAIN_LOSS_ATOL
+        assert out["code_flips"] <= (chip_smoke.TRAIN_FLIP_FRAC
+                                     * out["elements"])
+        assert out["max_gap_unflipped"] <= chip_smoke.TRAIN_P_ATOL
+        assert (max(out["flip_gaps"], default=0)
+                <= chip_smoke.TRAIN_FLIP_ATOL)
+        assert out["max_update_ratio"] <= chip_smoke.TRAIN_DELTA_RTOL
+        assert out["steps"] == 3
+
+
+def test_checkpoint_roundtrip_of_card_tensors(cuda, tmp_path):
+    """bf16 and f32 tensors on the card through the port's store: the
+    same bits back, restored onto the card (the template's device)."""
+    from repro_torch.checkpoint import store
+    g = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"w": torch.randn(64, 48, generator=g, device=cuda)
+            .to(torch.bfloat16),
+            "stages": [(torch.randn(3, 5, generator=g, device=cuda),
+                        torch.tensor(2.5, dtype=torch.bfloat16,
+                                     device=cuda))],
+            "step": torch.tensor(7, dtype=torch.int32, device=cuda)}
+    store.save_checkpoint(str(tmp_path), 3, tree)
+    back, step = store.restore_checkpoint(str(tmp_path), tree)
+    assert step == 3
+    for a, b in ((back["w"], tree["w"]),
+                 (back["stages"][0][0], tree["stages"][0][0]),
+                 (back["stages"][0][1], tree["stages"][0][1]),
+                 (back["step"], tree["step"])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert a.shape == b.shape
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)
