@@ -135,8 +135,9 @@ Phases, each of which raises on failure:
    and calibrated PTQ1.61 at the serve defaults (``[rg calibrated]``:
    no block's Eq.-7 loss may rise; its unfused projections held
    against the plain version; served as ``[rg]``);
-10. the xLSTM block kinds: xlstm-1.3b at full width and depth (48
-   layers: 42 mlstm, 6 slstm; layernorm, vocab 50304, untied head),
+10. the xLSTM block kinds: xlstm-1.3b at full width and 24 of its 48
+   layers (3 of its 6 superblocks since PR 19: 21 mlstm, 3 slstm;
+   ``[xl serve]`` builds all 48; layernorm, vocab 50304, untied head),
    random bf16 weights of seed 0, data-free PTQ1.61 (its projections
    stay unfused, as in the reference) served with whole-prompt prefill
    on the paged tables (``[xl]``; the model has no attention block, so
@@ -182,7 +183,18 @@ Phases, each of which raises on failure:
    card and on the CPU from one state (``[train reference]``).  The
    training path reaches no kernel of the port (every launch count
    reads 0), as the reference's reaches no Pallas kernel;
-14. check that every (M, K, N) the packed matmul launched at in phases
+14. training across devices on the one card: qwen2.5-3b at full width
+   and depth, 3 steps of 8 x 512 tokens, first on one device, then the
+   sharded step (``launch.train.run(args, mesh=...)``) from the same
+   seed on one NCCL rank, a (1, 1) ("data", "model") mesh with FSDP,
+   the state as DTensors (``[dist train]``: both runs' losses and step
+   ms, the sharded run's peak memory, the largest parameter gap; the
+   same bits are expected, since every collective of one rank is an
+   identity); ``pipeline_apply`` with one stage on the card against
+   plain application (``[dist pipeline]``).  No kernel of the port is
+   launched (every launch count reads 0).  A step across several cards
+   waits for a machine with them (ROADMAP);
+15. check that every (M, K, N) the packed matmul launched at in phases
    5-12 was held against its plain version in phase 3, 6, 8, 9 or 10, then
    print the ``kernels`` JSON line (six entries, one per TPU kernel: the
    five wrappers and the perm gather of ``mixed_matmul``) and the result
@@ -194,10 +206,10 @@ repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
-import re
 import subprocess
 import sys
 import time
@@ -2488,16 +2500,27 @@ def run_rg_calibrated(torch, cfg, kernels, peaks) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 10: the xLSTM block kinds (mlstm and slstm) at full width and depth
 # ---------------------------------------------------------------------------
+# phase 10 runs XL_REPEATS of xlstm-1.3b's 6 superblocks (7 mlstm and 1
+# slstm each): 24 of its 48 layers, at full width, so that the whole run
+# stays well inside its limit with the training phases (976 s with all
+# 48 layers in PR 19, NVIDIA H100 80GB HBM3, 700.00 W); `[xl serve]`
+# runs launch.serve's own full-depth model
+XL_REPEATS = 3
+
+
 def xlstm(registry):
-    cfg = registry.get(XL_ARCH)
+    full = registry.get(XL_ARCH)
+    cfg = dataclasses.replace(full, stages=tuple(
+        dataclasses.replace(s, repeats=XL_REPEATS) for s in full.stages))
     kinds = [k for s in cfg.stages for _ in range(s.repeats)
              for k in s.pattern]
     print(f"[xl] {XL_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
           f"mlstm_proj_factor={cfg.mlstm_proj_factor} "
           f"slstm_ff={int(round(cfg.slstm_ff_factor * cfg.d_model / 128)) * 128}"
           f" norm={cfg.norm} vocab={cfg.vocab} tied={cfg.tied_embeddings} "
-          f"layers={cfg.n_layers} ({kinds.count('mlstm')} mlstm, "
-          f"{kinds.count('slstm')} slstm)", flush=True)
+          f"layers={cfg.n_layers} of {full.n_layers} "
+          f"({kinds.count('mlstm')} mlstm, {kinds.count('slstm')} slstm)",
+          flush=True)
     return cfg
 
 
@@ -2596,8 +2619,9 @@ def _no_attention(tag, launches):
 
 
 def run_xl_path(torch, registry, kernels, peaks):
-    """xlstm-1.3b at full width and depth (48 layers: 42 mlstm, 6 slstm;
-    layernorm, vocab 50304, untied head), random bf16 weights of seed 0,
+    """xlstm-1.3b at full width and 24 of its 48 layers (``XL_REPEATS``:
+    21 mlstm, 3 slstm; layernorm, vocab 50304, untied head; ``[xl
+    serve]`` at all 48), random bf16 weights of seed 0,
     data-free PTQ1.61 (``fuse=True``, which leaves the xLSTM projections
     unfused as in the reference), served with whole-prompt prefill on
     the paged tables (``[xl]``) and on the contiguous backend (``[xl
@@ -3197,14 +3221,11 @@ TRAIN_P_ATOL, TRAIN_FLIP_ATOL, TRAIN_FLIP_FRAC = 2e-6, 1e-2, 2e-3
 TRAIN_REF_CASES = (("int8", 2), ("topk", 1))
 
 
-def _train_losses(text: str) -> list:
-    return [float(x) for x in re.findall(r"loss (\S+)", text)]
-
-
-def _run_train(torch, train, argv) -> tuple:
-    """``train.run`` of ``argv`` on the card: (its result, its per-step
-    losses, the step function it built, its state after the last step).
-    The run's log is captured for its losses and printed."""
+def _run_train(torch, train, argv, mesh=None) -> tuple:
+    """``train.run`` of ``argv`` on the card (under ``mesh`` when given):
+    (its result, its per-step losses as the step returned them, the
+    step function it built, its state after the last step).  The run's
+    log is captured and printed."""
     seen = {}
     orig = train.make_train_step
 
@@ -3214,6 +3235,7 @@ def _run_train(torch, train, argv) -> tuple:
         def step(state, batch):
             out = fn(state, batch)
             seen["fn"], seen["state"] = fn, out[0]
+            seen.setdefault("losses", []).append(float(out[1]["loss"]))
             return out
         return step
 
@@ -3221,11 +3243,11 @@ def _run_train(torch, train, argv) -> tuple:
     train.make_train_step = capture
     try:
         with contextlib.redirect_stdout(buf):
-            res = train.run(train.parse_args(argv))
+            res = train.run(train.parse_args(argv), mesh=mesh)
     finally:
         train.make_train_step = orig
     sys.stdout.write(buf.getvalue())
-    return res, _train_losses(buf.getvalue()), seen["fn"], seen["state"]
+    return res, seen["losses"], seen["fn"], seen["state"]
 
 
 def _batch_on(torch, cfg, args, step: int, device):
@@ -3601,6 +3623,162 @@ def check_train_reference(torch, kind: str = "int8",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training across devices — the sharded step on one NCCL rank
+# ---------------------------------------------------------------------------
+DIST_ARGS = ["--arch", TRAIN_ARCH, "--steps", "3", "--batch", "8",
+             "--seq", "512", "--lr", "3e-4", "--warmup", "1", "--remat",
+             "--log-every", "1"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def run_dist_train(torch, kernels, smi: str) -> dict:
+    """``[dist train]``: qwen2.5-3b at full width and depth, 3 steps of
+    8 x 512 tokens from seed 0 (lr 3e-4, warm-up 1, remat), first on one
+    device (``launch.train.run`` as ``[train]``), its losses and a host
+    copy of its final bf16 params kept and its state freed; then the
+    sharded step from the same seed through ``run(args, mesh=...)`` on
+    one NCCL rank: a (1, 1) ("data", "model") mesh, ``--fsdp``
+    (``Parallel(tp=1, dp=1, fsdp=True, remat=True)``), the state held as
+    DTensors.  At one rank every collective is an identity and the local
+    products are the one device's, so the losses and params must be the
+    same bits; if they part, the losses must lie within 2e-5 and each
+    leaf within 2e-3 of its update's norm (the CPU tests' bounds) and
+    the line says where.  Both steps are timed on their final states."""
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import is_dtensor, local
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    cfg = registry.get(TRAIN_ARCH)
+    args = train.parse_args(DIST_ARGS)
+    batch = _batch_on(torch, cfg, args, 0, "cuda")
+    out = {"arch": TRAIN_ARCH, "steps": args.steps, "batch": args.batch,
+           "seq": args.seq}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    _, losses, fn, state = _run_train(torch, train, DIST_ARGS)
+    _no_launches("[dist train] one device", kernels)
+    out["one_device"] = {"losses": losses,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated()
+                         / 1e9}
+    ref = [t.detach().to("cpu", copy=True)
+           for t in pytree.leaves(state["params"])]
+    out["one_device"]["step_ms"] = _step_ms(torch, fn, state, batch,
+                                            warm=1, steps=3)
+    del fn, state
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        _, dlosses, fn, state = _run_train(torch, train,
+                                           DIST_ARGS + ["--fsdp"], mesh=mesh)
+        run_s = time.perf_counter() - t0
+        launches = _launches(kernels)
+        _no_launches("[dist train] sharded", kernels)
+        leaves = pytree.leaves(state["params"])
+        if not all(is_dtensor(t) for t in leaves):
+            _fail("[dist train] the sharded state holds a plain tensor")
+        parted = [key for (key, t), r in zip(
+            pytree.leaves_with_path(state["params"]), ref)
+            if not _bits_equal(torch, local(t), r.to("cuda"))]
+        gap = max(float((local(t).float() - r.to("cuda").float()).abs()
+                        .max()) for t, r in zip(leaves, ref))
+        out["sharded"] = {
+            "mesh": [1, 1], "backend": dist.get_backend(), "fsdp": True,
+            "losses": dlosses, "run_s": run_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
+        out.update(bit_identical=not parted and dlosses == losses,
+                   leaves_parted=len(parted), first_parted=parted[:5],
+                   max_param_gap=gap,
+                   loss_gaps=[abs(a - b) for a, b in zip(dlosses, losses)])
+        if not out["bit_identical"]:
+            out["update_ratio"] = _dist_update_ratio(torch, cfg, leaves,
+                                                     ref)
+        out["sharded"]["step_ms"] = _step_ms(torch, fn, state, batch,
+                                             warm=1, steps=3)
+        del fn, state, leaves
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    if len(dlosses) != 3 or not all(math.isfinite(x) for x in dlosses):
+        _fail(f"[dist train] losses not 3 finite values: {dlosses}")
+    if not out["bit_identical"] and (
+            max(out["loss_gaps"]) > TRAIN_LOSS_ATOL
+            or out["update_ratio"] > TRAIN_DELTA_RTOL):
+        _fail(f"[dist train] the sharded step parts from the one device's "
+              f"beyond the CPU tests' bounds (losses {TRAIN_LOSS_ATOL}, "
+              f"updates {TRAIN_DELTA_RTOL}): {out}")
+    return out
+
+
+def _dist_update_ratio(torch, cfg, leaves, ref) -> float:
+    """The largest ||sharded - one device|| / ||one device - initial||
+    over the leaves, the initial params made again from seed 0."""
+    from repro_torch import pytree
+    from repro_torch.distributed.sharding import local
+    from repro_torch.models import model as M
+    p0 = pytree.leaves(M.init_params(cfg, seed=0, device="cuda"))
+    worst = 0.0
+    for t, r, a in zip(leaves, ref, p0):
+        r = r.to("cuda").float()
+        upd = float(torch.linalg.vector_norm(r - a.float()))
+        gap = float(torch.linalg.vector_norm(local(t).float() - r))
+        worst = max(worst, gap / max(upd, 1e-30))
+    return worst
+
+
+def run_dist_pipeline(torch, kernels) -> dict:
+    """``[dist pipeline]``: ``pipeline_apply`` with one stage on the card
+    (a one-rank NCCL group, a (1,) "stage" mesh) on the inputs of the
+    reference's ``test_pipeline_single_stage_oracle``, against plain
+    application: the same bits."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    rng = np.random.default_rng(0)
+    w = torch.from_numpy(rng.normal(size=(1, 8, 8)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(3, 4, 8)).astype(np.float32))
+    w, x = w.to("cuda"), x.to("cuda")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("stage",), "cuda")
+        _reset(kernels)
+        got = pipeline_apply(lambda p, h: torch.tanh(h @ p), w, x, mesh)
+        torch.cuda.synchronize()
+        launches = _launches(kernels)
+        _no_launches("[dist pipeline]", kernels)
+    finally:
+        dist.destroy_process_group()
+    want = torch.stack([torch.tanh(x[i] @ w[0]) for i in range(3)])
+    if not torch.equal(got, want):
+        _fail(f"[dist pipeline] parts from plain application by "
+              f"{float((got - want).abs().max())}")
+    return {"stages": 1, "n_micro": 3, "equal": True, "launches": launches}
+
+
 class Laps:
     """Wall seconds of each phase, printed as it ends (``[phase]``)."""
 
@@ -3954,7 +4132,7 @@ def main() -> int:
     print("[rg calibrated] " + json.dumps(rg_cal), flush=True)
 
     laps("9")
-    # -- 10. the xLSTM kinds: xlstm-1.3b at full width and depth ----------
+    # -- 10. the xLSTM kinds: xlstm-1.3b at full width, 24 of 48 layers --
     torch.cuda.empty_cache()
     xl, xcfg = run_xl_path(torch, registry, kernels, peaks)
     xl_cal = run_xl_calibrated(torch, xcfg, kernels, peaks)
@@ -3994,7 +4172,18 @@ def main() -> int:
               flush=True)
 
     laps("13")
-    # -- 14. every packed-matmul shape of the paths was checked; the kernels
+    # -- 14. training across devices: the sharded step on one NCCL rank --
+    dist_train = run_dist_train(torch, kernels, smi)
+    print(f"[dist train] {smi}; qwen2.5-3b (36 layers), one NCCL rank on a "
+          "(1, 1) mesh with FSDP, the state as DTensors, against the "
+          "one-device step from the same seed: " + json.dumps(dist_train),
+          flush=True)
+    dist_pipe = run_dist_pipeline(torch, kernels)
+    print("[dist pipeline] one stage on the card against plain application: "
+          + json.dumps(dist_pipe), flush=True)
+
+    laps("14")
+    # -- 15. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
@@ -4048,7 +4237,9 @@ def main() -> int:
                 "s2t": s2t["s2t"]["launches"],
                 "s2t loss": s2t["s2t loss"]["launches"],
                 "vlm model": vlm["vlm model"]["launches"],
-                "vlm": vlm["vlm"]["launches"]}
+                "vlm": vlm["vlm"]["launches"],
+                "dist train": dist_train["sharded"]["launches"],
+                "dist pipeline": dist_pipe["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -4084,7 +4275,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("14")
+    laps("15")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,96 @@
+"""Collectives over one process group, differentiable where the sharded
+train step needs them.
+
+* :func:`all_gather` along a tensor dim; its backward reduce-scatters
+  (sums) the gradient back to this rank's part: the FSDP gather of a
+  leaf sharded over data, and the gather of a KV projection over
+  "model".
+* :func:`grad_sum`: the identity, whose backward sums the gradient over
+  the group (Megatron's f; a replicated leaf's gradient over data).
+* :func:`sum_over`: the sum over the group, whose backward is the
+  identity (Megatron's g).
+* :func:`all_reduce_`: an in-place reduction without gradient.
+
+Every rank of the group calls each of them in the same order.  With
+NCCL the tensors lie on the rank's card, with gloo on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# the names newer torch gives the tensor forms (same arguments)
+_gather_into = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_scatter_from = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def all_reduce_(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Reduce ``x`` over ``group`` in place ("sum" or "max")."""
+    dist.all_reduce(x, op=_OPS[op], group=group)
+    return x
+
+
+def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    xs = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xs.shape[0],) + tuple(xs.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    _gather_into(out, xs, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    gs = g.movedim(dim, 0).contiguous()
+    out = torch.empty((gs.shape[0] // n,) + tuple(gs.shape[1:]),
+                      dtype=g.dtype, device=g.device)
+    _scatter_from(out, gs, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's parts of ``x`` joined along ``dim`` in rank order."""
+    return _AllGather.apply(x, dim, group)
+
+
+def grad_sum(x: torch.Tensor, group) -> torch.Tensor:
+    return _GradSum.apply(x, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumOver.apply(x, group)

@@ -21,6 +21,14 @@ stacked leaf, as in the reference.
 The gradients and the residual are updated in place (the trainer's
 state is too large to hold twice; the reference donates it): pass
 copies to keep the inputs.
+
+A leaf may be a ``DTensor`` (the sharded train step's ZeRO state): the
+transform runs on its local part with the reference's whole-leaf
+statistics.  int8's absmax is the max over the ranks that hold the
+leaf's other parts; top-k's threshold is the k-th largest |g| of the
+whole leaf, found without gathering it by a bisection over the f32 bit
+patterns of |g| (non-negative floats order as their bits), one summed
+count per step: 31 all-reduces of one integer per sharded leaf.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.bridge import layer_groups
+from repro_torch.distributed.collectives import all_reduce_
+from repro_torch.distributed.sharding import like, local, shard_groups
 
 Tree = Any
 F32 = torch.float32
@@ -43,17 +53,22 @@ class CompressionConfig:
 
 
 def init_residual(grads: Tree) -> Tree:
-    return pytree.tree_map(
-        lambda g: torch.zeros(g.shape, dtype=F32, device=g.device), grads)
+    def zeros(g):
+        lg = local(g)
+        return like(g, torch.zeros(lg.shape, dtype=F32, device=lg.device))
+    return pytree.tree_map(zeros, grads)
 
 
 def _parts(group) -> List[torch.Tensor]:
     return list(group) if isinstance(group, pytree.Layers) else [group]
 
 
-def _int8_scale(gf: Iterable[torch.Tensor]) -> torch.Tensor:
-    """absmax / 127 over the whole leaf; the parts come one at a time."""
+def _int8_scale(gf: Iterable[torch.Tensor], groups=()) -> torch.Tensor:
+    """absmax / 127 over the whole leaf; the parts come one at a time,
+    and the max is taken over ``groups`` too."""
     amax = torch.stack([torch.max(torch.abs(x)) for x in gf]).max()
+    for g in groups:
+        amax = all_reduce_(amax.clone(), g, "max")
     return amax / torch.tensor(127.0, dtype=F32, device=amax.device) + 1e-12
 
 
@@ -73,6 +88,24 @@ def _topk_thresh(gf: Iterable[torch.Tensor], frac: float) -> torch.Tensor:
     return torch.topk(flat, k, sorted=False).values.min()
 
 
+def _topk_thresh_sharded(gf: List[torch.Tensor], frac: float, size: int,
+                         groups) -> torch.Tensor:
+    """:func:`_topk_thresh` of a leaf of ``size`` elements whose local
+    parts are ``gf``: the largest t with at least k elements of |g| >= t
+    over ``groups`` is the k-th largest |g| itself."""
+    k = max(1, int(size * frac))
+    bits = [torch.abs(x).reshape(-1).view(torch.int32) for x in gf]
+    lo, hi = 0, 0x7F800000                   # 0.0 .. +inf
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        c = sum(torch.count_nonzero(b >= mid) for b in bits)
+        for g in groups:
+            c = all_reduce_(c.clone(), g)
+        lo, hi = (mid, hi) if int(c) >= k else (lo, mid - 1)
+    return torch.tensor(lo, dtype=torch.int32,
+                        device=bits[0].device).view(F32)
+
+
 def compress(grads: Tree, residual: Tree,
              ccfg: CompressionConfig) -> Tuple[Tree, Tree]:
     """(compressed grads, new residual).  No-op when kind is None."""
@@ -81,9 +114,17 @@ def compress(grads: Tree, residual: Tree,
     if ccfg.kind not in ("int8", "topk"):
         raise ValueError(ccfg.kind)
     for g, r in zip(layer_groups(grads), layer_groups(residual)):
-        gs, rs = _parts(g), _parts(r)
+        groups = shard_groups(_parts(g)[0])
+        size = sum(x.numel() for x in _parts(g))
+        gs = [local(x) for x in _parts(g)]
+        rs = [local(y) for y in _parts(r)]
         if ccfg.kind == "int8":
-            scale = _int8_scale(x.to(F32) + y for x, y in zip(gs, rs))
+            scale = _int8_scale((x.to(F32) + y for x, y in zip(gs, rs)),
+                                groups)
+        elif groups:
+            thresh = _topk_thresh_sharded(
+                [x.to(F32) + y for x, y in zip(gs, rs)], ccfg.topk_frac,
+                size, groups)
         else:
             thresh = _topk_thresh((x.to(F32) + y for x, y in zip(gs, rs)),
                                   ccfg.topk_frac)

@@ -1,0 +1,259 @@
+"""Shared model-side helpers (twin of ``repro.models.common``): the
+run-time parallelism knobs, the mesh the caller runs under, sharding
+hints, and :class:`Shards`, one rank's place on that mesh as the model
+code needs it.
+
+The reference leaves the layout of every activation to GSPMD and only
+hints at it.  The port runs each rank's part of the step on local
+tensors (``torch.distributed.tensor.DTensor`` holds the train state;
+the model sees ``to_local()`` shards), so where the reference hints,
+the port's model code calls the collectives of :class:`Shards`
+explicitly: the FSDP gather of a block's leaves, Megatron's f and g
+around the tensor-parallel products, the vocab-parallel embedding and
+cross entropy.  Off a mesh, or on a one-rank mesh, every helper here
+returns its input.
+
+``shard_map_compat`` of the reference is a shim across JAX versions and
+has no counterpart: ``distributed/pipeline.py`` runs its per-rank body
+directly, with ``torch.distributed`` point-to-point operations.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch.core.select import map_tree
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import at, is_dtensor, placements
+
+Tree = Any
+DATA_DIMS = ("pod", "data")
+
+
+@dataclass(frozen=True)
+class Parallel:
+    """Parallelism knobs the *model code* needs to know about (the
+    reference's fields and defaults).
+
+    The full mesh/rule mapping lives in ``repro_torch.distributed.
+    sharding``; the model needs the tensor-parallel degree (to replicate
+    KV heads) and, in the reference, whether to emit sequence-parallel
+    sharding hints.  The port's sharded step keeps the residual stream
+    replicated over "model" between blocks whatever ``sp`` says (the
+    sequence-parallel layout is ROADMAP queue 1); it changes where the
+    stream lives, not what is computed.
+    """
+
+    tp: int = 1                 # size of the "model" mesh axis
+    dp: int = 1                 # size of the "data" (* pod) axes
+    fsdp: bool = False          # ZeRO-3: shard params' embed dim over data
+    sp: bool = True             # sequence-parallel activation constraints
+    microbatches: int = 1       # gradient-accumulation chunks per step
+    remat: bool = True          # activation checkpointing per superblock
+    attn_chunk: int = 1024      # flash-style KV chunking threshold/size
+    shard_batch: bool = True    # False when global batch < dp (long_500k)
+    decode_unroll: bool = False  # the reference's unrolled decode loop
+
+    def kv_heads_run(self, n_kv: int, n_q: Optional[int] = None) -> int:
+        """Megatron-style KV-head replication for tensor parallelism.
+
+        Replicate KV heads toward the TP degree so the KV projections
+        shard over "model", subject to the GQA constraint that the
+        run-time KV count divides the query-head count.  Where the head
+        counts do not divide the TP degree, the largest valid count <=
+        tp (the reference lets GSPMD pad the uneven shard; the port's
+        sharded step refuses such a shard)."""
+        if self.tp <= n_kv:
+            return n_kv
+        best = n_kv
+        if n_q is None:
+            return (self.tp // n_kv) * n_kv
+        for cand in range(n_kv, self.tp + 1, n_kv):
+            if n_q % cand == 0:
+                best = cand
+        return best
+
+
+# ---------------------------------------------------------------------------
+# The mesh the caller runs under, and the reference's hints
+# ---------------------------------------------------------------------------
+_MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
+                                                       default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Run the body under ``mesh`` (a ``DeviceMesh``): the counterpart
+    of the reference's ``with mesh:``.  Nothing reads a mesh from the
+    environment; the caller sets it here."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh():
+    """The mesh of the innermost :func:`use_mesh`, or None."""
+    return _MESH.get()
+
+
+def in_mesh() -> bool:
+    """True under a mesh of more than one device."""
+    m = current_mesh()
+    return m is not None and m.size() > 1
+
+
+def _batch_axes():
+    m = current_mesh()
+    names = m.mesh_dim_names if m is not None else ()
+    return DATA_DIMS if "pod" in names else "data"
+
+
+def batch_spec(*rest) -> tuple:
+    """A spec with the batch dim over data (and pod) and the given tail
+    axes."""
+    return (_batch_axes(),) + rest
+
+
+def hint(x, *axes):
+    """The reference's sharding constraint: off a mesh, on a one-rank
+    mesh, or on a local tensor it returns ``x``; a ``DTensor`` is
+    redistributed to the placements of the spec ``axes``."""
+    if not in_mesh() or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, placements(axes, x.device_mesh))
+
+
+def hint_act(x, par: Parallel):
+    """Residual-stream hint: (batch, seq, d_model) with the batch over
+    data (and pod) and, with ``par.sp``, the sequence over "model"."""
+    if not in_mesh():
+        return x
+    batch = _batch_axes() if par.shard_batch and x.shape[0] > 1 else None
+    if x.ndim == 3 and par.sp and x.shape[1] > 1:
+        return hint(x, batch, "model", None)
+    if x.ndim == 3:
+        return hint(x, batch, None, None)
+    return hint(x, batch, None)
+
+
+# ---------------------------------------------------------------------------
+# One rank's place on the mesh
+# ---------------------------------------------------------------------------
+class Shards:
+    """One rank's place on a ``DeviceMesh`` with dims among ("pod",
+    "data", "model"), and the collectives the model code calls on its
+    local tensors.
+
+    ``specs`` is the parameter tree's spec tree (``distributed.sharding.
+    specs_for_tree``): per leaf, a tuple with, per tensor dim, None, a
+    mesh dim name or a tuple of them.  A dim over data (and pod) is
+    gathered before use (:meth:`gather`, whose backward is the
+    reduce-scatter); a leaf sharded over "model" stays local, and the
+    block code runs its products Megatron-style (:meth:`enter`,
+    :meth:`leave`).  The batch of a step is split over the data ranks,
+    pod-major, as the reference's ``("pod", "data")`` batch spec splits
+    it.  Groups of one rank skip their collective, so a one-rank mesh
+    computes what one device does.
+    """
+
+    def __init__(self, mesh, par: Parallel, specs: Tree):
+        names = tuple(mesh.mesh_dim_names or ())
+        if "model" not in names or "data" not in names:
+            raise ValueError(f"a training mesh has 'data' and 'model' "
+                             f"dims; this one has {names}")
+        self.mesh, self.par, self.specs = mesh, par, specs
+        self.data_dims = tuple(n for n in DATA_DIMS if n in names)
+        self.tp = self._size("model")
+        self.tp_rank = mesh.get_local_rank("model")
+        self.dp, self.dp_rank = 1, 0
+        for n in self.data_dims:             # pod-major
+            self.dp_rank = self.dp_rank * self._size(n) + \
+                mesh.get_local_rank(n)
+            self.dp *= self._size(n)
+        if (self.tp, self.dp) != (par.tp, par.dp):
+            raise ValueError(f"mesh has tp={self.tp}, dp={self.dp}; "
+                             f"Parallel says tp={par.tp}, dp={par.dp}")
+
+    def _size(self, name: str) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(name))
+
+    def group(self, name: str):
+        return self.mesh.get_group(name)
+
+    def _groups(self, names) -> Tuple:
+        return tuple(self.group(n) for n in names if self._size(n) > 1)
+
+    # -- parameters ------------------------------------------------------
+    def gather(self, t: torch.Tensor, spec: Tuple) -> torch.Tensor:
+        """A local leaf -> its tensor for compute: every dim over data
+        (and pod) gathered, innermost mesh dim first; its backward
+        reduce-scatters the gradient back to the shard.  A leaf with no
+        dim over data gets its gradient summed over the data ranks
+        instead.  Dims over "model" stay local."""
+        over_data = False
+        for i, entry in enumerate(spec):
+            names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            for n in reversed(names):
+                if n in self.data_dims:
+                    over_data = True
+                    if self._size(n) > 1:
+                        t = C.all_gather(t, i, self.group(n))
+        if not over_data:
+            for g in self._groups(self.data_dims):
+                t = C.grad_sum(t, g)
+        return t
+
+    def gather_tree(self, tree: Tree, spec_tree: Tree) -> Tree:
+        """:meth:`gather` of every leaf of ``tree`` by its Spec."""
+        return map_tree(tree, lambda path, t: self.gather(
+            t, at(spec_tree, path)))
+
+    def gather_model(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t`` gathered over "model" along ``dim`` (backward: the
+        reduce-scatter of the gradient)."""
+        return t if self.tp == 1 else C.all_gather(t, dim,
+                                                   self.group("model"))
+
+    # -- Megatron's f and g ------------------------------------------------
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """f: the identity, whose backward sums the gradient over
+        "model" (a replicated tensor entering a tensor-parallel
+        region)."""
+        return x if self.tp == 1 else C.grad_sum(x, self.group("model"))
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        """g: the sum over "model" (a row-parallel product's partial
+        sums), whose backward is the identity."""
+        return x if self.tp == 1 else C.sum_over(x, self.group("model"))
+
+    def model_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over "model", without gradient."""
+        if self.tp == 1:
+            return x
+        return C.all_reduce_(x.detach().clone(), self.group("model"), "max")
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the data ranks, without gradient (token counts,
+        the reported loss)."""
+        x = x.detach()
+        groups = self._groups(self.data_dims)
+        if groups:
+            x = x.clone()
+            for g in groups:
+                C.all_reduce_(x, g, "sum")
+        return x
+
+    def rows(self, n: int) -> slice:
+        """This data rank's rows of ``n`` (the batch over data, pod
+        major)."""
+        if n % self.dp:
+            raise ValueError(f"{n} rows do not split over {self.dp} data "
+                             "ranks")
+        k = n // self.dp
+        return slice(self.dp_rank * k, (self.dp_rank + 1) * k)

@@ -39,8 +39,9 @@ NEG_INF = -1e30
 def init_norm(cfg: ArchConfig, d: Optional[int] = None) -> Tree:
     d = d or cfg.d_model
     if cfg.norm == "rmsnorm":
-        return {"scale": P((d,), "ones")}
-    return {"scale": P((d,), "ones"), "bias": P((d,), "zeros")}
+        return {"scale": P((d,), (None,), "ones")}
+    return {"scale": P((d,), (None,), "ones"),
+            "bias": P((d,), (None,), "zeros")}
 
 
 def apply_norm(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
@@ -79,18 +80,18 @@ def init_attention(cfg: ArchConfig, cross: bool = False) -> Tree:
     d, dh = cfg.d_model, cfg.head_dim_
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
     p = {
-        "wq": P((d, hq * dh), "scaled"),
-        "wk": P((d, hkv * dh), "scaled"),
-        "wv": P((d, hkv * dh), "scaled"),
-        "wo": P((hq * dh, d), "scaled"),
+        "wq": P((d, hq * dh), ("embed", "heads"), "scaled"),
+        "wk": P((d, hkv * dh), ("embed", "kv_heads"), "scaled"),
+        "wv": P((d, hkv * dh), ("embed", "kv_heads"), "scaled"),
+        "wo": P((hq * dh, d), ("heads", "embed"), "scaled"),
     }
     if cfg.qkv_bias and not cross:
-        p["bq"] = P((hq * dh,), "zeros")
-        p["bk"] = P((hkv * dh,), "zeros")
-        p["bv"] = P((hkv * dh,), "zeros")
+        p["bq"] = P((hq * dh,), ("heads",), "zeros")
+        p["bk"] = P((hkv * dh,), ("kv_heads",), "zeros")
+        p["bv"] = P((hkv * dh,), ("kv_heads",), "zeros")
     if cfg.qk_norm and not cross:
-        p["q_norm"] = P((dh,), "ones")
-        p["k_norm"] = P((dh,), "ones")
+        p["q_norm"] = P((dh,), (None,), "ones")
+        p["k_norm"] = P((dh,), (None,), "ones")
     return p
 
 
@@ -100,16 +101,49 @@ def _qk_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (y * scale.to(torch.float32)).to(x.dtype)
 
 
+def _kv_heads_local(cfg: ArchConfig, shards) -> bool:
+    """True when this rank's columns of wk / wv are whole KV heads of
+    its query heads: no replication to the TP degree (``kv_heads_run``
+    is the true count) and the TP degree divides the KV heads."""
+    hkv = cfg.n_kv_heads
+    return (shards.par.kv_heads_run(hkv, cfg.n_heads) == hkv
+            and hkv % shards.tp == 0)
+
+
+def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards):
+    """K and V (B, Sk, hkv_run / tp * dh) of this rank's run-time KV
+    heads when a shard of wk / wv cuts through a head, or the heads are
+    replicated to the TP degree: the small KV leaves are gathered over
+    "model" (their gradients reduce-scattered back), every true head is
+    projected, repeated ``kv_heads_run / hkv`` times consecutively as
+    the reference repeats them, and this rank's heads are kept."""
+    dh, hkv = cfg.head_dim_, cfg.n_kv_heads
+    run = shards.par.kv_heads_run(hkv, cfg.n_heads)
+    per = run // shards.tp
+    out = []
+    for w, b in (("wk", "bk"), ("wv", "bv")):
+        bias = p.get(b)
+        y = dense(xkv, shards.gather_model(p[w], 1),
+                  None if bias is None else shards.gather_model(bias, 0))
+        y = y.reshape(y.shape[:-1] + (hkv, dh))
+        y = torch.repeat_interleave(y, run // hkv, dim=-2)
+        y = y.narrow(-2, shards.tp_rank * per, per)
+        out.append(y.reshape(y.shape[:-2] + (per * dh,)))
+    return out
+
+
 def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                  positions: torch.Tensor, xkv: Optional[torch.Tensor] = None,
                  kv_positions: Optional[torch.Tensor] = None,
-                 use_rope: bool = True):
+                 use_rope: bool = True, shards=None):
     """x (B, S, D) -> q (B, S, hq, dh) and, from ``xkv`` (B, Sk, D; x by
     default), k/v (B, Sk, hkv, dh); roped at ``positions`` and
     ``kv_positions`` unless ``use_rope`` is off (cross-attention).  The
     fused ``wqkv`` group runs one matmul (one activation gather) for all
-    three projections."""
-    dh, hq, hkv = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
+    three projections.  With ``shards`` (``models.common.Shards``) the
+    weights are this rank's column shards and the heads its own: hq /
+    tp query heads and ``kv_heads_run`` / tp KV heads."""
+    dh = cfg.head_dim_
     if xkv is None:
         xkv, kv_positions = x, positions
     if "wqkv" in p and xkv is x:
@@ -121,14 +155,20 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             v = v + p["bv"].to(v.dtype)
     else:
         q = dense(x, p["wq"], p.get("bq"))
-        k = dense(xkv, p["wk"], p.get("bk"))
-        v = dense(xkv, p["wv"], p.get("bv"))
-    q = q.reshape(q.shape[:-1] + (hq, dh))
-    k = k.reshape(k.shape[:-1] + (hkv, dh))
-    v = v.reshape(v.shape[:-1] + (hkv, dh))
+        if shards is None or _kv_heads_local(cfg, shards):
+            k = dense(xkv, p["wk"], p.get("bk"))
+            v = dense(xkv, p["wv"], p.get("bv"))
+        else:
+            k, v = _kv_replicated(cfg, p, xkv, shards)
+    q = q.reshape(q.shape[:-1] + (-1, dh))
+    k = k.reshape(k.shape[:-1] + (-1, dh))
+    v = v.reshape(v.shape[:-1] + (-1, dh))
     if "q_norm" in p:
-        q = _qk_norm(q, p["q_norm"])
-        k = _qk_norm(k, p["k_norm"])
+        qn, kn = p["q_norm"], p["k_norm"]
+        if shards is not None:          # replicated scales on local heads
+            qn, kn = shards.enter(qn), shards.enter(kn)
+        q = _qk_norm(q, qn)
+        k = _qk_norm(k, kn)
     if use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
@@ -211,20 +251,25 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                    use_rope: bool = True, xkv: Optional[torch.Tensor] = None,
                    kv_positions: Optional[torch.Tensor] = None,
                    cache_window: Optional[int] = None,
-                   return_kv: bool = False):
-    """Attention over a whole sequence (the calibration forward and
-    whole-prompt prefill).  x (B, S, D), positions (B, S) int32, -1 for
-    padding (never attended).  Cross-attention passes ``xkv`` (B, Sk, D)
-    with its ``kv_positions`` (the keys and values come from it; x by
-    default) and ``use_rope=False``.  Key lengths longer than
-    ``attn_chunk`` that it divides stream over key chunks.  With
+                   return_kv: bool = False, shards=None):
+    """Attention over a whole sequence (the calibration forward, the
+    loss and whole-prompt prefill).  x (B, S, D), positions (B, S)
+    int32, -1 for padding (never attended).  Cross-attention passes
+    ``xkv`` (B, Sk, D) with its ``kv_positions`` (the keys and values
+    come from it; x by default) and ``use_rope=False``.  Key lengths
+    longer than ``attn_chunk`` that it divides stream over key chunks.  With
     ``cache_window``, also returns the decode ring cache built from the
     K/V computed here; with ``return_kv``, those K/V themselves (the
-    cross-attention's decode cache)."""
+    cross-attention's decode cache).  With ``shards`` (self-attention
+    of the sharded train step): x is replicated over "model", the
+    heads are this rank's, and ``wo``'s row shard gives partial sums
+    that are summed over "model" (Megatron's f and g)."""
+    if shards is not None:
+        x = shards.enter(x)
     if xkv is None:
         xkv, kv_positions = x, positions
     q, k, v = _project_qkv(cfg, p, x, positions, xkv, kv_positions,
-                           use_rope)
+                           use_rope, shards)
     sk = k.shape[1]
     if sk > attn_chunk and sk % attn_chunk == 0:
         o = _attend_chunked(q, k, v, positions, kv_positions, causal,
@@ -238,6 +283,8 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         o = _attend(q, k, v, mask, cfg.logit_softcap)
     o = o.to(x.dtype).reshape(x.shape[:-1] + (-1,))
     out = dense(o, p["wo"])
+    if shards is not None:
+        out = shards.leave(out)
     if return_kv:
         return out, k, v
     if cache_window is None:
@@ -432,8 +479,9 @@ def attention_prefill_paged(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def init_mlp(cfg: ArchConfig) -> Tree:
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": P((d, f), "scaled"), "wu": P((d, f), "scaled"),
-            "wd": P((f, d), "scaled")}
+    return {"wg": P((d, f), ("embed", "ffn"), "scaled"),
+            "wu": P((d, f), ("embed", "ffn"), "scaled"),
+            "wd": P((f, d), ("ffn", "embed"), "scaled")}
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -444,7 +492,12 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
-def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
+              ) -> torch.Tensor:
+    """The gated MLP; with ``shards``, over this rank's ffn columns of
+    wg / wu and rows of wd, the partial sums summed over "model"."""
+    if shards is not None:
+        x = shards.enter(x)
     if "wgu" in p:
         gu = p["wgu"]
         g, u = gu.split_out(dense(x, gu))
@@ -452,7 +505,8 @@ def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     else:
         g = _act(cfg.act, dense(x, p["wg"]))
         u = dense(x, p["wu"])
-    return dense(g * u, p["wd"])
+    y = dense(g * u, p["wd"])
+    return y if shards is None else shards.leave(y)
 
 
 # ---------------------------------------------------------------------------
@@ -463,9 +517,10 @@ def init_moe(cfg: ArchConfig) -> Tree:
     """The router stays f32 and is never quantized (not a projection
     name of ``core.select``); expert weights are stacked (E, K, N)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
-    return {"router": P((d, e), "scaled", torch.float32),
-            "wg": P((e, d, f), "scaled"), "wu": P((e, d, f), "scaled"),
-            "wd": P((e, f, d), "scaled")}
+    return {"router": P((d, e), ("embed", None), "scaled", torch.float32),
+            "wg": P((e, d, f), ("experts", "embed", "ffn"), "scaled"),
+            "wu": P((e, d, f), ("experts", "embed", "ffn"), "scaled"),
+            "wd": P((e, f, d), ("experts", "ffn", "embed"), "scaled")}
 
 
 def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:

@@ -15,7 +15,7 @@ models, as the reference does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -24,7 +24,8 @@ from repro_torch.configs.base import ArchConfig, Stage
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.linear import dense
-from repro_torch.models.param import P, materialize
+from repro_torch.models.common import Parallel
+from repro_torch.models.param import P, count_params, materialize
 
 Tree = Any
 XENT_CHUNK = 512
@@ -35,24 +36,34 @@ def _enc_stage(cfg: ArchConfig) -> Stage:
     return Stage(("dense",), cfg.n_enc_layers)
 
 
-def declare_params(cfg: ArchConfig) -> Tree:
+def declare_params(cfg: ArchConfig, par: Optional[Parallel] = None) -> Tree:
+    """The model's P tree.  ``par`` (default one device) changes no
+    leaf: parameters keep the true KV head count, and the replication
+    to the TP degree happens at run time (``layers``), as in the
+    reference."""
     d, v = cfg.d_model, cfg.vocab_padded
     p: Dict[str, Tree] = {
-        "embed": P((v, d), "normal"),
+        "embed": P((v, d), ("vocab", "embed"), "normal"),
         "stages": [T.init_stage(cfg, s, cross=cfg.enc_dec)
                    for s in cfg.stages],
         "final_norm": L.init_norm(cfg),
     }
     if not cfg.tied_embeddings:
-        p["lm_head"] = P((d, v), "scaled")
+        p["lm_head"] = P((d, v), ("embed", "vocab"), "scaled")
     if cfg.enc_dec:
         p["enc"] = {"stages": [T.init_stage(cfg, _enc_stage(cfg))],
                     "final_norm": L.init_norm(cfg)}
     return p
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> Tree:
-    return materialize(declare_params(cfg), seed, device)
+def init_params(cfg: ArchConfig, seed: int = 0, device="cpu",
+                par: Optional[Parallel] = None) -> Tree:
+    return materialize(declare_params(cfg, par), seed, device)
+
+
+def n_params(cfg: ArchConfig, par: Optional[Parallel] = None) -> int:
+    """Parameters declared for ``cfg`` (the reference's ``n_params``)."""
+    return count_params(declare_params(cfg, par))
 
 
 def embed_tokens(cfg: ArchConfig, params: Tree, tokens: torch.Tensor
@@ -66,13 +77,42 @@ def _head_weight(cfg: ArchConfig, params: Tree):
     return params["lm_head"]
 
 
-def _mask_pad(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
-    """Padded vocabulary entries -> the f32 minimum."""
+def _mask_pad(cfg: ArchConfig, logits: torch.Tensor, offset: int = 0
+              ) -> torch.Tensor:
+    """Padded vocabulary entries -> the f32 minimum; ``logits`` are the
+    vocabulary entries from ``offset`` on (a vocab-parallel shard)."""
     if cfg.vocab_padded == cfg.vocab:
         return logits
-    keep = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
+    keep = torch.arange(offset, offset + logits.shape[-1],
+                        device=logits.device) < cfg.vocab
     return torch.where(keep, logits.to(torch.float32),
                        torch.finfo(torch.float32).min)
+
+
+def _embed_sharded(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
+                   shards) -> torch.Tensor:
+    """The vocab-parallel lookup: this rank's rows of the embedding
+    (gathered over data) give the tokens they hold, zeros elsewhere,
+    summed over "model"."""
+    e = shards.gather(params["embed"], shards.specs["embed"])
+    if shards.tp == 1:
+        return e[tokens.long()]
+    rows = e.shape[0]
+    idx = tokens.long() - shards.tp_rank * rows
+    inside = (idx >= 0) & (idx < rows)
+    x = e[idx.clamp(0, rows - 1)]
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return shards.leave(x)
+
+
+def _head_sharded(cfg: ArchConfig, params: Tree, shards):
+    """This rank's vocabulary columns of the head, gathered over data,
+    and the vocabulary offset of its first column."""
+    key = "embed" if cfg.tied_embeddings else "lm_head"
+    w = shards.gather(params[key], shards.specs[key])
+    w = w.T if cfg.tied_embeddings else w
+    return w, shards.tp_rank * w.shape[1]
 
 
 def logits_fn(cfg: ArchConfig, params: Tree, x: torch.Tensor
@@ -84,25 +124,49 @@ def logits_fn(cfg: ArchConfig, params: Tree, x: torch.Tensor
 
 
 def softmax_xent_chunked(cfg: ArchConfig, params: Tree, x: torch.Tensor,
-                         targets: torch.Tensor, chunk: int = XENT_CHUNK
-                         ) -> torch.Tensor:
+                         targets: torch.Tensor, chunk: int = XENT_CHUNK,
+                         shards=None) -> torch.Tensor:
     """Mean cross entropy of the head over x (B, S, D) against targets
     (B, S), targets < 0 masked out, without forming (B, S, V) logits:
     sequence chunks of ``chunk`` positions, each recomputed in the
-    backward pass (activation checkpointing)."""
+    backward pass (activation checkpointing).
+
+    With ``shards`` the rows are this data rank's and the head's
+    columns its vocabulary shard: the log-sum-exp takes its max and its
+    sum over "model", the target's logit comes from the rank that holds
+    it, and the mean divides by the masked count of every data rank, so
+    the data ranks' losses sum to the global mean."""
     b, s, _ = x.shape
-    x = L.apply_norm(cfg, params["final_norm"], x)
-    w = _head_weight(cfg, params)
+    norm = params["final_norm"]
+    if shards is None:
+        x = L.apply_norm(cfg, norm, x)
+        w, off = _head_weight(cfg, params), 0
+    else:
+        norm = shards.gather_tree(norm, shards.specs["final_norm"])
+        x = shards.enter(L.apply_norm(cfg, norm, x))
+        w, off = _head_sharded(cfg, params, shards)
+    parallel = shards is not None and shards.tp > 1
     chunk = min(chunk, s)
     if s % chunk:
         chunk = s
 
     def chunk_loss(xx, tt):
-        logits = _mask_pad(cfg, dense(xx, w).to(torch.float32))
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, tt.clamp_min(0).long()[..., None])
+        logits = _mask_pad(cfg, dense(xx, w).to(torch.float32), off)
+        tgt = tt.clamp_min(0).long()
+        if not parallel:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
+        else:
+            m = shards.model_max(torch.amax(logits, dim=-1))
+            lse = m + torch.log(shards.leave(
+                torch.sum(torch.exp(logits - m[..., None]), dim=-1)))
+            idx = tgt - off
+            inside = (idx >= 0) & (idx < logits.shape[-1])
+            picked = torch.gather(
+                logits, -1, idx.clamp(0, logits.shape[-1] - 1)[..., None])
+            picked = shards.leave(torch.where(inside, picked[..., 0], 0.0))
         mask = (tt >= 0).to(torch.float32)
-        return torch.sum((lse - picked[..., 0]) * mask), torch.sum(mask)
+        return torch.sum((lse - picked) * mask), torch.sum(mask)
 
     loss = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
@@ -110,16 +174,19 @@ def softmax_xent_chunked(cfg: ArchConfig, params: Tree, x: torch.Tensor,
         l_c, n_c = checkpoint(chunk_loss, x[:, c0:c0 + chunk],
                               targets[:, c0:c0 + chunk], use_reentrant=False)
         loss, cnt = loss + l_c, cnt + n_c
+    if shards is not None:
+        cnt = shards.data_sum(cnt)
     return loss / torch.clamp_min(cnt, 1.0)
 
 
 def _backbone_inputs(cfg: ArchConfig, params: Tree,
-                     batch: Dict[str, torch.Tensor]):
+                     batch: Dict[str, torch.Tensor], shards=None):
     """Token embeddings, the first F of them replaced by the batch's
     ``vision_embeds`` (B, F, D) in a vision model, and positions
     (default 0..S-1 per row)."""
     tokens = batch["tokens"]
-    x = embed_tokens(cfg, params, tokens)
+    x = (embed_tokens(cfg, params, tokens) if shards is None
+         else _embed_sharded(cfg, params, tokens, shards))
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         ve = batch["vision_embeds"]
         x = torch.cat([ve.to(x.dtype), x[:, ve.shape[1]:]], dim=1)
@@ -158,8 +225,8 @@ def _encoded(cfg: ArchConfig, params: Tree, batch, attn_chunk: int):
 
 def forward_loss(cfg: ArchConfig, params: Tree,
                  batch: Dict[str, torch.Tensor],
-                 attn_chunk: int = 1024, remat: bool = False
-                 ) -> torch.Tensor:
+                 attn_chunk: int = 1024, remat: bool = False,
+                 shards=None) -> torch.Tensor:
     """Causal-LM loss plus 0.01 times the MoE blocks' load-balancing
     loss (0 for a dense decoder).  batch: tokens (B, S) and targets
     (B, S) int (-1 = masked), optional positions (B, S); optional
@@ -167,17 +234,51 @@ def forward_loss(cfg: ArchConfig, params: Tree,
     S_enc, D) for an encoder-decoder one.  ``remat`` recomputes each
     decoder superblock in the backward pass (the encoder is not
     rematerialized, as in the reference); the loss and its gradients
-    are the same."""
-    x, positions = _backbone_inputs(cfg, params, batch)
+    are the same.
+
+    With ``shards`` (``models.common.Shards``, the sharded train step of
+    a dense decoder) ``params`` are this rank's local shards and the
+    batch its data rows; the result is this data rank's share of the
+    global mean loss (the shares sum to it over the data ranks), and
+    the gradients reach each local shard reduced over the ranks."""
+    if shards is not None:
+        check_shardable(cfg, shards.par)
+    x, positions = _backbone_inputs(cfg, params, batch, shards)
     enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for stage, sp in zip(cfg.stages, params["stages"]):
-        x, a = T.stage_full(cfg, stage, sp, x, positions, causal=True,
-                            attn_chunk=attn_chunk, enc_out=enc_out,
-                            enc_pos=enc_pos, remat=remat)
+    for si, (stage, sp) in enumerate(zip(cfg.stages, params["stages"])):
+        x, a = T.stage_full(
+            cfg, stage, sp, x, positions, causal=True,
+            attn_chunk=attn_chunk, enc_out=enc_out, enc_pos=enc_pos,
+            remat=remat, shards=shards,
+            sspec=None if shards is None else shards.specs["stages"][si])
         aux = aux + a
-    loss = softmax_xent_chunked(cfg, params, x, batch["targets"])
+    loss = softmax_xent_chunked(cfg, params, x, batch["targets"],
+                                shards=shards)
     return loss + 0.01 * aux
+
+
+def check_shardable(cfg: ArchConfig, par: Parallel) -> None:
+    """Refuse what the sharded train step does not run: a block kind
+    other than dense, an encoder-decoder model (``NotImplementedError``,
+    ROADMAP queue 1), and tensor-parallel shards that would cut a query
+    head, a run-time KV head group or the ffn / vocabulary unevenly
+    (``ValueError``)."""
+    kinds = sorted({k for s in cfg.stages for k in s.pattern})
+    if kinds != ["dense"] or cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the sharded train step runs decoder-only models "
+            f"of the dense block kind; {kinds}"
+            f"{' with an encoder' if cfg.enc_dec else ''} waits for "
+            "ROADMAP queue 1 (tensor parallelism of the other kinds, EP)")
+    tp = par.tp
+    run = par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads)
+    for what, n in (("query heads", cfg.n_heads),
+                    ("run-time KV heads", run), ("d_ff", cfg.d_ff),
+                    ("padded vocabulary", cfg.vocab_padded)):
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {n} {what} do not split over "
+                             f"tp={tp}")
 
 
 # ---------------------------------------------------------------------------

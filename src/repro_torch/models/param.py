@@ -1,8 +1,25 @@
 """Parameter declaration and initialisation (twin of
-``repro.models.param``, without the sharding axes).
+``repro.models.param``).
 
-Model init functions build a tree of :class:`P` leaves (shape, init
-style, dtype); :func:`materialize` turns it into tensors on a device.
+Model init functions build a tree of :class:`P` leaves (shape, logical
+sharding axes, init style, dtype); :func:`materialize` turns it into
+tensors on a device, and ``repro_torch.distributed.sharding`` turns the
+axes into a spec per leaf for any mesh.
+
+Logical axis vocabulary (the reference's):
+  "embed"     model width (d_model)            -> FSDP (data) or replicated
+  "heads"     attention query heads x head_dim -> TP ("model")
+  "kv_heads"  kv heads x head_dim              -> TP ("model"), replicated
+                                                  to the TP degree at run
+                                                  time by the model
+  "ffn"       MLP hidden                       -> TP ("model")
+  "vocab"     vocabulary                       -> TP ("model")
+  "experts"   MoE expert dim                   -> EP ("model") or none
+  "rnn"       recurrence width                 -> TP ("model")
+  None        replicated small vectors
+
+The port keeps a stage's layers as a list, so its leaves carry no
+"layers" axis: the reference's stacked leaf has ``("layers",) + axes``.
 Each leaf draws from its own ``torch.Generator`` seeded from the run
 seed and a crc32 of the leaf's path, so init does not depend on tree
 order or on the process.  ``jax.random`` streams cannot be reproduced:
@@ -14,7 +31,7 @@ from __future__ import annotations
 import math
 import zlib
 from dataclasses import dataclass
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -26,8 +43,13 @@ class P:
     """Declarative parameter leaf."""
 
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
     init: str = "normal"        # normal | zeros | ones | scaled (fan-in)
     dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} / axes {self.axes} mismatch")
 
 
 def _init_leaf(p: P, gen: torch.Generator, device) -> torch.Tensor:
@@ -65,6 +87,20 @@ def materialize(tree: Any, seed: int, device="cpu",
         return _init_leaf(p, gen, device)
 
     return map_tree(tree, leaf, tuple(prefix))
+
+
+def count_params(tree: Any) -> int:
+    """Elements of every P leaf of a declaration tree."""
+    n = 0
+
+    def leaf(_, p):
+        nonlocal n
+        if isinstance(p, P):
+            n += math.prod(p.shape)
+        return p
+
+    map_tree(tree, leaf)
+    return n
 
 
 def tree_to(tree: Any, device=None, float_dtype=None) -> Any:

@@ -56,14 +56,14 @@ def init_rglru(cfg: ArchConfig) -> Tree:
     r = cfg.rnn_width or d
     hd = r // RG_HEADS
     return {
-        "w_x": P((d, r), "scaled"),
-        "w_gate": P((d, r), "scaled"),
-        "conv_w": P((cfg.conv_width, r), "scaled"),
-        "conv_b": P((r,), "zeros"),
-        "w_inp": P((RG_HEADS, hd, hd), "scaled"),
-        "w_rec": P((RG_HEADS, hd, hd), "scaled"),
-        "lam": P((r,), "ones", torch.float32),
-        "w_out": P((r, d), "scaled"),
+        "w_x": P((d, r), ("embed", "rnn"), "scaled"),
+        "w_gate": P((d, r), ("embed", "rnn"), "scaled"),
+        "conv_w": P((cfg.conv_width, r), (None, "rnn"), "scaled"),
+        "conv_b": P((r,), ("rnn",), "zeros"),
+        "w_inp": P((RG_HEADS, hd, hd), (None, None, None), "scaled"),
+        "w_rec": P((RG_HEADS, hd, hd), (None, None, None), "scaled"),
+        "lam": P((r,), ("rnn",), "ones", torch.float32),
+        "w_out": P((r, d), ("rnn", "embed"), "scaled"),
     }
 
 
@@ -188,12 +188,13 @@ def init_mlstm(cfg: ArchConfig) -> Tree:
     m = int(cfg.mlstm_proj_factor * d)          # value / gate width
     h = cfg.n_heads
     return {
-        "w_q": P((d, d), "scaled"),
-        "w_k": P((d, d), "scaled"),
-        "w_v": P((d, m), "scaled"),
-        "w_gate": P((d, m), "scaled"),
-        "w_if": P((d, 2 * h), "scaled", torch.float32),
-        "w_out": P((m, d), "scaled"),
+        "w_q": P((d, d), ("embed", "heads"), "scaled"),
+        "w_k": P((d, d), ("embed", "heads"), "scaled"),
+        "w_v": P((d, m), ("embed", "heads"), "scaled"),
+        "w_gate": P((d, m), ("embed", "heads"), "scaled"),
+        "w_if": P((d, 2 * h), ("embed", None), "scaled",
+                  torch.float32),
+        "w_out": P((m, d), ("heads", "embed"), "scaled"),
     }
 
 
@@ -313,12 +314,13 @@ def init_slstm(cfg: ArchConfig) -> Tree:
     hd = d // h
     f = int(round(cfg.slstm_ff_factor * d / 128) * 128)
     return {
-        "w_gates": P((d, 4 * d), "scaled"),
-        "r_gates": P((4, h, hd, hd), "scaled"),
-        "b_gates": P((4 * d,), "zeros", torch.float32),
-        "w_up": P((d, f), "scaled"),
-        "w_gate": P((d, f), "scaled"),
-        "w_down": P((f, d), "scaled"),
+        "w_gates": P((d, 4 * d), ("embed", "heads"), "scaled"),
+        "r_gates": P((4, h, hd, hd), (None, None, None, None),
+                     "scaled"),
+        "b_gates": P((4 * d,), (None,), "zeros", torch.float32),
+        "w_up": P((d, f), ("embed", "ffn"), "scaled"),
+        "w_gate": P((d, f), ("embed", "ffn"), "scaled"),
+        "w_down": P((f, d), ("ffn", "embed"), "scaled"),
     }
 
 

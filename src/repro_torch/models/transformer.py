@@ -76,13 +76,13 @@ def _init_block(cfg: ArchConfig, kind: str) -> Tree:
             "mlp": L.init_moe(cfg) if kind == "moe" else L.init_mlp(cfg)}
 
 
-def _ffn(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor
-         ) -> torch.Tensor:
+def _ffn(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
+         shards=None) -> torch.Tensor:
     """The block's feed-forward on its normed input: the gated MLP, or
     the mixture of experts over every token of the call."""
     if kind == "moe":
         return L.apply_moe(cfg, p, x)
-    return L.apply_mlp(cfg, p, x)
+    return L.apply_mlp(cfg, p, x, shards)
 
 
 def init_stage(cfg: ArchConfig, stage: Stage, cross: bool = False
@@ -193,13 +193,17 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                attn_chunk: int = 1024,
                aux: Optional[List[torch.Tensor]] = None,
                enc_out: Optional[torch.Tensor] = None,
-               enc_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+               enc_pos: Optional[torch.Tensor] = None,
+               shards=None) -> torch.Tensor:
     """One block over a whole sequence: x (B, S, D), positions (B, S)
     -> x + attention (or the RG-LRU), + the cross-attention over
     ``enc_out`` (B, S_enc, D) at ``enc_pos`` in a decoder block of an
     encoder-decoder model, then + MLP or MoE; x + the xLSTM cell for
     mlstm and slstm (whose FFN is inside the cell).  With ``aux`` given,
-    a moe block appends its router's load-balancing loss to it."""
+    a moe block appends its router's load-balancing loss to it.  With
+    ``shards`` (a dense block of the sharded train step, which
+    ``model.check_shardable`` admits), ``p`` holds this rank's
+    tensor-parallel shards, gathered over data."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
         return block_prefill(cfg, kind, p, x, positions, 0)[0]
@@ -210,43 +214,49 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     h = L.attention_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
                          positions, causal=causal,
                          window=_kind_window(cfg, kind),
-                         attn_chunk=attn_chunk)
+                         attn_chunk=attn_chunk, shards=shards)
     x = x + h
     if "xattn" in p:
         x = x + _cross(cfg, p, x, positions, enc_out, enc_pos, attn_chunk)
     z = L.apply_norm(cfg, p["ln2"], x)
     if kind == "moe" and aux is not None:
         aux.append(L.moe_aux_loss(cfg, z, p["mlp"]["router"]))
-    return x + _ffn(cfg, kind, p["mlp"], z)
+    return x + _ffn(cfg, kind, p["mlp"], z, shards)
 
 
 def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True,
                attn_chunk: int = 1024, enc_out=None, enc_pos=None,
-               remat: bool = False):
+               remat: bool = False, shards=None, sspec=None):
     """A stage's layers over a whole sequence (the loss forward, the
     encoder).  Returns (x, aux): aux is the f32 sum of the moe blocks'
     auxiliary losses in depth order (0 for dense blocks).  With
     ``remat`` each superblock (one pass over the pattern) keeps only
     its inputs for the backward pass and runs again there
     (``torch.utils.checkpoint``), as the reference wraps its scanned
-    body in ``jax.checkpoint``."""
-    def superblock(x, aux, lp):
+    body in ``jax.checkpoint``.  With ``shards``, ``sparams`` are this
+    rank's shards and ``sspec`` their specs: each superblock gathers
+    its leaves over data first, inside the checkpoint, so that remat
+    gathers them again in the recomputation."""
+    def superblock(x, aux, lp, li):
+        if shards is not None:
+            lp = shards.gather_tree(lp, sspec[li])
         for i, kind in enumerate(stage.pattern):
             a: List[torch.Tensor] = []
             x = block_full(cfg, kind, lp[i], x, positions, causal=causal,
                            attn_chunk=attn_chunk, aux=a, enc_out=enc_out,
-                           enc_pos=enc_pos)
+                           enc_pos=enc_pos, shards=shards)
             for t in a:
                 aux = aux + t
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in sparams:
+    for li, lp in enumerate(sparams):
         if remat:
-            x, aux = checkpoint(superblock, x, aux, lp, use_reentrant=False)
+            x, aux = checkpoint(superblock, x, aux, lp, li,
+                                use_reentrant=False)
         else:
-            x, aux = superblock(x, aux, lp)
+            x, aux = superblock(x, aux, lp, li)
     return x, aux
 
 

@@ -27,7 +27,13 @@ sums the reference's leaves in its order: a stage leaf's layers
 (stacked in the reference) are summed first, then added as one leaf.
 
 Trees are dicts, lists and tuples of tensors, walked in the reference's
-order (``repro_torch.pytree``).  :meth:`AdamW.update_` writes the new
+order (``repro_torch.pytree``).  A leaf may be a ``DTensor`` (the
+sharded train step's state): the update runs on its local part, and
+the clipping norm sums each leaf's squares over the mesh dims it is
+sharded on and no others, so a replicated part counts once and every
+rank clips by the reference's global norm.
+
+:meth:`AdamW.update_` writes the new
 parameters and moments into the given tensors (the trainer's state is
 too large to hold twice; the reference donates it);
 :meth:`AdamW.update` runs it on copies.
@@ -42,6 +48,8 @@ import torch
 
 from repro_torch import pytree
 from repro_torch.bridge import layer_groups
+from repro_torch.distributed.collectives import all_reduce_
+from repro_torch.distributed.sharding import like, local, shard_groups
 
 Tree = Any
 F32 = torch.float32
@@ -71,7 +79,9 @@ class AdamW:
         dev = ps[0].device if ps else None
 
         def zeros(p):
-            return torch.zeros(p.shape, dtype=F32, device=p.device)
+            lp = local(p)
+            return like(p, torch.zeros(lp.shape, dtype=F32,
+                                       device=lp.device))
         return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
                           pytree.tree_map(zeros, params),
                           pytree.tree_map(zeros, params))
@@ -103,6 +113,7 @@ class AdamW:
         for g, m, v, p in zip(pytree.leaves(grads), pytree.leaves(state.mu),
                               pytree.leaves(state.nu),
                               pytree.leaves(params)):
+            g, m, v, p = local(g), local(m), local(v), local(p)
             gf = g.to(F32) if scale is None else g.to(F32) * scale
             # b·m + (1 − b)·g, rounded as the reference's expression
             m.mul_(B1).add_((1 - B1) * gf)
@@ -116,12 +127,18 @@ class AdamW:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the f32 sum of squares, leaf by leaf in the reference's
-    order (a stage leaf's layers summed first)."""
+    order (a stage leaf's layers summed first; a sharded leaf's local
+    sum summed over the ranks holding its other parts)."""
     def sq(t):
-        return torch.sum(torch.square(t.to(F32)))
-    return torch.sqrt(sum(sum(sq(t) for t in g)
-                          if isinstance(g, pytree.Layers) else sq(g)
-                          for g in layer_groups(tree)))
+        return torch.sum(torch.square(local(t).to(F32)))
+    total = 0
+    for g in layer_groups(tree):
+        layers = isinstance(g, pytree.Layers)
+        v = sum(sq(t) for t in g) if layers else sq(g)
+        for grp in shard_groups(g[0] if layers else g):
+            v = all_reduce_(v.clone(), grp)
+        total = total + v
+    return torch.sqrt(total)
 
 
 def cosine_schedule(warmup: int, total: int, floor: float = 0.1):

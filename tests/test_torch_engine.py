@@ -194,8 +194,14 @@ def _imports(path: Path):
 
 def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "ab_kernels.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "ab_kernels.py",
+              ROOT / "tests" / "torch_dist_worker.py"]
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    for new in ("models/common.py", "launch/mesh.py", "launch/presets.py",
+                "distributed/sharding.py", "distributed/pipeline.py",
+                "distributed/collectives.py"):
+        assert f"src/repro_torch/{new}" in names, new
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -272,10 +272,14 @@ def test_port_checkpoint_restores_into_repro_template(cross_runs):
 
 
 def test_pod_mesh_and_missing_card_raise():
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    """A production mesh needs its ranks (torchrun's WORLD_SIZE): one
+    process raises, naming the count, and trains nothing on one device
+    in silence."""
+    with pytest.raises(ValueError, match="256 ranks"):
         ttrain.run(ttrain.parse_args(["--mesh", "pod", "--device", "cpu"]))
-    with pytest.raises(NotImplementedError):
-        ttrain.run(ttrain.parse_args(["--mesh", "multipod"]))
+    with pytest.raises(ValueError, match="512 ranks"):
+        ttrain.run(ttrain.parse_args(["--mesh", "multipod", "--device",
+                                      "cpu"]))
     assert ttrain.parse_args([]).device == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

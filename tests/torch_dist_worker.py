@@ -1,0 +1,262 @@
+"""One gloo rank of the port's sharded training and pipeline checks.
+
+Started by ``tests/test_torch_dist_train.py`` and
+``tests/test_torch_pipeline.py``, one process per rank, with its rank,
+the world size, a rendezvous file under the test's ``tmp_path``, the
+case file the parent wrote and an output directory.  It imports torch
+and the port only (never JAX): the parent holds the reference's side
+and compares.  Each rank runs on one intra-op thread, and its process
+group times out after 60 s, so a lost rank fails the test instead of
+hanging it.
+
+    python tests/torch_dist_worker.py RANK WORLD RDV_FILE CASE_FILE OUT_DIR
+
+:func:`launch` is the parent's side: it starts the ranks, waits for
+them with a deadline, kills them when it passes, and returns each
+rank's results.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from repro_torch import pytree
+from repro_torch.configs import registry
+from repro_torch.configs.base import Stage
+from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+from repro_torch.distributed.compression import (CompressionConfig,
+                                                 init_residual)
+from repro_torch.distributed.pipeline import pipeline_apply
+from repro_torch.distributed.sharding import (distribute, distribute_tree,
+                                              full, is_dtensor, like, local)
+from repro_torch.launch import train
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import common
+from repro_torch.optim.adamw import AdamW, cosine_schedule
+
+
+def qwen_cfg(n_layers: int = 3, **over):
+    """Reduced qwen2.5-3b with one stage of ``n_layers`` dense layers."""
+    cfg = registry.get("qwen2.5-3b").reduced()
+    return dataclasses.replace(cfg, stages=(Stage(("dense",), n_layers),),
+                               **over)
+
+
+def batches(vocab: int, batch: int, seq: int, steps: int):
+    corpus = SyntheticCorpus(CorpusConfig(vocab=vocab, seed=0))
+    out = []
+    for s in range(steps):
+        tok, tgt = next(corpus.batches(batch, seq, 1, host=s,
+                                       n_hosts=1 << 30))
+        out.append({"tokens": torch.from_numpy(tok),
+                    "targets": torch.from_numpy(tgt)})
+    return out
+
+
+def optimizer(steps: int, lr: float) -> AdamW:
+    return AdamW(lr=lr, weight_decay=0.01, clip_norm=1.0,
+                 schedule=cosine_schedule(warmup=1, total=steps))
+
+
+def _state(params, opt, ccfg):
+    return {"params": params, "opt": opt.init(params),
+            "residual": (init_residual(params) if ccfg.kind is not None
+                         else torch.zeros((), dtype=torch.float32))}
+
+
+def _locals(tree):
+    """Per leaf: (path, local part, placements as text) of a DTensor."""
+    return [(k, local(t).clone(), str(t.placements))
+            for k, t in pytree.leaves_with_path(tree) if is_dtensor(t)]
+
+
+def train_case(case, rank):
+    """The sharded step from the case's params on its mesh: per-step
+    losses, the gathered final params, every rank's local parts, and
+    the gathered and local gradients of the first step."""
+    cfg = qwen_cfg(**case["cfg"])
+    mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
+    par, rules = train.parallel_for(mesh, case["mb"], True, 1024,
+                                    case["fsdp"])
+    shards = train.make_shards(cfg, par, mesh, rules)
+    ccfg = CompressionConfig(kind=case["kind"])
+    opt = optimizer(case["steps"], case["lr"])
+    params = distribute_tree(case["params"], shards.specs, mesh)
+    lp = pytree.tree_map(local, params)
+    data = batches(cfg.vocab, case["batch"], case["seq"], case["steps"])
+    rows = shards.rows(case["batch"])
+    loss0, grads = train._loss_and_grads(
+        cfg, lp, {k: v[rows] for k, v in data[0].items()}, 1024, True,
+        shards)
+    grads = pytree.tree_map(like, params, grads)
+    out = {"loss0_share": float(loss0),
+           "loss0": float(shards.data_sum(loss0)),
+           "grads": pytree.tree_map(lambda t: full(t).clone(), grads),
+           "grad_locals": _locals(grads)}
+    step = train.make_train_step(cfg, opt, ccfg, case["mb"], True, 1024,
+                                 shards)
+    state = _state(params, opt, ccfg)
+    losses = []
+    for b in data:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    out["losses"] = losses
+    out["params"] = pytree.tree_map(lambda t: full(t).clone(),
+                                    state["params"])
+    out["locals"] = _locals(state["params"])
+    out["coords"] = mesh.get_coordinate()
+    return out
+
+
+def ckpt_case(case, rank):
+    """``train.run`` on a (2, 2) mesh writes a checkpoint; it is then
+    restored into a state on a (1, 4) mesh and gathered."""
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    res = train.run(train.parse_args(case["argv"]), mesh=mesh)
+    other = make_mesh((1, 4), ("data", "model"), "cpu")
+    cfg = dataclasses.replace(registry.get("qwen2.5-3b").reduced(),
+                              vocab=512)
+    par, rules = train.parallel_for(other, 1, False, 1024, False)
+    shards = train.make_shards(cfg, par, other, rules)
+    ccfg = CompressionConfig(kind=None)
+    state = train.init_sharded_state(cfg, optimizer(2, 3e-3), ccfg, shards)
+    state, step = train.restore_state(case["dir"], state)
+    return {"run": res, "step": step,
+            "restored": [full(t).clone() for t in pytree.leaves(state)]}
+
+
+def refusals(case, rank):
+    """What a mesh run refuses, each as the exception's type name."""
+    out = {}
+
+    def catch(name, fn):
+        try:
+            fn()
+            out[name] = None
+        except Exception as e:                  # noqa: BLE001 (reported)
+            out[name] = type(e).__name__
+    catch("world", lambda: make_mesh((2, 1), ("data", "model"), "cpu"))
+    catch("device", lambda: make_mesh((2, 2), ("data", "model"), "cuda"))
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    par, rules = train.parallel_for(mesh)
+    xl = registry.get("xlstm-1.3b").reduced()
+    catch("kind", lambda: train.make_shards(xl, par, mesh, rules))
+    odd = qwen_cfg(n_heads=6, n_kv_heads=2)
+    catch("uneven", lambda: train.make_shards(odd, par, mesh, rules))
+    catch("device_arg", lambda: train.run(train.parse_args(
+        ["--reduced", "--steps", "1", "--device", "cuda"]), mesh=mesh))
+    return out
+
+
+def hints(case, rank):
+    """The reference's hints under ``use_mesh``: a DTensor takes the
+    placements of the spec, a local tensor and one off the mesh stay
+    as they are."""
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    x = distribute(case["x"], (None, None, None), mesh)
+    out = {"off": common.hint(x, "data", None, None) is x}
+    with common.use_mesh(mesh):
+        h = common.hint_act(x, common.Parallel(tp=2, dp=2))
+        out["act"] = (str(h.placements), tuple(h.to_local().shape))
+        out["local"] = common.hint(case["x"], "data") is case["x"]
+        out["batch_spec"] = common.batch_spec(None)
+        out["full"] = torch.equal(h.full_tensor(), case["x"])
+    return out
+
+
+def pipeline_case(case, rank):
+    """``pipeline_apply`` on a ("stage",) mesh of all ranks and on a
+    ("stage", "data") mesh of two stages by two replicas."""
+    def block(p, h):
+        return torch.tanh(h @ p)
+    out = {}
+    for name, shape, axes in (("4", (4,), ("stage",)),
+                              ("2x2", (2, 2), ("stage", "data"))):
+        mesh = make_mesh(shape, axes, "cpu")
+        w = case["w" + name]
+        sharded = distribute(w, ("stage",) + (None,) * (w.ndim - 1), mesh)
+        out[name] = pipeline_apply(block, sharded, case["x"], mesh)
+        out[name + "_whole"] = pipeline_apply(block, w, case["x"], mesh)
+    return out
+
+
+TASKS = {"train": train_case, "ckpt": ckpt_case, "refusals": refusals,
+         "hints": hints, "pipeline": pipeline_case}
+
+
+def main(argv) -> int:
+    rank, world, rdv, case_file, out_dir = (int(argv[0]), int(argv[1]),
+                                            argv[2], argv[3], argv[4])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        cases = torch.load(case_file, weights_only=True)
+        results = {}
+        for name, case in cases.items():
+            results[name] = TASKS[case["task"]](case, rank)
+            dist.barrier()
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def launch(cases: dict, tmp: Path, world: int = 4,
+           deadline_s: float = 240.0) -> list:
+    """Run ``cases`` ({name: case}) on ``world`` ranks of this script;
+    returns each rank's {name: result}.  Every rank's output goes to
+    ``tmp / rank<r>.log``; past the deadline the ranks are killed and
+    the call fails with the logs' ends."""
+    tmp = Path(tmp)
+    case_file, out = tmp / "cases.pt", tmp / "out"
+    out.mkdir()
+    torch.save(cases, case_file)
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(world), str(tmp / "rdv"),
+         str(case_file), str(out)], stdout=logs[r],
+        stderr=subprocess.STDOUT, env=env) for r in range(world)]
+    end = time.monotonic() + deadline_s
+    late = False
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        late = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if late or any(p.returncode for p in procs):
+        tails = "\n".join(f"--- rank {r} (rc {p.returncode}) ---\n"
+                          + (tmp / f"rank{r}.log").read_text()[-3000:]
+                          for r, p in enumerate(procs))
+        raise AssertionError(("deadline of %.0f s passed\n" % deadline_s
+                              if late else "a rank failed\n") + tails)
+    return [torch.load(out / f"rank{r}.pt", weights_only=True)
+            for r in range(world)]
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
