@@ -93,7 +93,9 @@ Phases, each of which raises on failure:
    data-free and its loss beside the quantized original's
    (``[preprocess]``).  Then the paper's Table-1 comparison: the bf16
    weights fake-quantized by each of rtn-2, gptq-2, awq-2, pbllm and
-   billm through the baselines' driver at full width and depth, each
+   billm through the baselines' driver at full width and 16 of the 32
+   layers (``BASELINE_LAYERS``), beside data-free PTQ1.61 at phase 5's
+   settings on the same 16 layers, each
    with its quantize seconds, peak memory, bits and finite loss, and
    GPTQ's objective below RTN's on every leaf of layer 0
    (``[baselines]``);
@@ -135,8 +137,8 @@ Phases, each of which raises on failure:
    and calibrated PTQ1.61 at the serve defaults (``[rg calibrated]``:
    no block's Eq.-7 loss may rise; its unfused projections held
    against the plain version; served as ``[rg]``);
-10. the xLSTM block kinds: xlstm-1.3b at full width and 24 of its 48
-   layers (3 of its 6 superblocks since PR 19: 21 mlstm, 3 slstm;
+10. the xLSTM block kinds: xlstm-1.3b at full width and 16 of its 48
+   layers (2 of its 6 superblocks: 14 mlstm, 2 slstm;
    ``[xl serve]`` builds all 48; layernorm, vocab 50304, untied head),
    random bf16 weights of seed 0, data-free PTQ1.61 (its projections
    stay unfused, as in the reference) served with whole-prompt prefill
@@ -194,7 +196,18 @@ Phases, each of which raises on failure:
    plain application (``[dist pipeline]``).  No kernel of the port is
    launched (every launch count reads 0).  A step across several cards
    waits for a machine with them (ROADMAP);
-15. check that every (M, K, N) the packed matmul launched at in phases
+15. the sharded step of the other block kinds on one NCCL rank of a
+   (1, 1) mesh with FSDP, each against the one-device step from the
+   same seed (``[dist kinds moe|rg|xl|s2t]``, the same bits expected):
+   granite-moe-1b-a400m at full width and depth, 3 steps of 8 x 512
+   tokens, one device through ``launch.train.run`` and the sharded step
+   with EP, whose group-local MoE path must run (its calls counted);
+   recurrentgemma-2b (rglru, rglru, local, then rglru), xlstm-1.3b (7
+   mlstm and 1 slstm) and seamless-m4t-medium (2 encoder and 2 decoder
+   layers over 4 x 1024 stub frames) at full width, 2 steps of 4 x 512
+   tokens.  Step ms and peak GB of each side.  No kernel of the port is
+   launched;
+16. check that every (M, K, N) the packed matmul launched at in phases
    5-12 was held against its plain version in phase 3, 6, 8, 9 or 10, then
    print the ``kernels`` JSON line (six entries, one per TPU kernel: the
    five wrappers and the perm gather of ``mixed_matmul``) and the result
@@ -252,6 +265,11 @@ CAL_LOSS_RTOL = 1e-3
 # error into every later column of its row).
 BASELINES = ("rtn-2", "gptq-2", "awq-2", "pbllm", "billm")
 BASE_GPTQ_RTOL = 1e-3
+# ``[baselines]`` quantizes 16 of LLaMA-7B's 32 layers at full width, and
+# PTQ1.61 beside them on the same 16: gptq-2's column loop took 279.5 s
+# at 32 layers in a run of 1013.3 s (NVIDIA H100 80GB HBM3, 700.00 W);
+# the per-layer work and the bits per weight do not depend on the depth
+BASELINE_LAYERS = 16
 # Row counts of the packed matmul on the driven paths besides the
 # M = 1, 8, 64 of the kernel check: 4-slot decode and bucket-16 prefill
 # of serve's defaults, whole-prompt buckets 256 and 512, and the 2 x 512
@@ -1791,29 +1809,41 @@ def run_preprocess(torch, cfg, qparams, kernels) -> dict:
             "loss_tokens": loss_pre["tokens"], "launches": launches}
 
 
-def run_baselines(torch, cfg, kernels, ptq_bits: float, ptq_loss: float
-                  ) -> dict:
-    """The paper's Table-1 comparison on LLaMA-7B at full width and depth:
-    each of BASELINES quantizes the bf16 weights of seed 0 through
+def run_baselines(torch, cfg, kernels) -> dict:
+    """The paper's Table-1 comparison on LLaMA-7B at full width and
+    ``BASELINE_LAYERS`` of its layers: data-free PTQ1.61 at phase 5's
+    settings (its bits and loss), then each of BASELINES, quantize the
+    bf16 weights of seed 0 of that cut, the baselines through
     ``quantize_model_baseline`` at ``benchmarks/common.py``'s calibration
     settings (32 x 256 synthetic calib tokens, min dim 64), one method's
     tree at a time.  Prints quantize seconds, peak device memory, bits
     per weight and the loss on the ``[loss]`` tokens beside the fp loss
-    and the data-free PTQ1.61 loss of phase 5; every loss must be finite.
+    and the PTQ1.61 loss of the same cut; every loss must be finite.
     On layer 0 (the same embedded stream for every method) GPTQ's
-    objective tr(ΔᵀHΔ) must lie below RTN's on every leaf.  The fake-quant
-    models run dense matmuls: no kernel of the port is launched."""
+    objective tr(ΔᵀHΔ) must lie below RTN's on every leaf.  The PTQ1.61
+    loss runs the packed matmul at ``[loss]``'s shapes before the counts
+    start; the fake-quant models run dense matmuls: no kernel of the
+    port is launched."""
     from repro_torch.core.baselines.driver import (method_bits,
                                                    quantize_model_baseline)
     from repro_torch.core.calibrate import collect_wrappers
-    from repro_torch.core.pipeline import _block_forward
+    from repro_torch.core.pipeline import (_block_forward,
+                                           quantize_params_data_free)
+    from repro_torch.core.qlinear import QuantConfig
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.models import model as M
+    cfg = dataclasses.replace(cfg, stages=tuple(
+        dataclasses.replace(s, repeats=BASELINE_LAYERS) for s in cfg.stages))
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
     calib = [{"tokens": torch.from_numpy(t).to("cuda")} for t, _ in
              corpus.batches(1, 256, 32, split="calib")]
     params = M.init_params(cfg, seed=0, device="cuda")
     fp_loss = run_loss(torch, cfg, params)["loss"]
+    q = quantize_params_data_free(params, QuantConfig(ratio=0.2, multiple=16),
+                                  min_dim=32, fuse=True)
+    ptq_bits = check_bits(q, "baselines ptq1.61")
+    ptq_loss = run_loss(torch, cfg, q)["loss"]
+    del q
     shapes = [tuple(x.shape) for lp in params["stages"][0]
               for leaves in lp[0].values() if isinstance(leaves, dict)
               for x in leaves.values() if x.ndim == 2]
@@ -1860,8 +1890,9 @@ def run_baselines(torch, cfg, kernels, ptq_bits: float, ptq_loss: float
             _fail(f"baselines: gptq-2's layer-0 objective on {blk}/{name} "
                   f"is not below rtn-2's: {e}")
     del params, layer0, wrappers, embedded
-    return {"methods": rows, "fp_loss": fp_loss, "ptq161_datafree_loss":
-            ptq_loss, "ptq161_datafree_bits": ptq_bits,
+    return {"methods": rows, "layers": cfg.n_layers, "fp_loss": fp_loss,
+            "ptq161_datafree_loss": ptq_loss,
+            "ptq161_datafree_bits": ptq_bits,
             "calibration": {"segments": 32, "seq": 256, "min_dim": 64},
             "layer0_objective": objective, "launches": launches}
 
@@ -2501,11 +2532,11 @@ def run_rg_calibrated(torch, cfg, kernels, peaks) -> dict:
 # Phase 10: the xLSTM block kinds (mlstm and slstm) at full width and depth
 # ---------------------------------------------------------------------------
 # phase 10 runs XL_REPEATS of xlstm-1.3b's 6 superblocks (7 mlstm and 1
-# slstm each): 24 of its 48 layers, at full width, so that the whole run
+# slstm each): 16 of its 48 layers, at full width, so that the whole run
 # stays well inside its limit with the training phases (976 s with all
-# 48 layers in PR 19, NVIDIA H100 80GB HBM3, 700.00 W); `[xl serve]`
-# runs launch.serve's own full-depth model
-XL_REPEATS = 3
+# 48 layers, 1075.2 s with 24, NVIDIA H100 80GB HBM3, 700.00 W);
+# `[xl serve]` runs launch.serve's own full-depth model
+XL_REPEATS = 2
 
 
 def xlstm(registry):
@@ -2619,8 +2650,8 @@ def _no_attention(tag, launches):
 
 
 def run_xl_path(torch, registry, kernels, peaks):
-    """xlstm-1.3b at full width and 24 of its 48 layers (``XL_REPEATS``:
-    21 mlstm, 3 slstm; layernorm, vocab 50304, untied head; ``[xl
+    """xlstm-1.3b at full width and 16 of its 48 layers (``XL_REPEATS``:
+    14 mlstm, 2 slstm; layernorm, vocab 50304, untied head; ``[xl
     serve]`` at all 48), random bf16 weights of seed 0,
     data-free PTQ1.61 (``fuse=True``, which leaves the xLSTM projections
     unfused as in the reference), served with whole-prompt prefill on
@@ -3779,6 +3810,229 @@ def run_dist_pipeline(torch, kernels) -> dict:
     return {"stages": 1, "n_micro": 3, "equal": True, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded step of every block kind on one NCCL rank
+# ---------------------------------------------------------------------------
+# granite at full width and depth through ``run``, 3 steps of 8 x 512
+MOE_DIST_ARGS = ["--arch", MOE_ARCH, "--steps", "3", "--batch", "8",
+                 "--seq", "512", "--lr", "3e-4", "--warmup", "1", "--remat",
+                 "--log-every", "1"]
+# the other kinds at full width and one superblock (with seamless, two
+# encoder and two decoder layers over stub frames): (tag, arch, config
+# overrides, frames per row); 2 steps of 4 x 512 tokens each
+KIND_DIST_ROWS, KIND_DIST_SEQ, KIND_DIST_STEPS, KIND_DIST_FRAMES = \
+    4, 512, 2, 1024
+
+
+def _kind_dist_cases():
+    from repro_torch.configs.base import Stage
+    return (("rg", RG_ARCH, {"stages": (Stage(("rglru", "rglru", "local"),
+                                              1), Stage(("rglru",), 1))}, 0),
+            ("xl", XL_ARCH, {"stages": (Stage(("mlstm",) * 7 + ("slstm",),
+                                              1),)}, 0),
+            ("s2t", S2T_ARCH, {"stages": (Stage(("dense",), 2),),
+                               "n_enc_layers": 2}, KIND_DIST_FRAMES))
+
+
+def _kind_batches(torch, cfg, rows, seq, steps, frames):
+    """The synthetic corpus's batches of steps 0.. on the card, each with
+    ``frames`` bf16 stub frames per row (from a seed) when > 0."""
+    from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    out = []
+    for s in range(steps):
+        tok, tgt = next(corpus.batches(rows, seq, 1, host=s,
+                                       n_hosts=1 << 30))
+        b = {"tokens": torch.from_numpy(tok).to("cuda"),
+             "targets": torch.from_numpy(tgt).to("cuda")}
+        if frames:
+            b["frames"] = torch.randn((rows, frames, cfg.d_model),
+                                      generator=gen, device="cuda").to(
+                                          torch.bfloat16)
+        out.append(b)
+    return out
+
+
+def _kind_steps(torch, train, cfg, batches, shards=None):
+    """``make_train_step`` from seed 0 (lr 3e-4, warm-up 1, remat) over
+    ``batches``, on one device or, with ``shards``, from the sharded
+    state: (losses, the last step's wall ms, the step, its state)."""
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    opt = AdamW(lr=3e-4, weight_decay=0.01, clip_norm=1.0,
+                schedule=cosine_schedule(warmup=1, total=len(batches)))
+    ccfg = CompressionConfig(kind=None)
+    state = (train.init_state(cfg, opt, ccfg, seed=0, device="cuda")
+             if shards is None else
+             train.init_sharded_state(cfg, opt, ccfg, shards, seed=0))
+    fn = train.make_train_step(cfg, opt, ccfg, 1, True, 1024, shards)
+    losses, ms = [], 0.0
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, b)
+        losses.append(float(m["loss"]))
+        ms = (time.perf_counter() - t0) * 1e3
+    return losses, ms, fn, state
+
+
+def _held(torch, tag, cfg, losses, dlosses, ref, state) -> dict:
+    """The sharded run against the one-device run: the same bits
+    expected; where they part, the losses within 2e-5 and each leaf
+    within 2e-3 of its update's norm (the CPU tests' bounds), and the
+    leaves where they part named."""
+    from repro_torch import pytree
+    from repro_torch.distributed.sharding import is_dtensor, local
+    leaves = pytree.leaves(state["params"])
+    if not all(is_dtensor(t) for t in leaves):
+        _fail(f"[dist kinds {tag}] the sharded state holds a plain tensor")
+    parted = [key for (key, t), r in zip(
+        pytree.leaves_with_path(state["params"]), ref)
+        if not _bits_equal(torch, local(t), r)]
+    out = {"bit_identical": not parted and dlosses == losses,
+           "leaves_parted": len(parted), "first_parted": parted[:5],
+           "max_param_gap": max(float((local(t).float() - r.float()).abs()
+                                      .max()) for t, r in zip(leaves, ref)),
+           "loss_gaps": [abs(a - b) for a, b in zip(dlosses, losses)]}
+    if len(dlosses) != len(losses) or not all(math.isfinite(x)
+                                              for x in dlosses):
+        _fail(f"[dist kinds {tag}] losses not finite: {dlosses}")
+    if not out["bit_identical"]:
+        out["update_ratio"] = _dist_update_ratio(torch, cfg, leaves, ref)
+        if max(out["loss_gaps"]) > TRAIN_LOSS_ATOL or \
+                out["update_ratio"] > TRAIN_DELTA_RTOL:
+            _fail(f"[dist kinds {tag}] the sharded step parts from the one "
+                  f"device's beyond the CPU tests' bounds (losses "
+                  f"{TRAIN_LOSS_ATOL}, updates {TRAIN_DELTA_RTOL}): {out}")
+    return out
+
+
+@contextlib.contextmanager
+def _count_sharded_moe(counts: dict):
+    """Count ``layers._moe`` calls with ``shards`` (the group-local MoE
+    path of the sharded step) in ``counts["calls"]``."""
+    from repro_torch.models import layers as L
+    plain = L._moe
+
+    def moe(cfg, p, x, shards=None):
+        if shards is not None:
+            counts["calls"] += 1
+        return plain(cfg, p, x, shards)
+    L._moe = moe
+    try:
+        yield counts
+    finally:
+        L._moe = plain
+
+
+def run_dist_kinds(torch, kernels, smi: str) -> dict:
+    """``[dist kinds]``: the sharded step of every other block kind as
+    one NCCL rank on a (1, 1) ("data", "model") mesh with FSDP, against
+    the one-device step from the same seed.  granite-moe-1b-a400m at
+    full width and depth: 3 steps of 8 x 512 tokens through
+    ``launch.train.run`` (remat), then the sharded step with EP (the
+    experts' storage over "model"), whose MoE takes the group-local path
+    of ``layers.apply_moe`` (its calls counted, at least one).  Then
+    recurrentgemma-2b, xlstm-1.3b and seamless-m4t-medium at full width
+    and cut depth (``_kind_dist_cases``): 2 steps of 4 x 512 tokens each
+    way.  The same bits are expected (at one rank every collective is an
+    identity), else ``_held``'s bounds.  Every launch count reads 0."""
+    import torch.distributed as dist
+    from repro_torch import pytree
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        # granite: one device through run, then the sharded step with EP
+        cfg = registry.get(MOE_ARCH)
+        args = train.parse_args(MOE_DIST_ARGS)
+        batches = [_batch_on(torch, cfg, args, s, "cuda")
+                   for s in range(args.steps)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        with _count_sharded_moe({"calls": 0}) as counted:
+            _, losses, fn, state = _run_train(torch, train, MOE_DIST_ARGS)
+        one = {"losses": losses, "moe_sharded_calls": counted["calls"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": _launches(kernels)}
+        _no_launches("[dist kinds moe] one device", kernels)
+        ref = [t.detach().clone() for t in pytree.leaves(state["params"])]
+        one["step_ms"] = _step_ms(torch, fn, state, batches[0], warm=1,
+                                  steps=3)
+        del fn, state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        par, rules = train.parallel_for(mesh, 1, True, 1024, fsdp=True,
+                                        ep=True)
+        shards = train.make_shards(cfg, par, mesh, rules)
+        _reset(kernels)
+        with _count_sharded_moe({"calls": 0}) as counted:
+            dlosses, _, fn, state = _kind_steps(torch, train, cfg, batches,
+                                                shards)
+        calls = counted["calls"]
+        sharded = {"losses": dlosses, "moe_sharded_calls": calls,
+                   "ep": rules.ep, "fsdp": rules.fsdp,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": _launches(kernels)}
+        _no_launches("[dist kinds moe] sharded", kernels)
+        if one["moe_sharded_calls"] or not calls:
+            _fail(f"[dist kinds moe] the sharded MoE ran {calls} times in "
+                  f"the sharded step and {one['moe_sharded_calls']} on one "
+                  "device")
+        held = _held(torch, "moe", cfg, losses, dlosses, ref, state)
+        sharded["step_ms"] = _step_ms(torch, fn, state, batches[0], warm=1,
+                                      steps=3)
+        out["moe"] = {"arch": MOE_ARCH, "layers": cfg.n_layers,
+                      "rows": args.batch, "seq": args.seq,
+                      "one_device": one, "sharded": sharded, **held}
+        print(f"[dist kinds moe] {smi}: " + json.dumps(out["moe"]),
+              flush=True)
+        del fn, state, ref, batches
+        torch.cuda.empty_cache()
+        # the other kinds at full width, cut depth
+        for tag, arch, over, frames in _kind_dist_cases():
+            cfg = dataclasses.replace(registry.get(arch), **over)
+            batches = _kind_batches(torch, cfg, KIND_DIST_ROWS,
+                                    KIND_DIST_SEQ, KIND_DIST_STEPS, frames)
+            torch.cuda.reset_peak_memory_stats()
+            _reset(kernels)
+            losses, ms, fn, state = _kind_steps(torch, train, cfg, batches)
+            one = {"losses": losses, "step_ms": ms,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            _no_launches(f"[dist kinds {tag}] one device", kernels)
+            ref = [t.detach().clone() for t in pytree.leaves(state["params"])]
+            del fn, state
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            par, rules = train.parallel_for(mesh, 1, True, 1024, fsdp=True)
+            shards = train.make_shards(cfg, par, mesh, rules)
+            _reset(kernels)
+            dlosses, dms, fn, state = _kind_steps(torch, train, cfg, batches,
+                                                  shards)
+            sharded = {"losses": dlosses, "step_ms": dms,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "launches": _launches(kernels)}
+            _no_launches(f"[dist kinds {tag}] sharded", kernels)
+            held = _held(torch, tag, cfg, losses, dlosses, ref, state)
+            out[tag] = {"arch": arch, "layers": cfg.n_layers,
+                        "enc_layers": cfg.n_enc_layers, "frames": frames,
+                        "rows": KIND_DIST_ROWS, "seq": KIND_DIST_SEQ,
+                        "one_device": one, "sharded": sharded, **held}
+            print(f"[dist kinds {tag}] {smi}: " + json.dumps(out[tag]),
+                  flush=True)
+            del fn, state, ref, batches
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 class Laps:
     """Wall seconds of each phase, printed as it ends (``[phase]``)."""
 
@@ -4084,8 +4338,7 @@ def main() -> int:
     print("[preprocess] " + json.dumps(preprocess), flush=True)
     del qparams
     torch.cuda.empty_cache()
-    baselines = run_baselines(torch, cfg, kernels, summary["bits_per_weight"],
-                              loss["loss"])
+    baselines = run_baselines(torch, cfg, kernels)
     print("[baselines] " + json.dumps(baselines), flush=True)
 
     laps("5")
@@ -4132,7 +4385,7 @@ def main() -> int:
     print("[rg calibrated] " + json.dumps(rg_cal), flush=True)
 
     laps("9")
-    # -- 10. the xLSTM kinds: xlstm-1.3b at full width, 24 of 48 layers --
+    # -- 10. the xLSTM kinds: xlstm-1.3b at full width, 16 of 48 layers --
     torch.cuda.empty_cache()
     xl, xcfg = run_xl_path(torch, registry, kernels, peaks)
     xl_cal = run_xl_calibrated(torch, xcfg, kernels, peaks)
@@ -4183,7 +4436,21 @@ def main() -> int:
           + json.dumps(dist_pipe), flush=True)
 
     laps("14")
-    # -- 15. every packed-matmul shape of the paths was checked; the kernels
+    # -- 15. the sharded step of every other block kind on one NCCL rank --
+    dist_kinds = run_dist_kinds(torch, kernels, smi)
+    print(f"[dist kinds] {smi}; one NCCL rank on a (1, 1) mesh with FSDP "
+          "(EP for granite) against the one-device step from the same seed: "
+          + json.dumps({tag: {k: r[k] for k in (
+              "bit_identical", "leaves_parted", "max_param_gap")}
+              | {"step_ms": [r["one_device"]["step_ms"],
+                             r["sharded"]["step_ms"]]}
+              for tag, r in dist_kinds.items()}
+              | {"moe_sharded_calls":
+                 dist_kinds["moe"]["sharded"]["moe_sharded_calls"]}),
+          flush=True)
+
+    laps("15")
+    # -- 16. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
@@ -4275,7 +4542,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("15")
+    laps("16")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

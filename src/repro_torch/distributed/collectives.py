@@ -9,6 +9,13 @@ train step needs them.
   the group (Megatron's f; a replicated leaf's gradient over data).
 * :func:`sum_over`: the sum over the group, whose backward is the
   identity (Megatron's g).
+* :func:`all_to_all` from one tensor dim to another; its backward is
+  the inverse all-to-all: the reshard of an expert leaf from its
+  storage shard (experts over "model") to its compute shard (the ffn
+  dim over "model").
+* :func:`gather_narrow`: a gather whose backward keeps this rank's part
+  of the gradient instead of summing it, for a gathered tensor that
+  every rank of the group then uses in the same replicated computation.
 * :func:`all_reduce_`: an in-place reduction without gradient.
 
 Every rank of the group calls each of them in the same order.  With
@@ -62,6 +69,40 @@ class _AllGather(torch.autograd.Function):
         return _scatter(g, ctx.dim, ctx.group), None, None
 
 
+def _exchange(x: torch.Tensor, split: int, cat: int, group) -> torch.Tensor:
+    """Part i of ``x`` along ``split`` goes to rank i; the parts received
+    are joined along ``cat`` in rank order."""
+    n = dist.get_world_size(group)
+    xs = x.movedim(split, 0)
+    xs = xs.reshape((n, xs.shape[0] // n) + tuple(xs.shape[1:])).contiguous()
+    out = torch.empty_like(xs)
+    dist.all_to_all_single(out, xs, group=group)
+    return torch.cat([o.movedim(0, split) for o in out.unbind(0)], dim=cat)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, cat, group):
+        ctx.split, ctx.cat, ctx.group = split, cat, group
+        return _exchange(x, split, cat, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.cat, ctx.split, ctx.group), None, None, None
+
+
+class _GatherNarrow(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.k = dim, x.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.k, ctx.k), None, None
+
+
 class _GradSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -86,6 +127,20 @@ class _SumOver(torch.autograd.Function):
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group's parts of ``x`` joined along ``dim`` in rank order."""
     return _AllGather.apply(x, dim, group)
+
+
+def all_to_all(x: torch.Tensor, split: int, cat: int, group) -> torch.Tensor:
+    """``x`` cut into the group's size of parts along ``split``, part i
+    sent to rank i, and the parts received joined along ``cat`` in rank
+    order: ``split`` shrinks and ``cat`` grows by the group's size."""
+    return _AllToAll.apply(x, split, cat, group)
+
+
+def gather_narrow(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`all_gather`'s value; its backward narrows the gradient to
+    this rank's part, for a result that every rank uses alike (each
+    holds the whole gradient already)."""
+    return _GatherNarrow.apply(x, dim, group)
 
 
 def grad_sum(x: torch.Tensor, group) -> torch.Tensor:

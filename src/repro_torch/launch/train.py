@@ -20,15 +20,20 @@ absent; ``--device cpu`` runs the same path on the CPU.  ``--mesh
 host`` (the default) trains on one device, where ``--fsdp`` changes
 nothing, as in the reference.
 
-Across devices, the step of a dense decoder runs under a ("data",
+Across devices, the step of every architecture runs under a ("data",
 "model") or ("pod", "data", "model") ``DeviceMesh``: the train state
 is held as DTensors placed by the reference's rules
-(``distributed.sharding``: heads, kv_heads, ffn and vocab over "model";
+(``distributed.sharding``: heads, kv_heads, ffn, rnn and vocab over
+"model", the experts too under EP (``parallel_for(..., ep=True)``);
 with ``--fsdp`` the embed dim over the data dims too, ZeRO-3; mu, nu,
 the residual and the microbatch accumulator sharded as the params,
 ZeRO-2), each rank runs the model on its local shards and its rows of
-the batch (``models.common.Shards``), and the optimizer and the
-compressor take the reference's whole-leaf norms and statistics.
+the batch (``models.common.Shards``; an MoE routes its data rank's
+rows alone, the reference's group-local dispatch), and the optimizer
+and the compressor take the reference's whole-leaf norms and
+statistics.  ``run`` makes no ``frames``, as the reference's does not:
+an encoder-decoder model trains through :func:`make_train_step` with
+a batch that carries them.
 ``--mesh pod`` (256 ranks) and ``--mesh multipod`` (512) build the
 production mesh over NCCL under ``torchrun`` (one process per card;
 ``WORLD_SIZE`` must be 256 or 512, or ``run`` raises ``ValueError``
@@ -126,12 +131,18 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, ccfg: CompressionConfig,
     (i+1)*b/mb) of it, split over the data ranks, as the reference
     groups it; each rank runs its rows on its local shards, the f32
     accumulator is sharded as the params (ZeRO-2), and the reported
-    loss is summed over the data ranks."""
+    loss is summed over the data ranks.  Its first call refuses a state
+    whose params ``model.check_shardable`` refuses (packed leaves)."""
     rows = (lambda n: slice(None)) if shards is None else shards.rows
+    checked = shards is None
 
     def train_step(state: Tree, batch: Dict[str, torch.Tensor]):
+        nonlocal checked
         params, opt_state, residual = (state["params"], state["opt"],
                                        state["residual"])
+        if not checked:
+            M.check_shardable(cfg, shards.par, params)
+            checked = True
         lparams = pytree.tree_map(local, params)
         mb = microbatches
         b = batch["tokens"].shape[0]
@@ -185,23 +196,26 @@ def init_state(cfg: ArchConfig, opt: AdamW, ccfg: CompressionConfig,
 
 
 def parallel_for(mesh, microbatches: int = 1, remat: bool = False,
-                 attn_chunk: int = 1024, fsdp: bool = False):
+                 attn_chunk: int = 1024, fsdp: bool = False,
+                 ep: bool = False):
     """(Parallel, Rules) of a run under ``mesh``, as the reference's
     ``run`` builds them: tp the "model" dim, dp the other devices,
-    sequence parallelism on when tp > 1."""
+    sequence parallelism on when tp > 1; ``ep`` shards the experts over
+    "model" (``launch.presets`` chooses it; ``run`` does not, as the
+    reference's does not)."""
     names = mesh_axis_names(mesh)
     tp = mesh.size(names.index("model"))
     par = Parallel(tp=tp, dp=mesh.size() // tp, fsdp=fsdp,
                    microbatches=microbatches, remat=remat,
                    attn_chunk=attn_chunk, sp=tp > 1)
-    return par, rules_for_mesh(mesh, fsdp=fsdp)
+    return par, rules_for_mesh(mesh, fsdp=fsdp, ep=ep)
 
 
 def make_shards(cfg: ArchConfig, par: Parallel, mesh, rules) -> Shards:
     """This rank's :class:`Shards` for ``cfg``'s parameters under
     ``rules``; refuses what the sharded step does not run
     (``model.check_shardable``)."""
-    M.check_shardable(cfg, par)
+    M.check_shardable(cfg, par, ep=rules.ep)
     return Shards(mesh, par, specs_for_tree(M.declare_params(cfg, par),
                                             rules))
 

@@ -10,7 +10,8 @@ the model sees ``to_local()`` shards), so where the reference hints,
 the port's model code calls the collectives of :class:`Shards`
 explicitly: the FSDP gather of a block's leaves, Megatron's f and g
 around the tensor-parallel products, the vocab-parallel embedding and
-cross entropy.  Off a mesh, or on a one-rank mesh, every helper here
+cross entropy, the experts' reshard under EP and the gathers of the
+group-local MoE and the sLSTM's replicated scan.  Off a mesh, or on a one-rank mesh, every helper here
 returns its input.
 
 ``shard_map_compat`` of the reference is a shim across JAX versions and
@@ -231,6 +232,43 @@ class Shards:
         """g: the sum over "model" (a row-parallel product's partial
         sums), whose backward is the identity."""
         return x if self.tp == 1 else C.sum_over(x, self.group("model"))
+
+    def part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This model rank's part along ``dim`` of a replicated leaf
+        (or activation) that the rank uses only in part: the whole
+        passes through :meth:`enter` before the cut, so its gradient,
+        zero outside each rank's part, is summed over "model"."""
+        if self.tp == 1:
+            return t
+        k = t.shape[dim] // self.tp
+        return self.enter(t).narrow(dim, self.tp_rank * k, k)
+
+    def gather_rep(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t`` gathered over "model" along ``dim`` for a computation
+        that every model rank runs alike (the sLSTM's scan); its
+        backward keeps this rank's part of the gradient, which every
+        rank holds whole."""
+        return t if self.tp == 1 else C.gather_narrow(t, dim,
+                                                      self.group("model"))
+
+    def experts(self, t: torch.Tensor, n_experts: int, ffn_dim: int
+                ) -> torch.Tensor:
+        """An expert leaf (E or E/tp, ...), gathered over data, -> its
+        compute shard (E, ..., ffn/tp).  Under EP it holds E/tp whole
+        experts, and the all-to-all over "model" trades them for every
+        expert's ffn part (backward: the inverse all-to-all); without
+        EP it is the compute shard already."""
+        if self.tp == 1 or t.shape[0] == n_experts:
+            return t
+        return C.all_to_all(t, ffn_dim, 0, self.group("model"))
+
+    def data_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``x`` joined, pod major (backward:
+        the reduce-scatter)."""
+        for n in reversed(self.data_dims):
+            if self._size(n) > 1:
+                x = C.all_gather(x, 0, self.group(n))
+        return x
 
     def model_max(self, x: torch.Tensor) -> torch.Tensor:
         """The elementwise max over "model", without gradient."""

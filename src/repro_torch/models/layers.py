@@ -1,9 +1,9 @@
 """Transformer layers (subset of ``repro.models.layers``): norms, RoPE,
 the fused QKV projection, the gated MLP, the token-choice mixture of
-experts (single device), full-sequence attention (the calibration
-forward and whole-prompt prefill; self- or cross-attention), decode
-against the contiguous ring caches, and paged decode / chunked-prefill
-attention over the shared KV page pool.
+experts (one device, and group-local under a mesh), full-sequence
+attention (the calibration forward and whole-prompt prefill; self- or
+cross-attention), decode against the contiguous ring caches, and paged
+decode / chunked-prefill attention over the shared KV page pool.
 
 All linear weights are (in_features, out_features) and every matmul
 goes through :func:`repro_torch.models.linear.dense`, so packed
@@ -260,12 +260,14 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     longer than ``attn_chunk`` that it divides stream over key chunks.  With
     ``cache_window``, also returns the decode ring cache built from the
     K/V computed here; with ``return_kv``, those K/V themselves (the
-    cross-attention's decode cache).  With ``shards`` (self-attention
-    of the sharded train step): x is replicated over "model", the
-    heads are this rank's, and ``wo``'s row shard gives partial sums
-    that are summed over "model" (Megatron's f and g)."""
+    cross-attention's decode cache).  With ``shards`` (the sharded
+    train step): x and ``xkv`` are replicated over "model", the heads
+    are this rank's, and ``wo``'s row shard gives partial sums that are
+    summed over "model" (Megatron's f and g)."""
     if shards is not None:
         x = shards.enter(x)
+        if xkv is not None:
+            xkv = shards.enter(xkv)
     if xkv is None:
         xkv, kv_positions = x, positions
     q, k, v = _project_qkv(cfg, p, x, positions, xkv, kv_positions,
@@ -511,7 +513,7 @@ def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
 
 # ---------------------------------------------------------------------------
 # Mixture of experts: token-choice top-k, capacity dispatch by scatter
-# (the single-device branch of the reference's ``apply_moe``)
+# (the reference's ``apply_moe``, its shard_map branch under Shards)
 # ---------------------------------------------------------------------------
 def init_moe(cfg: ArchConfig) -> Tree:
     """The router stays f32 and is never quantized (not a projection
@@ -570,7 +572,8 @@ def moe_dispatch(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor
             "cap": cap}
 
 
-def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
+def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
+              ) -> torch.Tensor:
     """Capacity-bound token-choice MoE over x (B, S, D).  Every token of
     the call is routed (the capacity follows B·S); slots past an
     expert's capacity are dropped, their residual path passes through.
@@ -578,7 +581,28 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     The combine is a fixed-order sum over each token's k slots in the
     activation dtype, slot 0 first: the reference's scatter-add of
     ``repeat(arange(T), k)``, without atomics, so repeated calls give
-    the same bits on the card."""
+    the same bits on the card.
+
+    With ``shards`` (the sharded train step) the MoE is the reference's
+    group-local one (``_apply_moe_shard_map``): x holds this data rank's
+    rows, which it routes alone with the capacity of their token count,
+    the same on every model rank; the experts run over this rank's ffn
+    part (an EP leaf is resharded to it, ``Shards.experts``), and the
+    combine's partial sums are summed over "model".  Where the
+    reference keeps the whole-batch function under a mesh (a sequence
+    of one token), every data rank routes the whole batch and keeps its
+    rows.  (The reference's other whole-batch case, a batch not split
+    over data, does not reach here: ``Shards.rows`` refuses it.)"""
+    if shards is None:
+        return _moe(cfg, p, x)
+    if x.shape[1] > 1:
+        return _moe(cfg, p, x, shards)
+    rows = shards.rows(x.shape[0] * shards.dp)
+    return _moe(cfg, p, shards.data_gather(x), shards)[rows]
+
+
+def _moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
+         ) -> torch.Tensor:
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -590,6 +614,12 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     buf[dest_e, dest_c] = xt[src]        # duplicates land on the ghost only
     buf = buf[:m.n_experts]
+    gate_w = r["gate_w"]
+    if shards is not None:
+        buf, gate_w = shards.enter(buf), shards.enter(gate_w)
+        p = {"wg": shards.experts(p["wg"], m.n_experts, 2),
+             "wu": shards.experts(p["wu"], m.n_experts, 2),
+             "wd": shards.experts(p["wd"], m.n_experts, 1)}
 
     if "wgu" in p:
         g, u = p["wgu"].split_out(expert_dense(buf, p["wgu"]))
@@ -602,24 +632,34 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor) -> torch.Tensor:
     gathered = y[dest_e.clamp(0, m.n_experts - 1), dest_c]
     gathered = torch.where(keep[:, None], gathered,
                            torch.zeros((), dtype=y.dtype, device=y.device))
-    w = r["gate_w"].reshape(-1)[:, None].to(gathered.dtype)
+    w = gate_w.reshape(-1)[:, None].to(gathered.dtype)
     contrib = (gathered * w).reshape(t, m.top_k, d)
     out = torch.zeros((t, d), dtype=gathered.dtype, device=x.device)
     for j in range(m.top_k):
         out = out + contrib[:, j]
-    return out.reshape(b, s, d)
+    out = out.reshape(b, s, d)
+    return out if shards is None else shards.leave(out)
 
 
-def moe_aux_loss(cfg: ArchConfig, x: torch.Tensor, router: torch.Tensor
-                 ) -> torch.Tensor:
+def moe_aux_loss(cfg: ArchConfig, x: torch.Tensor, router: torch.Tensor,
+                 shards=None) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss: E · Σ_e (share of
-    tokens whose top-1 is e) · (mean router probability of e)."""
+    tokens whose top-1 is e) · (mean router probability of e).
+
+    With ``shards`` x holds this data rank's rows and the loss is over
+    the global batch, as the reference leaves it to GSPMD: the top-1
+    counts and the token count are summed over the data ranks, and the
+    result is this rank's share (its probabilities' sum over the global
+    count), so the shares sum to the global loss once."""
     m = cfg.moe
     t = x.shape[0] * x.shape[1]
     logits = x.reshape(t, -1).to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top1 = torch.argmax(logits, dim=-1)     # first maximum: lower index
-    frac_tokens = torch.mean(_one_hot(top1, m.n_experts, torch.float32),
-                             dim=0)
-    frac_probs = torch.mean(probs, dim=0)
+    counts = torch.sum(_one_hot(top1, m.n_experts, torch.float32), dim=0)
+    n = torch.full((), float(t), device=x.device)
+    if shards is not None:
+        counts, n = shards.data_sum(counts), shards.data_sum(n)
+    frac_tokens = counts / n
+    frac_probs = torch.sum(probs, dim=0) / n
     return m.n_experts * torch.sum(frac_tokens * frac_probs)

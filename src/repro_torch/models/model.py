@@ -21,7 +21,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, Stage
+from repro_torch.core.qlinear import QLinear, QLinearGroup
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 from repro_torch.models.linear import dense
 from repro_torch.models.common import Parallel
@@ -199,28 +201,38 @@ def _backbone_inputs(cfg: ArchConfig, params: Tree,
 
 
 def encode(cfg: ArchConfig, params: Tree, frames: torch.Tensor,
-           attn_chunk: int = 1024):
+           attn_chunk: int = 1024, shards=None):
     """The encoder over precomputed frame embeddings (the stub
     frontend): frames (B, S_enc, D) -> (enc_out (B, S_enc, D), enc_pos
     (B, S_enc) = 0..S_enc-1), non-causal, then the encoder's final
-    norm."""
+    norm.  With ``shards``, ``frames`` are this data rank's rows and the
+    encoder's leaves its shards, gathered over data a superblock at a
+    time (not rematerialized, as in the reference)."""
     b, s, _ = frames.shape
     pos = torch.arange(s, dtype=torch.int32,
                        device=frames.device).expand(b, s)
     x = frames
-    for sp in params["enc"]["stages"]:
+    enc = params["enc"]
+    espec = None if shards is None else shards.specs["enc"]
+    for si, sp in enumerate(enc["stages"]):
         x, _ = T.stage_full(cfg, _enc_stage(cfg), sp, x, pos, causal=False,
-                            attn_chunk=attn_chunk)
-    return L.apply_norm(cfg, params["enc"]["final_norm"], x), pos
+                            attn_chunk=attn_chunk, shards=shards,
+                            sspec=None if espec is None
+                            else espec["stages"][si])
+    norm = enc["final_norm"]
+    if shards is not None:
+        norm = shards.gather_tree(norm, espec["final_norm"])
+    return L.apply_norm(cfg, norm, x), pos
 
 
-def _encoded(cfg: ArchConfig, params: Tree, batch, attn_chunk: int):
+def _encoded(cfg: ArchConfig, params: Tree, batch, attn_chunk: int,
+             shards=None):
     """(enc_out, enc_pos) of the batch's ``frames`` for an
     encoder-decoder model (a batch without them raises the reference's
     KeyError), else (None, None)."""
     if not cfg.enc_dec:
         return None, None
-    return encode(cfg, params, batch["frames"], attn_chunk)
+    return encode(cfg, params, batch["frames"], attn_chunk, shards)
 
 
 def forward_loss(cfg: ArchConfig, params: Tree,
@@ -236,15 +248,16 @@ def forward_loss(cfg: ArchConfig, params: Tree,
     rematerialized, as in the reference); the loss and its gradients
     are the same.
 
-    With ``shards`` (``models.common.Shards``, the sharded train step of
-    a dense decoder) ``params`` are this rank's local shards and the
-    batch its data rows; the result is this data rank's share of the
-    global mean loss (the shares sum to it over the data ranks), and
-    the gradients reach each local shard reduced over the ranks."""
-    if shards is not None:
-        check_shardable(cfg, shards.par)
+    With ``shards`` (``models.common.Shards``, the sharded train step)
+    ``params`` are this rank's local shards and the batch its data rows
+    (``frames`` too); the result is this data rank's share of the
+    global mean loss plus its share of the aux (the shares sum to the
+    global loss over the data ranks), and the gradients reach each
+    local shard reduced over the ranks.  Under a mesh with more than
+    one data rank the MoE is the reference's group-local function
+    (``layers.apply_moe``)."""
     x, positions = _backbone_inputs(cfg, params, batch, shards)
-    enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
+    enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk, shards)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for si, (stage, sp) in enumerate(zip(cfg.stages, params["stages"])):
         x, a = T.stage_full(
@@ -258,24 +271,43 @@ def forward_loss(cfg: ArchConfig, params: Tree,
     return loss + 0.01 * aux
 
 
-def check_shardable(cfg: ArchConfig, par: Parallel) -> None:
-    """Refuse what the sharded train step does not run: a block kind
-    other than dense, an encoder-decoder model (``NotImplementedError``,
-    ROADMAP queue 1), and tensor-parallel shards that would cut a query
-    head, a run-time KV head group or the ffn / vocabulary unevenly
-    (``ValueError``)."""
-    kinds = sorted({k for s in cfg.stages for k in s.pattern})
-    if kinds != ["dense"] or cfg.enc_dec:
+def _packed(tree: Tree) -> bool:
+    """True when ``tree`` holds a packed ``QLinear`` / ``QLinearGroup``."""
+    if isinstance(tree, (QLinear, QLinearGroup)):
+        return True
+    if isinstance(tree, dict):
+        return any(_packed(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_packed(v) for v in tree)
+    return False
+
+
+def check_shardable(cfg: ArchConfig, par: Parallel,
+                    params: Optional[Tree] = None, ep: bool = False) -> None:
+    """Refuse what the sharded train step does not run: packed
+    (``QLinear``) leaves in ``params`` (``NotImplementedError``: sharded
+    serving of packed weights is ROADMAP queue 1), and tensor-parallel
+    shards that would cut unevenly (``ValueError``): a query head, a
+    run-time KV head group, the ffn, the padded vocabulary, the rnn
+    width or the RG-LRU's gate heads, the xLSTM heads, or (under EP,
+    ``ep``) the experts."""
+    if params is not None and _packed(params):
         raise NotImplementedError(
-            f"{cfg.name}: the sharded train step runs decoder-only models "
-            f"of the dense block kind; {kinds}"
-            f"{' with an encoder' if cfg.enc_dec else ''} waits for "
-            "ROADMAP queue 1 (tensor parallelism of the other kinds, EP)")
+            f"{cfg.name}: the sharded train step takes floating-point "
+            "parameters; packed QLinear leaves wait for ROADMAP queue 1 "
+            "(sharded serving of packed weights)")
     tp = par.tp
-    run = par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads)
-    for what, n in (("query heads", cfg.n_heads),
-                    ("run-time KV heads", run), ("d_ff", cfg.d_ff),
-                    ("padded vocabulary", cfg.vocab_padded)):
+    kinds = {k for s in cfg.stages for k in s.pattern}
+    splits = [("query (or xLSTM) heads", cfg.n_heads),
+              ("run-time KV heads",
+               par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads)),
+              ("d_ff", cfg.d_ff), ("padded vocabulary", cfg.vocab_padded)]
+    if "rglru" in kinds:
+        splits += [("rnn width", cfg.rnn_width or cfg.d_model),
+                   ("RG-LRU gate heads", R.RG_HEADS)]
+    if "moe" in kinds and ep:
+        splits.append(("experts under EP", cfg.moe.n_experts))
+    for what, n in splits:
         if n % tp:
             raise ValueError(f"{cfg.name}: {n} {what} do not split over "
                              f"tp={tp}")

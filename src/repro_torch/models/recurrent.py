@@ -74,9 +74,10 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 def _rg_gates(p: Tree, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., R) -> input gate i_t and recurrence gate r_t (f32), each a
-    block-diagonal product over RG_HEADS heads."""
+    block-diagonal product over the heads of ``w_inp`` / ``w_rec``
+    (RG_HEADS, or a tensor-parallel rank's part of them)."""
     shp = x.shape[:-1]
-    xh = x.reshape(shp + (RG_HEADS, -1)).to(torch.float32)
+    xh = x.reshape(shp + (p["w_inp"].shape[0], -1)).to(torch.float32)
     gi = torch.einsum("...hd,hde->...he", xh, p["w_inp"].to(torch.float32))
     gr = torch.einsum("...hd,hde->...he", xh, p["w_rec"].to(torch.float32))
     return (torch.sigmoid(gi.reshape(shp + (-1,))),
@@ -130,10 +131,21 @@ def _input(a_t: torch.Tensor, i_t: torch.Tensor, u: torch.Tensor
 
 def rglru_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
               h0: Optional[torch.Tensor] = None,
-              conv0: Optional[torch.Tensor] = None):
+              conv0: Optional[torch.Tensor] = None, shards=None):
     """The block over a whole sequence: x (B, S, D) -> (out (B, S, D),
     the final h (B, R) f32, the conv state (B, cw-1, R)).  A carried
-    ``h0`` folds into the first step: b_1 += a_1 * h0."""
+    ``h0`` folds into the first step: b_1 += a_1 * h0.
+
+    With ``shards`` (the sharded train step) x is replicated over
+    "model" and this rank holds R / tp channels: the column shards of
+    ``w_x`` and ``w_gate``, the conv's and ``lam``'s channels, and its
+    RG_HEADS / tp heads of the replicated ``w_inp`` / ``w_rec``
+    (``Shards.part``); the scan is elementwise per channel, and ``w_out``'s
+    row shard gives partial sums that are summed over "model"."""
+    if shards is not None:
+        x = shards.enter(x)
+        p = dict(p, w_inp=shards.part(p["w_inp"], 0),
+                 w_rec=shards.part(p["w_rec"], 0))
     gate = _gelu(dense(x, p["w_gate"]))
     u = dense(x, p["w_x"])
     u, conv_state = _causal_conv(p, u, conv0)
@@ -145,6 +157,8 @@ def rglru_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                          * h0.to(torch.float32)[:, None], b_t[:, 1:]], dim=1)
     h = linear_scan(a_t, b_t)
     out = dense(h.to(x.dtype) * gate, p["w_out"])
+    if shards is not None:
+        out = shards.leave(out)
     return out, h[:, -1], conv_state
 
 
@@ -198,11 +212,18 @@ def init_mlstm(cfg: ArchConfig) -> Tree:
     }
 
 
-def _mlstm_qkvg(cfg: ArchConfig, p: Tree, x: torch.Tensor):
+def _mlstm_qkvg(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None):
     """x (..., D) -> q, k (scaled by 1/sqrt(dk)), v per head in f32, the
     output gate silu(x @ w_gate) in x's dtype, and the log input and
-    forget gates (..., H) in f32."""
+    forget gates (..., H) in f32.  With ``shards`` the heads are this
+    rank's H / tp: the column shards of the projections and its heads'
+    columns of the replicated ``w_if`` (``Shards.part``)."""
     h = cfg.n_heads
+    w_if = p["w_if"]
+    if shards is not None:
+        w_if = shards.part(w_if.reshape(-1, 2, h), 2).reshape(
+            w_if.shape[0], -1)
+        h //= shards.tp
     q = dense(x, p["w_q"])
     k = dense(x, p["w_k"])
     v = dense(x, p["w_v"])
@@ -212,20 +233,25 @@ def _mlstm_qkvg(cfg: ArchConfig, p: Tree, x: torch.Tensor):
     k = k.reshape(shp + (h, -1)).to(torch.float32) / torch.tensor(
         math.sqrt(q.shape[-1]), dtype=torch.float32, device=x.device)
     v = v.reshape(shp + (h, -1)).to(torch.float32)
-    gates = (x.to(torch.float32) @ p["w_if"].to(torch.float32)).reshape(
+    gates = (x.to(torch.float32) @ w_if.to(torch.float32)).reshape(
         shp + (2, h))
     return (q, k, v, g, _log_sigmoid(gates[..., 0, :]),
             _log_sigmoid(gates[..., 1, :]))
 
 
 def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-              state: Optional[Tree] = None, chunk: int = 256):
+              state: Optional[Tree] = None, chunk: int = 256, shards=None):
     """The block over a whole sequence, chunk by chunk: x (B, S, D) ->
     (out (B, S, D), {"c": (B, H, dk, dv), "n": (B, H, dk)} f32).  S must
-    be a multiple of min(chunk, S)."""
+    be a multiple of min(chunk, S).  With ``shards`` (the sharded train
+    step) x is replicated over "model", the heads and their state are
+    this rank's H / tp, and ``w_out``'s row shard gives partial sums
+    that are summed over "model"."""
     b, s, _ = x.shape
-    h = cfg.n_heads
-    q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x)
+    if shards is not None:
+        x = shards.enter(x)
+    q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x, shards)
+    h = q.shape[-2]
     dk, dv = q.shape[-1], v.shape[-1]
     l = min(chunk, s)
     assert s % l == 0, (s, l)
@@ -263,7 +289,10 @@ def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             "blhd,blhv,blh->bhdv", kc, vc, tail)
         n = n * f_all[:, :, None] + torch.einsum("blhd,blh->bhd", kc, tail)
     o = torch.cat(outs, dim=1).reshape(b, s, h * dv).to(x.dtype)
-    return dense(o * g, p["w_out"]), {"c": c, "n": n}
+    out = dense(o * g, p["w_out"])
+    if shards is not None:
+        out = shards.leave(out)
+    return out, {"c": c, "n": n}
 
 
 def mlstm_state_step_(c: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
@@ -494,24 +523,40 @@ def _slstm_scan(cfg: ArchConfig, p_rec: Tree, zx: torch.Tensor, state: Tree):
     return st, hs
 
 
-def _slstm_ffn(p: Tree, hs: torch.Tensor) -> torch.Tensor:
+def _slstm_ffn(p: Tree, hs: torch.Tensor, shards=None) -> torch.Tensor:
+    """The gated FFN; with ``shards``, over this rank's ffn columns of
+    ``w_up`` / ``w_gate`` and rows of ``w_down``, summed over "model"."""
+    if shards is not None:
+        hs = shards.enter(hs)
     up = _gelu(dense(hs, p["w_up"])) * dense(hs, p["w_gate"])
-    return dense(up, p["w_down"])
+    y = dense(up, p["w_down"])
+    return y if shards is None else shards.leave(y)
 
 
 def slstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-              state: Optional[Tree] = None):
+              state: Optional[Tree] = None, shards=None):
     """The block over a whole sequence: x (B, S, D) -> (out (B, S, D),
     the final state {h, c, n, m} (B, D) f32).  The state starts at h = c
-    = m = 0, n = 1e-6."""
+    = m = 0, n = 1e-6.
+
+    With ``shards`` (the sharded train step; the reference's shard_map)
+    ``w_gates`` is column-parallel and ``zx`` is gathered over "model"
+    (``Shards.gather_rep``: its gradient is not summed), the scan runs
+    alike on every model rank over this data rank's rows with the
+    replicated ``r_gates`` and ``b_gates``, and the FFN is
+    tensor-parallel."""
     b, _, d = x.shape
+    if shards is not None:
+        x = shards.enter(x)
     zx = dense(x, p["w_gates"])                             # (B, S, 4D)
+    if shards is not None:
+        zx = shards.gather_rep(zx, 2)
     if state is None:
         z = torch.zeros((b, d), dtype=torch.float32, device=x.device)
         state = {"h": z, "c": z, "n": z + 1e-6, "m": z}
     state, hs = _slstm_scan(
         cfg, {"r_gates": p["r_gates"], "b_gates": p["b_gates"]}, zx, state)
-    return _slstm_ffn(p, hs.to(x.dtype)), state
+    return _slstm_ffn(p, hs.to(x.dtype), shards), state
 
 
 def slstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree):

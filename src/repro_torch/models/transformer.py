@@ -79,9 +79,10 @@ def _init_block(cfg: ArchConfig, kind: str) -> Tree:
 def _ffn(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
          shards=None) -> torch.Tensor:
     """The block's feed-forward on its normed input: the gated MLP, or
-    the mixture of experts over every token of the call."""
+    the mixture of experts over every token of the call (with
+    ``shards``, the group-local MoE of this data rank's rows)."""
     if kind == "moe":
-        return L.apply_moe(cfg, p, x)
+        return L.apply_moe(cfg, p, x, shards)
     return L.apply_mlp(cfg, p, x, shards)
 
 
@@ -176,16 +177,17 @@ def _cache_window(cfg: ArchConfig, kind: str, max_seq: int) -> int:
 # ---------------------------------------------------------------------------
 def _cross(cfg: ArchConfig, p: Tree, x: torch.Tensor,
            positions: torch.Tensor, enc_out, enc_pos, attn_chunk: int,
-           return_kv: bool = False):
+           return_kv: bool = False, shards=None):
     """A decoder block's cross-attention on its ``ln_x``-normed input
     over ``enc_out`` at ``enc_pos``: non-causal, no RoPE.  Without
     ``enc_out`` the keys come from the block's own normed stream, as in
     the reference (its ``quantize_model_baseline`` calibrates a block
-    so)."""
+    so).  With ``shards``, over this rank's heads."""
     return L.attention_full(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x),
                             positions, causal=False, attn_chunk=attn_chunk,
                             use_rope=False, xkv=enc_out,
-                            kv_positions=enc_pos, return_kv=return_kv)
+                            kv_positions=enc_pos, return_kv=return_kv,
+                            shards=shards)
 
 
 def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
@@ -201,26 +203,31 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     encoder-decoder model, then + MLP or MoE; x + the xLSTM cell for
     mlstm and slstm (whose FFN is inside the cell).  With ``aux`` given,
     a moe block appends its router's load-balancing loss to it.  With
-    ``shards`` (a dense block of the sharded train step, which
-    ``model.check_shardable`` admits), ``p`` holds this rank's
-    tensor-parallel shards, gathered over data."""
+    ``shards`` (the sharded train step, any kind), ``p`` holds this
+    rank's tensor-parallel shards, gathered over data, and x this data
+    rank's rows, replicated over "model"; a moe block's aux is this
+    data rank's share of the global batch's."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
-        return block_prefill(cfg, kind, p, x, positions, 0)[0]
+        return block_prefill(cfg, kind, p, x, positions, 0,
+                             shards=shards)[0]
     if kind == "rglru":
-        h, _, _ = R.rglru_seq(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x))
+        h, _, _ = R.rglru_seq(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x),
+                              shards=shards)
         x = x + h
-        return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+        return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
+                               shards)
     h = L.attention_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
                          positions, causal=causal,
                          window=_kind_window(cfg, kind),
                          attn_chunk=attn_chunk, shards=shards)
     x = x + h
     if "xattn" in p:
-        x = x + _cross(cfg, p, x, positions, enc_out, enc_pos, attn_chunk)
+        x = x + _cross(cfg, p, x, positions, enc_out, enc_pos, attn_chunk,
+                       shards=shards)
     z = L.apply_norm(cfg, p["ln2"], x)
     if kind == "moe" and aux is not None:
-        aux.append(L.moe_aux_loss(cfg, z, p["mlp"]["router"]))
+        aux.append(L.moe_aux_loss(cfg, z, p["mlp"]["router"], shards))
     return x + _ffn(cfg, kind, p["mlp"], z, shards)
 
 
@@ -265,20 +272,25 @@ def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int,
-                  attn_chunk: int = 1024, enc_out=None, enc_pos=None):
+                  attn_chunk: int = 1024, enc_out=None, enc_pos=None,
+                  shards=None):
     """One block over a whole (left-padded) prompt.  Returns (x, cache):
     the ring cache {"k", "v": (B, W, hkv, dh), "p": (B, W)} of an
     attention block ({"self": ring, "xk", "xv": (B, S_enc, hkv, dh)} with
     a cross-attention, whose K/V over ``enc_out`` are kept as they were
     computed), or a recurrent block's final state: rglru {"h": (B, R),
     "conv": (B, cw-1, R)}, mlstm {"c", "n"}, slstm {"h", "c", "n", "m"}.
-    The recurrence runs over the padding too, as in the reference."""
+    The recurrence runs over the padding too, as in the reference.
+    ``shards`` reaches the xLSTM kinds only (``block_full``'s sharded
+    step)."""
     _check_kind(kind)
     if kind == "mlstm":
-        h, state = R.mlstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x))
+        h, state = R.mlstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
+                               shards=shards)
         return x + h, state
     if kind == "slstm":
-        h, state = R.slstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x))
+        h, state = R.slstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
+                               shards=shards)
         return x + h, state
     if kind == "rglru":
         h, h_n, conv = R.rglru_seq(cfg, p["rec"],

@@ -260,11 +260,13 @@ def test_checkpoint_restores_into_another_mesh(runs):
 
 def test_mesh_runs_refuse_what_they_cannot_run(runs):
     """Nothing falls back to one device or an unsharded step: a mesh
-    of the wrong size or device type, a block kind this slice does not
-    shard, heads that do not split over tp, and a missing card raise."""
+    of the wrong size or device type, packed (QLinear) parameters,
+    heads that do not split over tp (recurrentgemma's 10 query heads at
+    tp 4, 6 heads over 2 KV heads), and a missing card raise."""
     assert runs["ranks"][0]["refusals"] == {
         "world": "ValueError", "device": "ValueError",
-        "kind": "NotImplementedError", "uneven": "ValueError",
+        "packed": "NotImplementedError", "rg_heads": "ValueError",
+        "uneven": "ValueError",
         "device_arg": ("RuntimeError" if not torch.cuda.is_available()
                        else "ValueError")}
 

@@ -34,6 +34,7 @@ from repro_torch.models.param import P  # noqa: E402
 ARCHS = sorted(r_registry._REGISTRY)
 PARS = {"one": {}, "tp16_dp16": {"tp": 16, "dp": 16}}
 RULES = {"default": {}, "fsdp": {"fsdp": True}, "ep": {"ep": True},
+         "ep_fsdp": {"ep": True, "fsdp": True},
          "multipod_fsdp": {"dp_axes": ("pod", "data"), "fsdp": True}}
 
 
@@ -97,6 +98,11 @@ def test_reference_rule_cases():
         ("model", None, None)
     assert TS.Rules(ep=False).spec(("experts", "embed", "ffn")) == \
         (None, None, "model")
+    # EP with FSDP: the experts over "model", the embed dim over data
+    assert TS.Rules(ep=True, fsdp=True).spec(
+        ("experts", "embed", "ffn")) == ("model", "data", None)
+    assert TS.Rules(ep=True, fsdp=True).spec(
+        ("experts", "ffn", "embed")) == ("model", None, "data")
     r = TS.Rules(dp_axes=("pod", "data"), fsdp=True)
     assert r.spec(("embed", "heads")) == (("pod", "data"), "model")
     assert r.spec(("batch", None)) == (("pod", "data"), None)

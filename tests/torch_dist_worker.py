@@ -1,7 +1,8 @@
 """One gloo rank of the port's sharded training and pipeline checks.
 
-Started by ``tests/test_torch_dist_train.py`` and
-``tests/test_torch_pipeline.py``, one process per rank, with its rank,
+Started by ``tests/test_torch_dist_train.py``,
+``tests/test_torch_dist_kinds.py`` and ``tests/test_torch_pipeline.py``,
+one process per rank, with its rank,
 the world size, a rendezvous file under the test's ``tmp_path``, the
 case file the parent wrote and an output directory.  It imports torch
 and the port only (never JAX): the parent holds the reference's side
@@ -17,6 +18,7 @@ rank's results.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -32,6 +34,8 @@ import torch.distributed as dist
 from repro_torch import pytree
 from repro_torch.configs import registry
 from repro_torch.configs.base import Stage
+from repro_torch.core.pipeline import quantize_params_data_free
+from repro_torch.core.qlinear import QuantConfig
 from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
 from repro_torch.distributed.compression import (CompressionConfig,
                                                  init_residual)
@@ -41,6 +45,8 @@ from repro_torch.distributed.sharding import (distribute, distribute_tree,
 from repro_torch.launch import train
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import common
+from repro_torch.models import layers
+from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 
 
@@ -49,6 +55,48 @@ def qwen_cfg(n_layers: int = 3, **over):
     cfg = registry.get("qwen2.5-3b").reduced()
     return dataclasses.replace(cfg, stages=(Stage(("dense",), n_layers),),
                                **over)
+
+
+def arch_cfg(arch: str):
+    """The reduced config of ``arch``, its vocabulary at most 512 (as
+    ``train.run --reduced`` makes it)."""
+    cfg = registry.get(arch).reduced()
+    return dataclasses.replace(cfg, vocab=min(cfg.vocab, 512))
+
+
+def case_cfg(case):
+    """A case's config: the reduced ``arch``, or reduced qwen2.5-3b with
+    the case's overrides."""
+    if "arch" in case:
+        return arch_cfg(case["arch"])
+    return qwen_cfg(**case["cfg"])
+
+
+def case_batches(cfg, case):
+    """The case's batches, each with its step's ``frames`` when the case
+    carries them (an encoder-decoder model)."""
+    data = batches(cfg.vocab, case["batch"], case["seq"], case["steps"] or 1)
+    frames = case.get("frames")
+    if frames is None:
+        return data
+    return [dict(b, frames=f) for b, f in zip(data, frames)]
+
+
+@contextlib.contextmanager
+def routes(record: list):
+    """Append (keep, dest_e) of every ``layers.moe_dispatch`` call in the
+    body to ``record``."""
+    plain = layers.moe_dispatch
+
+    def dispatch(cfg, router, xt):
+        r = plain(cfg, router, xt)
+        record.append((r["keep"].clone(), r["dest_e"].clone()))
+        return r
+    layers.moe_dispatch = dispatch
+    try:
+        yield
+    finally:
+        layers.moe_dispatch = plain
 
 
 def batches(vocab: int, batch: int, seq: int, steps: int):
@@ -80,33 +128,37 @@ def _locals(tree):
 
 
 def train_case(case, rank):
-    """The sharded step from the case's params on its mesh: per-step
-    losses, the gathered final params, every rank's local parts, and
-    the gathered and local gradients of the first step."""
-    cfg = qwen_cfg(**case["cfg"])
+    """The sharded step from the case's params on its mesh (EP with the
+    case's ``ep``): per-step losses (``steps`` of them, possibly none),
+    the gathered final params, every rank's local parts, the gathered
+    and local gradients of the first step, and the MoE routing of its
+    forward (``routes``)."""
+    cfg = case_cfg(case)
     mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
     par, rules = train.parallel_for(mesh, case["mb"], True, 1024,
-                                    case["fsdp"])
+                                    case["fsdp"], case.get("ep", False))
     shards = train.make_shards(cfg, par, mesh, rules)
     ccfg = CompressionConfig(kind=case["kind"])
-    opt = optimizer(case["steps"], case["lr"])
+    opt = optimizer(max(case["steps"], 1), case["lr"])
     params = distribute_tree(case["params"], shards.specs, mesh)
     lp = pytree.tree_map(local, params)
-    data = batches(cfg.vocab, case["batch"], case["seq"], case["steps"])
+    data = case_batches(cfg, case)
     rows = shards.rows(case["batch"])
-    loss0, grads = train._loss_and_grads(
-        cfg, lp, {k: v[rows] for k, v in data[0].items()}, 1024, True,
-        shards)
+    record = []
+    with routes(record):
+        loss0, grads = train._loss_and_grads(
+            cfg, lp, {k: v[rows] for k, v in data[0].items()}, 1024, True,
+            shards)
     grads = pytree.tree_map(like, params, grads)
     out = {"loss0_share": float(loss0),
            "loss0": float(shards.data_sum(loss0)),
            "grads": pytree.tree_map(lambda t: full(t).clone(), grads),
-           "grad_locals": _locals(grads)}
+           "grad_locals": _locals(grads), "routes": record}
     step = train.make_train_step(cfg, opt, ccfg, case["mb"], True, 1024,
                                  shards)
     state = _state(params, opt, ccfg)
     losses = []
-    for b in data:
+    for b in data[:case["steps"]]:
         state, m = step(state, b)
         losses.append(float(m["loss"]))
     out["losses"] = losses
@@ -148,8 +200,18 @@ def refusals(case, rank):
     catch("device", lambda: make_mesh((2, 2), ("data", "model"), "cuda"))
     mesh = make_mesh((1, 4), ("data", "model"), "cpu")
     par, rules = train.parallel_for(mesh)
-    xl = registry.get("xlstm-1.3b").reduced()
-    catch("kind", lambda: train.make_shards(xl, par, mesh, rules))
+    cfg = qwen_cfg(1)
+    shards = train.make_shards(cfg, par, mesh, rules)
+    packed = quantize_params_data_free(M.init_params(cfg),
+                                       QuantConfig(ratio=0.25, multiple=16),
+                                       min_dim=32)
+    batch = batches(cfg.vocab, 2, 8, 1)[0]
+    step = train.make_train_step(cfg, optimizer(1, 3e-3),
+                                 CompressionConfig(kind=None), shards=shards)
+    catch("packed", lambda: step({"params": packed, "opt": None,
+                                  "residual": None}, batch))
+    rg = registry.get("recurrentgemma-2b")
+    catch("rg_heads", lambda: train.make_shards(rg, par, mesh, rules))
     odd = qwen_cfg(n_heads=6, n_kv_heads=2)
     catch("uneven", lambda: train.make_shards(odd, par, mesh, rules))
     catch("device_arg", lambda: train.run(train.parse_args(
