@@ -315,6 +315,26 @@ VLM_DEPTH, VLM_VISION, VLM_TEXT, VLM_STEPS = 60, 576, 64, 16
 VLM_ROWS = (8, 64, 5120)
 # packed projections per block kind (an attention block's 7)
 KIND_PROJECTIONS = {"rglru": 6, "mlstm": 5, "slstm": 4}
+# Sharded serving (phase 16, ``[dist serve]``): qwen3-4b at full width
+# and DIST_SERVE_DEPTH of its 36 layers, quantized data-free unfused at
+# the serving defaults, as one NCCL rank on a (1, 1) mesh against one
+# device: 8 prompts of 256 tokens (ring caches of 512), 32 greedy decode
+# steps.  The packed matmul's rows there: 8-row decode and the 8 x 256
+# prompt tokens (QWEN3_ROWS, held in phase 3).  Then the split
+# arithmetic: each rank's view of wq (column), wo and wd (row) at tp 4
+# and 16, at M = 8 and 256, launched one after another with the f32
+# output and summed in rank order, against the whole leaf's f32
+# accumulator: relative gap at most SPLIT_RTOL (summation order only),
+# and after the one rounding each output within one bf16 ulp of the
+# whole leaf's rounded output beyond the f32 gap.
+DIST_SERVE_ARCH = "qwen3-4b"
+DIST_SERVE_DEPTH = 36
+DIST_SERVE_ROWS, DIST_SERVE_PROMPT = 8, 256
+DIST_SERVE_MAX_SEQ, DIST_SERVE_STEPS = 512, 32
+DIST_SERVE_MIN_DIM = 256      # launch.qdeclare's default
+QWEN3_ROWS = (8, 2048)
+SPLIT_TPS, SPLIT_ROWS, SPLIT_LEAVES = (4, 16), (8, 256), ("wq", "wo", "wd")
+SPLIT_RTOL = 1e-5
 
 
 def _fail(msg: str) -> None:
@@ -456,6 +476,25 @@ def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64),
             del dense
             rows.append(row)
     return rows
+
+
+def qwen3_projections(torch, cfg, gen):
+    """The five distinct packed shapes of one unfused qwen3-4b layer as
+    data-free PTQ1.61 quantizes them (wk and wv share one shape, wg and
+    wu another)."""
+    from repro_torch.core.qlinear import QuantConfig, quantize_linear
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.n_heads * cfg.head_dim_
+    kvd = cfg.n_kv_heads * cfg.head_dim_
+
+    def w(k, n):
+        return (torch.randn((k, n), generator=gen, device="cuda")
+                / math.sqrt(k)).to(torch.bfloat16)
+
+    return {name: quantize_linear(w(k, n), None, qcfg)
+            for name, k, n in (("wq", d, hd), ("wk", d, kvd), ("wo", hd, d),
+                               ("wg", d, f), ("wd", f, d))}
 
 
 def print_rows(tag: str, what: str, rows, ms) -> None:
@@ -4033,6 +4072,311 @@ def run_dist_kinds(torch, kernels, smi: str) -> dict:
     return out
 
 
+def _serve_greedy(torch, M, cfg, params, batch, shards=None) -> dict:
+    """Whole-prompt prefill of ``batch``, then DIST_SERVE_STEPS greedy
+    decode steps over the ring caches: logits, tokens, wall ms of each
+    call (card synchronized; the prefill timed after one untimed call,
+    whose first use of each shape would otherwise count)."""
+    with torch.no_grad():
+        M.prefill(cfg, params, batch, DIST_SERVE_MAX_SEQ, shards=shards)
+        (logits, caches), pre_ms = _synced(torch, lambda: M.prefill(
+            cfg, params, batch, DIST_SERVE_MAX_SEQ, shards=shards))
+        out = {"logits": [logits[:, 0]], "tokens": [], "prefill_ms": pre_ms,
+               "step_ms": []}
+        tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        pos = batch["positions"][:, -1] + 1
+        for _ in range(DIST_SERVE_STEPS):
+            out["tokens"].append(tok)
+            (logits, caches), ms = _synced(torch, lambda: M.decode_step(
+                cfg, params, tok, pos, caches, DIST_SERVE_MAX_SEQ,
+                shards=shards))
+            out["logits"].append(logits)
+            out["step_ms"].append(ms)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            pos = pos + 1
+    return out
+
+
+def _same_declaration(qparams, abstract) -> int:
+    """Every leaf of the quantized tree has the declared shape and dtype
+    (a packed leaf's fields and k_s, k, n too); returns the leaves
+    compared."""
+    from repro_torch.core.qlinear import FIELDS, QLinear
+    n = 0
+
+    def walk(got, want, path):
+        nonlocal n
+        if isinstance(want, QLinear):
+            if not isinstance(got, QLinear) or (got.k_s, got.k, got.n) != (
+                    want.k_s, want.k, want.n):
+                _fail(f"[dist serve] {path}: {got} is not the declared "
+                      f"packed leaf {want.k_s, want.k, want.n}")
+            for f in FIELDS:
+                walk(getattr(got, f), getattr(want, f), f"{path}.{f}")
+        elif isinstance(want, dict):
+            if set(got) != set(want):
+                _fail(f"[dist serve] {path}: keys {sorted(got)} against "
+                      f"{sorted(want)}")
+            for k in want:
+                walk(got[k], want[k], f"{path}[{k!r}]")
+        elif isinstance(want, (list, tuple)):
+            if len(got) != len(want):
+                _fail(f"[dist serve] {path}: {len(got)} entries against "
+                      f"{len(want)}")
+            for i, (g, w) in enumerate(zip(got, want)):
+                walk(g, w, f"{path}[{i}]")
+        else:
+            if tuple(got.shape) != tuple(want.shape) or got.dtype != want.dtype:
+                _fail(f"[dist serve] {path}: {tuple(got.shape)} {got.dtype} "
+                      f"against the declared {tuple(want.shape)} "
+                      f"{want.dtype}")
+            n += 1
+
+    walk(qparams, abstract, "params")
+    return n
+
+
+def _bf16_steps_apart(torch, a, b):
+    """Per element, how many bf16 values lie between a and b (0 equal,
+    1 adjacent), by their bit patterns in the order of the values."""
+    def key(t):
+        u = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        mag = u & 0x7FFF
+        return torch.where(u >= 0x8000, -mag, mag)
+    return (key(a) - key(b)).abs()
+
+
+def check_split_arithmetic(torch, layer, timer, peaks, gen) -> list:
+    """Step 3 of ``[dist serve]``: the split arithmetic of sharded
+    serving, on the card, rank after rank.  For each leaf of
+    SPLIT_LEAVES (a layer of the quantized qwen3-4b) and tp of
+    SPLIT_TPS, every rank's ``distributed.sharding.local_view``: a
+    column view of wq (its N/tp columns), a row view of wo and wd (its
+    chunks of byte rows, uneven, with the perm and vectors of their
+    channels, gathering from the whole x).  At each M of SPLIT_ROWS
+    each view's product is launched with the f32 output (``out_dtype``)
+    and held against its plain version; the row views' partials are
+    summed in rank order and the column views' joined, against the
+    whole leaf's f32 accumulator (itself held against its plain
+    version).
+
+    The bound: the two sides add the same f32 products in another
+    grouping, so |gap| <= 2 gamma_K sum_k |x_k w_k| (gamma_K = K u / (1 -
+    K u), u = 2^-24), computed per row over max|y| and printed as
+    ``derived_rel_bound``; independent roundings add as a random walk,
+    far below that worst case, and the check holds SPLIT_RTOL = 1e-5 of
+    max|y|.  After the
+    one rounding to bf16: |r(a) - r(b)| <= (ulp(r(a)) + ulp(r(b))) / 2 +
+    |a - b|, so each output lies within one bf16 ulp of the whole
+    leaf's, beyond the f32 gap; the rows report how many outputs differ
+    at all and the most bf16 steps apart among outputs above 2^-8 of
+    max|y|."""
+    from repro_torch.distributed.sharding import local_view
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mixed_matmul import mixed_matmul
+    out = []
+
+    def f32(x, v, perm):
+        return mixed_matmul(x, v.w4, v.s4, v.z4, v.bits, v.alpha_s,
+                            v.alpha_r1, v.alpha_r2, perm=perm,
+                            out_dtype=torch.float32)
+
+    def plain(x, v, perm):
+        return ref.mixed_matmul_ref(x, v.w4, v.s4, v.z4, v.bits, v.alpha_s,
+                                    v.alpha_r1, v.alpha_r2, perm=perm)
+
+    def held(got, want, what):
+        gap = float((got - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        if not gap <= SPLIT_RTOL:
+            _fail(f"[dist serve split] {what}: f32 gap {gap} of max|y| "
+                  f"above {SPLIT_RTOL}")
+        return gap
+
+    for name in SPLIT_LEAVES:
+        q = layer["attn" if name in ("wq", "wo") else "mlp"][name]
+        role = "column" if name == "wq" else "row"
+        for m in SPLIT_ROWS:
+            x = torch.randn((m, q.k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            whole = f32(x, q, q.perm)
+            plain_gap = held(whole, plain(x, q, q.perm), f"{name} M={m} whole")
+            # the rigorous bound of a reordered f32 sum, over max|y|
+            gamma = q.k * 2.0 ** -24 / (1 - q.k * 2.0 ** -24)
+            derived = float(2 * gamma * (x.float().abs() @ q.to_dense(
+                torch.float32).abs()).max() / whole.abs().max())
+            for tp in SPLIT_TPS:
+                views = [local_view(q, role, r, tp) for r in range(tp)]
+                parts, per_rank = [], []
+                for r, v in enumerate(views):
+                    y = f32(x, v, v.perm)
+                    held(y, plain(x, v, v.perm), f"{name} tp={tp} rank {r}")
+                    parts.append(y)
+                    nbytes = (m * v.k * 2 + v.perm.numel() * 4 + v.w4.numel()
+                              + v.bits.numel() + (2 * v.k_s + v.k - v.k_s
+                                                  + 2 * v.n) * 4
+                              + m * v.n * 4)
+                    b, by = bound_ms(nbytes, 2.0 * m * v.k * v.n, peaks)
+                    xl = torch.randn((m, v.k), generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+                    dense = torch.randn((v.k, v.n), generator=gen,
+                                        device="cuda").to(torch.bfloat16)
+                    per_rank.append({
+                        "k_s": v.k_s, "k_b": v.k - v.k_s, "n": v.n,
+                        "kernel_us": 1e3 * timer.ms(lambda: f32(x, v, v.perm)),
+                        "bound_us": 1e3 * b, "bound_by": by,
+                        "plain_us": 1e3 * timer.ms(lambda: plain(x, v, v.perm)),
+                        "matmul_us": 1e3 * timer.ms(
+                            lambda: torch.matmul(xl, dense))})
+                    del xl, dense
+                if role == "row":
+                    total = torch.zeros_like(whole)
+                    for y in parts:
+                        total += y
+                else:
+                    total = torch.cat(parts, dim=1)
+                gap = held(total, whole, f"{name} M={m} tp={tp}")
+                rw, rt = whole.to(torch.bfloat16), total.to(torch.bfloat16)
+                ulp = lambda t: torch.exp2(torch.floor(torch.log2(
+                    t.float().abs().clamp_min(1e-30))) - 7)
+                slack = (ulp(rw) + ulp(rt)) / 2 + (total - whole).abs()
+                if bool(((rt.float() - rw.float()).abs() > slack).any()):
+                    _fail(f"[dist serve split] {name} M={m} tp={tp}: a "
+                          "rounded output beyond one bf16 ulp of the f32 gap")
+                big = whole.abs() >= whole.abs().max() * 2.0 ** -8
+                steps = _bf16_steps_apart(torch, rt, rw)
+                uneven = len({(r["k_s"], r["k_b"]) for r in per_rank}) > 1
+                out.append({
+                    "leaf": name, "role": role, "M": m, "K": q.k, "N": q.n,
+                    "tp": tp, "uneven": uneven, "f32_rel_gap": gap,
+                    "derived_rel_bound": derived,
+                    "whole_vs_plain_rel_gap": plain_gap,
+                    "rounded_outputs_differing": int((steps > 0).sum()),
+                    "outputs": steps.numel(),
+                    "max_bf16_steps_above_2^-8_max": int(steps[big].max()),
+                    "ranks": per_rank,
+                    "kernel_us": sum(r["kernel_us"] for r in per_rank),
+                    "matmul_us": sum(r["matmul_us"] for r in per_rank),
+                    "bound_us": sum(r["bound_us"] for r in per_rank),
+                    "shapes": sorted({(m, r["k_s"] + r["k_b"], r["n"])
+                                      for r in per_rank})})
+    return out
+
+
+def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
+    """``[dist serve]``: sharded serving of packed weights as one NCCL
+    rank.  qwen3-4b at full width (DIST_SERVE_DEPTH layers) from seed 0,
+    quantized data-free unfused (ratio 0.2, multiple 16); its packed
+    shapes and dtypes must equal ``launch.qdeclare.declare_quantized``'s
+    under the preset of the (1, 1) mesh (the prefill cell's).  Then the
+    one-device ``model.prefill`` of 8 x 256 tokens and 32 greedy
+    ``decode_step``s, and the same through ``model.shard_for_serving``
+    (the tree placed as DTensors by the declared specs, each packed leaf
+    its ``qlinear_local`` view) with ``shards``: the logits and tokens
+    must be the same bits, and both runs must launch mixed_matmul the
+    same number of times (more than 0) and no paged attention kernel.
+    Then ``check_split_arithmetic`` on layer 0's leaves."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS, Stage
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.presets import make_preset
+    from repro_torch.launch.qdeclare import declare_quantized
+    from repro_torch.models import model as M
+    cfg = registry.get(DIST_SERVE_ARCH)
+    cfg = dataclasses.replace(cfg, stages=(Stage(("dense",),
+                                                 DIST_SERVE_DEPTH),))
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (qparams, quant_ms) = _synced(torch, lambda: quantize_params_data_free(
+        M.init_params(cfg, 0, "cuda"), qcfg, min_dim=DIST_SERVE_MIN_DIM))
+    bits = check_bits(qparams, "dist serve")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    b, s = DIST_SERVE_ROWS, DIST_SERVE_PROMPT
+    batch = {"tokens": torch.randint(1, cfg.vocab, (b, s), generator=gen,
+                                     device="cuda", dtype=torch.int32),
+             "positions": torch.arange(s, dtype=torch.int32,
+                                       device="cuda").expand(b, s)}
+    out = {"arch": DIST_SERVE_ARCH, "layers": DIST_SERVE_DEPTH,
+           "of_layers": registry.get(DIST_SERVE_ARCH).n_layers,
+           "rows": b, "prompt": s, "max_seq": DIST_SERVE_MAX_SEQ,
+           "steps": DIST_SERVE_STEPS, "bits_per_weight": bits,
+           "quantize_s": quant_ms / 1e3}
+    _reset(kernels)
+    one = _serve_greedy(torch, M, cfg, qparams, batch)
+    one_launches = _launches(kernels)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        cell = next(c for c in SHAPE_CELLS if c.kind == "prefill")
+        preset = make_preset(cfg, cell, mesh)
+        abstract, specs = declare_quantized(cfg, preset.par, qcfg,
+                                            preset.rules,
+                                            min_dim=DIST_SERVE_MIN_DIM)
+        out["declared_leaves_equal"] = _same_declaration(qparams, abstract)
+        torch.cuda.reset_peak_memory_stats()
+        (shards, lp), place_ms = _synced(torch, lambda: M.shard_for_serving(
+            cfg, preset.par, qparams, specs, mesh))
+        _reset(kernels)
+        sh = _serve_greedy(torch, M, cfg, lp, batch, shards)
+        sh_launches = _launches(kernels)
+        sh_peak = torch.cuda.max_memory_allocated() / 1e9
+        del lp, shards
+    finally:
+        dist.destroy_process_group()
+    same = all(_bits_equal(torch, a, c) for a, c in zip(one["logits"],
+                                                        sh["logits"]))
+    same_tokens = all(torch.equal(a, c) for a, c in zip(one["tokens"],
+                                                        sh["tokens"]))
+    gap = max(float((a.float() - c.float()).abs().max())
+              for a, c in zip(one["logits"], sh["logits"]))
+    toks = b * DIST_SERVE_STEPS
+
+    def side(r, launches, peak):
+        return {"prefill_ms": r["prefill_ms"],
+                "decode_step_ms": sum(r["step_ms"]) / len(r["step_ms"]),
+                "decode_step_ms_first": r["step_ms"][0],
+                "tokens_per_s": toks / ((r["prefill_ms"] + sum(r["step_ms"]))
+                                        / 1e3),
+                "decode_tokens_per_s": toks * 1e3 / sum(r["step_ms"]),
+                "peak_mem_gb": peak, "launches": launches}
+
+    out.update(one_device=side(one, one_launches, one_peak),
+               sharded=dict(side(sh, sh_launches, sh_peak),
+                            mesh=[1, 1], place_ms=place_ms),
+               bit_identical=same and same_tokens, max_logit_gap=gap)
+    print(f"[dist serve] {smi}: " + json.dumps(out), flush=True)
+    if not (same and same_tokens):
+        _fail(f"[dist serve] the sharded prefill and decode part from one "
+              f"device's (largest logit gap {gap})")
+    for tag, n in (("one device", one_launches), ("sharded", sh_launches)):
+        if n["mixed_matmul"] <= 0:
+            _fail(f"[dist serve] {tag}: kernel mixed_matmul was not launched")
+        if n["paged_attention"] or n["paged_prefill"]:
+            _fail(f"[dist serve] {tag}: a paged attention kernel launched "
+                  "on the contiguous path")
+    if one_launches["mixed_matmul"] != sh_launches["mixed_matmul"]:
+        _fail(f"[dist serve] mixed_matmul launched {sh_launches} times "
+              f"sharded against {one_launches} on one device")
+    del one, sh
+    timer = Timer(torch)
+    split = check_split_arithmetic(torch, qparams["stages"][0][0][0], timer,
+                                   peaks, gen)
+    for row in split:
+        print(f"[dist serve split {row['leaf']} M={row['M']} tp={row['tp']}] "
+              f"(f32 gap limit {SPLIT_RTOL} of max|y|) " + json.dumps(row),
+              flush=True)
+    out["split"] = split
+    del qparams, timer
+    torch.cuda.empty_cache()
+    return out
+
+
 class Laps:
     """Wall seconds of each phase, printed as it ends (``[phase]``)."""
 
@@ -4217,6 +4561,14 @@ def main() -> int:
     vlm_pf = check_paged_prefill(torch, vcfg, timer, peaks, vgen)
     print(f"[vlm paged_prefill] (tolerance rtol {ATT_RTOL}, atol "
           f"{ATT_ATOL}) " + json.dumps(vlm_pf), flush=True)
+    # qwen3-4b's unfused packed shapes at the rows of [dist serve]
+    q3_mm = check_mixed_matmul(
+        torch, qwen3_projections(torch, registry.get(DIST_SERVE_ARCH),
+                                 torch.Generator(device="cuda").manual_seed(29)),
+        timer, peaks, torch.Generator(device="cuda").manual_seed(30),
+        ms=QWEN3_ROWS, host=True)
+    print_rows("qwen3 mixed_matmul", "the 5 unfused projection shapes",
+               q3_mm, QWEN3_ROWS)
     spans = check_spans(torch, projs, timer, peaks,
                         torch.Generator(device="cuda").manual_seed(1))
     for name, rows in spans.items():
@@ -4450,13 +4802,19 @@ def main() -> int:
           flush=True)
 
     laps("15")
-    # -- 16. every packed-matmul shape of the paths was checked; the kernels
+    # -- 16. sharded serving of packed weights on one NCCL rank -----------
+    dist_serve = run_dist_serve(torch, kernels, smi, peaks)
+
+    laps("16")
+    # -- 17. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
                + rg_cal["layer0_mixed_matmul"] + xl_mm
-               + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm}
+               + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm + q3_mm}
+    checked |= {(m, k, n) for r in dist_serve["split"]
+                for (m, k, n) in r["shapes"] + [(r["M"], r["K"], r["N"])]}
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
     if unchecked:
@@ -4465,8 +4823,8 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-12 was held against its plain version in phase 3, "
-          "6, 8, 9 or 10; launches by shape: " + json.dumps(by_shape),
+          "at in phases 5-16 was held against its plain version in phase 3, "
+          "6, 8, 9, 10 or 16; launches by shape: " + json.dumps(by_shape),
           flush=True)
     launches = {"datafree": summary["launches"],
                 "calibrated": cal_summary["launches"],
@@ -4506,7 +4864,10 @@ def main() -> int:
                 "vlm model": vlm["vlm model"]["launches"],
                 "vlm": vlm["vlm"]["launches"],
                 "dist train": dist_train["sharded"]["launches"],
-                "dist pipeline": dist_pipe["launches"]}
+                "dist pipeline": dist_pipe["launches"],
+                "dist serve one device":
+                    dist_serve["one_device"]["launches"],
+                "dist serve": dist_serve["sharded"]["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -4515,12 +4876,12 @@ def main() -> int:
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
                + rg_cal["layer0_mixed_matmul"] + xl_mm
-               + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm
+               + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm + q3_mm
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         dict(_entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:166",
-                    mm + mm_rows + moe_mm + rg_mm + xl_mm + s2t_mm + vlm_mm,
-                    gather, launches,
+                    mm + mm_rows + moe_mm + rg_mm + xl_mm + s2t_mm + vlm_mm
+                    + q3_mm, gather, launches,
                     "the perm gather (gather_kernel) of a decode call at "
                     "M=8, wqkv+wgu+wo+wd; one per mixed_matmul launch, "
                     "held through the product"),
@@ -4542,7 +4903,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("16")
+    laps("17")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

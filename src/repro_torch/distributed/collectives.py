@@ -17,6 +17,9 @@ train step needs them.
   of the gradient instead of summing it, for a gathered tensor that
   every rank of the group then uses in the same replicated computation.
 * :func:`all_reduce_`: an in-place reduction without gradient.
+* :func:`gather_chunks`: the whole tensor from every rank's uneven chunk
+  of it (``torch.chunk``'s layout), without gradient: the O(K) vectors
+  of a row-parallel packed leaf, once at placement.
 
 Every rank of the group calls each of them in the same order.  With
 NCCL the tensors lie on the rank's card, with gloo on the CPU.
@@ -149,3 +152,18 @@ def grad_sum(x: torch.Tensor, group) -> torch.Tensor:
 
 def sum_over(x: torch.Tensor, group) -> torch.Tensor:
     return _SumOver.apply(x, group)
+
+
+@torch.no_grad()
+def gather_chunks(t: torch.Tensor, n: int, group) -> torch.Tensor:
+    """The whole (n, ...) tensor from every rank's chunk ``t`` of it
+    along dim 0, rank r holding rows [r·c, min((r+1)·c, n)) with c =
+    ceil(n / size): each chunk is padded to c, gathered, and the whole
+    cut to n rows."""
+    size = dist.get_world_size(group)
+    c = -(-n // size)
+    pad = t.new_zeros((c,) + tuple(t.shape[1:]))
+    pad[:t.shape[0]] = t
+    out = t.new_empty((size * c,) + tuple(t.shape[1:]))
+    _gather_into(out, pad, group=group)
+    return out[:n]

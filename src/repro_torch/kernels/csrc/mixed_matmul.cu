@@ -53,8 +53,12 @@
 // Numerics follow the TPU kernels: bf16 operands, int4 weights dequantized
 // in f32 and rounded to bf16, x_b * a_r2 in f32 rounded to bf16, f32
 // accumulation, one bf16 rounding of the output.  Only the order of the
-// sums differs.
-// Shapes: any M and N; k_s even; k_b a multiple of 8.
+// sums differs.  On request the output is that f32 accumulator before its
+// rounding (the epilogue and fold_kernel write f32 instead of bf16): a
+// row-parallel product sums such partials over its ranks and rounds once.
+// Shapes: any M and N; k_s even; k_b a multiple of 8.  x's rows may be
+// wider than K (a row-parallel view of a leaf gathers its channels from
+// the whole activation by its own perm): ldx is their stride.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -97,7 +101,8 @@ struct Params {
   const float* alpha_s;      // (N,): the output scale
   const float* alpha_r1;     // (N,) or null (taken as 1)
   const __nv_bfloat16* xg;   // (M, kp) gathered x, kp = 16 * (n4 + nb)
-  __nv_bfloat16* y;          // (M, N)
+  __nv_bfloat16* y;          // (M, N) bf16 output
+  float* yf;                 // (M, N) f32 output instead, or null
   float* ws;                 // (splits, 2, M, N) partial sums
   int M, N, k_s, k_b, kp, vec;
 };
@@ -168,12 +173,13 @@ __device__ __forceinline__ uint32_t signs2(uint32_t u0, uint32_t u1, int c) {
 
 // x gathered by perm into xg (M, kp) bf16: channel pc < p4 is int4 channel
 // pc, the rest binary channel pc - p4 scaled by a_r2; zero past each
-// span's end.  One thread per pair of channels.
+// span's end.  x's rows are ldx apart (K, or wider under a local perm).
+// One thread per pair of channels.
 __global__ void __launch_bounds__(256)
 gather_kernel(const unsigned short* __restrict__ x,
               const int* __restrict__ perm,
               const float* __restrict__ alpha_r2, uint32_t* __restrict__ xg,
-              int M, int K, int k_s, int p4, int kp) {
+              int M, int K, int k_s, int p4, int kp, int ldx) {
   const int half = kp / 2;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)M * half) return;
@@ -186,7 +192,7 @@ gather_kernel(const unsigned short* __restrict__ x,
     const int kg = (bin ? k_s : 0) + c;
     const int s0 = perm ? __ldg(perm + kg) : kg;
     const int s1 = perm ? __ldg(perm + kg + 1) : kg + 1;
-    const unsigned short* xr = x + (size_t)row * K;
+    const unsigned short* xr = x + (size_t)row * ldx;
     const uint32_t lo = __ldg(xr + s0), hi = __ldg(xr + s1);
     if (bin) {
       v = pack_bf16(__uint_as_float(lo << 16) * __ldg(alpha_r2 + c),
@@ -199,12 +205,13 @@ gather_kernel(const unsigned short* __restrict__ x,
 }
 
 // y from the partial sums of every split, in split order: the int4 sums,
-// plus the binary sums times a_s * a_r1.  One thread per 4 columns; the
-// loads of 8 splits are issued before they are summed.
+// plus the binary sums times a_s * a_r1, rounded to bf16 into y, or kept
+// f32 into yf when it is given.  One thread per 4 columns; the loads of 8
+// splits are issued before they are summed.
 __global__ void __launch_bounds__(64)
 fold_kernel(const float* __restrict__ ws, const float* __restrict__ alpha_s,
             const float* __restrict__ alpha_r1, __nv_bfloat16* __restrict__ y,
-            int M, int N, const Splits sp) {
+            float* __restrict__ yf, int M, int N, const Splits sp) {
   constexpr int kBatch = 8;
   const int nq = (N + 3) / 4;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -254,7 +261,11 @@ fold_kernel(const float* __restrict__ ws, const float* __restrict__ alpha_s,
     if (sp.nb > 0) {
       v += yb[c] * (alpha_s[col + c] * (alpha_r1 ? alpha_r1[col + c] : 1.f));
     }
-    y[o + c] = __float2bfloat16_rn(v);
+    if (yf) {
+      yf[o + c] = v;
+    } else {
+      y[o + c] = __float2bfloat16_rn(v);
+    }
   }
 }
 
@@ -457,9 +468,10 @@ struct Body {
 // columns n0 + 32w .. n0 + 32w + 31: lane (g = lane/4, t = lane%4) holds,
 // in m-tile m, A rows g and g+8 = columns 4g + 2m and 4g + 2m + 1 of the
 // warp's, and the outputs of those columns at rows 2t, 2t+1 of each
-// n-tile.  With one split the block writes y; with more
-// it writes its partial sums and fold_kernel sums them.
-template <int NT>
+// n-tile.  With one split the block writes y (bf16, or with F32 the
+// accumulator as f32 into yf); with more it writes its partial sums and
+// fold_kernel sums them.  The bf16 instantiations are the F32-free code.
+template <int NT, bool F32>
 __global__ void __launch_bounds__(kThreads)
 packed_matmul_kernel(const Params p, const Splits sp) {
   using C = Cfg<NT>;
@@ -579,6 +591,17 @@ packed_matmul_kernel(const Params p, const Splits sp) {
           v[c] = i4 + r * a[c];
         }
       }
+      if constexpr (F32) {
+        float* out = p.yf + (size_t)row * p.N + colw;
+        if (vec4 && colw + 3 < p.N) {
+          *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            if (colw + c < p.N) out[c] = v[c];
+        }
+        continue;
+      }
       __nv_bfloat16* out = p.y + (size_t)row * p.N + colw;
       if (vec4 && colw + 3 < p.N) {
         const uint2 u = {pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])};
@@ -592,9 +615,9 @@ packed_matmul_kernel(const Params p, const Splits sp) {
   }
 }
 
-// Allow packed_matmul_kernel<NT> its dynamic shared memory (above the
-// 48 KB default), once per device.
-template <int NT>
+// Allow packed_matmul_kernel<NT, F32> its dynamic shared memory (above
+// the 48 KB default), once per device.
+template <int NT, bool F32>
 cudaError_t prepare() {
   static bool ready[64] = {};
   int dev = 0;
@@ -602,7 +625,7 @@ cudaError_t prepare() {
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(packed_matmul_kernel<NT>,
+    err = cudaFuncSetAttribute(packed_matmul_kernel<NT, F32>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                Cfg<NT>::SMEM);
     if (err != cudaSuccess) return err;
@@ -614,18 +637,26 @@ cudaError_t prepare() {
 template <int NT>
 cudaError_t launch_nt(const Params& p, const Splits& sp, dim3 grid,
                       cudaStream_t stream) {
-  cudaError_t err = prepare<NT>();
+  // the unsplit epilogue writes the output; split blocks write partials
+  const bool f32 = p.yf != nullptr && sp.count == 1;
+  cudaError_t err = f32 ? prepare<NT, true>() : prepare<NT, false>();
   if (err != cudaSuccess) return err;
-  packed_matmul_kernel<NT><<<grid, kThreads, Cfg<NT>::SMEM, stream>>>(p, sp);
+  if (f32) {
+    packed_matmul_kernel<NT, true>
+        <<<grid, kThreads, Cfg<NT>::SMEM, stream>>>(p, sp);
+  } else {
+    packed_matmul_kernel<NT, false>
+        <<<grid, kThreads, Cfg<NT>::SMEM, stream>>>(p, sp);
+  }
   return cudaGetLastError();
 }
 
 template <int NT>
 cudaError_t occupancy(int* blocks) {
-  cudaError_t err = prepare<NT>();
+  cudaError_t err = prepare<NT, false>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, packed_matmul_kernel<NT>, kThreads, Cfg<NT>::SMEM);
+      blocks, packed_matmul_kernel<NT, false>, kThreads, Cfg<NT>::SMEM);
 }
 
 }  // namespace
@@ -636,30 +667,35 @@ cudaError_t occupancy(int* blocks) {
 //   a[0..11]  pointers x, perm, w4, s4, z4, bits, alpha_s, alpha_r1,
 //             alpha_r2, y, ws, xg;
 //   a[12]     the CUDA stream;
-//   a[13..16] M, N, K, k_s;
-//   a[17..]   the plan of index.py::packed_matmul_plan: nt, row_groups,
+//   a[13]     ldx, the stride of x's rows (K, or more with a perm);
+//   a[14]     1 for an f32 y (the accumulator before its rounding), else 0;
+//   a[15..18] M, N, K, k_s;
+//   a[19..]   the plan of index.py::packed_matmul_plan: nt, row_groups,
 //             col_tiles, n4, nb, splits, then the splits + 1 bounds.
-// x (M, K) bf16 contiguous; perm (K,) int32 or null; w4 (k_s/2, N) u8, low
+// x (M, ldx) bf16 contiguous, ldx = K without perm; perm (K,) int32 of
+// channels below ldx, or null; w4 (k_s/2, N) u8, low
 // nibble = even channel (null when k_s = 0); s4, z4 (k_s,) f32; bits
 // (k_b/8, N) u8, bit j of byte i = channel 8i+j (null when k_b = 0);
 // alpha_s (N,) f32, the output scale of the binary sum (null when k_b = 0);
 // alpha_r1 (N,) f32 or null (taken as 1); alpha_r2 (k_b,) f32; y (M, N)
-// bf16; ws: f32 workspace of the plan's ws_floats; xg: bf16 workspace of
+// bf16 (f32 with a[14]); ws: f32 workspace of the plan's ws_floats; xg: bf16 workspace of
 // the plan's xg_elems.  Launches on the stream and returns
 // cudaGetLastError().
 extern "C" int packed_matmul_launch(const char* words) {
-  constexpr int kHead = 23;                // a[0..22]: up to the splits
+  constexpr int kHead = 25;                // a[0..24]: up to the splits
   long long a[kHead + kMaxSplits + 1];
   memcpy(a, words, kHead * sizeof(long long));
-  if (a[22] < 1 || a[22] > kMaxSplits) {
+  if (a[24] < 1 || a[24] > kMaxSplits) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   memcpy(a + kHead, words + kHead * sizeof(long long),
-         (a[22] + 1) * sizeof(long long));
+         (a[24] + 1) * sizeof(long long));
   auto ptr = [&](int i) { return reinterpret_cast<void*>(a[i]); };
-  const int M = static_cast<int>(a[13]), N = static_cast<int>(a[14]);
-  const int K = static_cast<int>(a[15]), k_s = static_cast<int>(a[16]);
-  const long long* plan = a + 17;
+  const int ldx = static_cast<int>(a[13]);
+  const bool f32 = a[14] != 0;
+  const int M = static_cast<int>(a[15]), N = static_cast<int>(a[16]);
+  const int K = static_cast<int>(a[17]), k_s = static_cast<int>(a[18]);
+  const long long* plan = a + 19;
   const int nt = static_cast<int>(plan[0]);
   const int row_groups = static_cast<int>(plan[1]);
   const int col_tiles = static_cast<int>(plan[2]);
@@ -669,7 +705,8 @@ extern "C" int packed_matmul_launch(const char* words) {
   sp.count = static_cast<int>(plan[5]);
   if (sp.count < 1 || sp.count > kMaxSplits || row_groups < 1
       || col_tiles < 1 || M < 1 || N < 1 || k_s < 0 || k_s > K
-      || (k_s & 1) || ((K - k_s) & 7)
+      || (k_s & 1) || ((K - k_s) & 7) || ldx < 1
+      || (ldx != K && !ptr(1))
       || (sp.n4 != (k_s + kKStep - 1) / kKStep)
       || (sp.nb != (K - k_s + kKStep - 1) / kKStep)
       || ((sp.count > 1 || (sp.n4 > 0 && sp.nb > 0)) && !ptr(10))
@@ -685,7 +722,8 @@ extern "C" int packed_matmul_launch(const char* words) {
   p.bits = static_cast<const uint8_t*>(ptr(5));
   p.alpha_s = static_cast<const float*>(ptr(6));
   p.alpha_r1 = static_cast<const float*>(ptr(7));
-  p.y = static_cast<__nv_bfloat16*>(ptr(9));
+  p.y = f32 ? nullptr : static_cast<__nv_bfloat16*>(ptr(9));
+  p.yf = f32 ? static_cast<float*>(ptr(9)) : nullptr;
   p.ws = static_cast<float*>(ptr(10));
   p.xg = static_cast<const __nv_bfloat16*>(ptr(11));
   p.M = M;
@@ -701,7 +739,8 @@ extern "C" int packed_matmul_launch(const char* words) {
     gather_kernel<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, st>>>(
         static_cast<const unsigned short*>(ptr(0)),
         static_cast<const int*>(ptr(1)), static_cast<const float*>(ptr(8)),
-        static_cast<uint32_t*>(ptr(11)), M, K, k_s, kKStep * sp.n4, p.kp);
+        static_cast<uint32_t*>(ptr(11)), M, K, k_s, kKStep * sp.n4, p.kp,
+        ldx);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -716,7 +755,7 @@ extern "C" int packed_matmul_launch(const char* words) {
   if (err != cudaSuccess || sp.count == 1) return static_cast<int>(err);
   const long long quads = (long long)M * ((N + 3) / 4);
   fold_kernel<<<static_cast<unsigned>((quads + 63) / 64), 64, 0, st>>>(
-      p.ws, p.alpha_s, p.alpha_r1, p.y, M, N, sp);
+      p.ws, p.alpha_s, p.alpha_r1, p.y, p.yf, M, N, sp);
   return static_cast<int>(cudaGetLastError());
 }
 

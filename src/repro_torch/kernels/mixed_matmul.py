@@ -7,6 +7,14 @@ launches the hand-written kernel; on a CPU tensor it runs
 takes every shape the packing allows (k_s even, k_b a multiple of 8),
 and a CUDA call it cannot take raises.
 
+Two options serve a row-parallel view of a packed leaf (a rank's byte
+rows of ``w4`` and ``bits``, ``distributed.sharding.qlinear_local``):
+its ``perm`` may be narrower than x's rows, whose channels it gathers
+from the whole activation, and ``out_dtype=torch.float32`` returns the
+f32 accumulator before its one rounding, so that the ranks' partial
+sums add up before the product is rounded once.  Neither changes a bit
+of a call without them.
+
 The same kernel body runs ``binary_matmul`` and ``int4_matmul`` with one
 span empty; :func:`launch_packed` is the launch all three share.  Its
 host side is kept short: the launch plan (``index.packed_matmul_plan``)
@@ -27,10 +35,12 @@ from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.index import packed_matmul_plan, packed_nt
 
 # one argument: the 64-bit words that packed_matmul_launch reads, as
-# bytes (the 12 pointers and the stream, then the shape and the plan)
+# bytes (the 12 pointers, the stream, x's row stride and the f32-output
+# flag, then the shape and the plan)
 ARGTYPES = [ctypes.c_char_p]
 KERNEL = CudaKernel("mixed_matmul.cu", "packed_matmul_launch", ARGTYPES)
-_HEAD = struct.Struct("=13q")
+_HEAD = struct.Struct("=15q")
+OUT_DTYPES = (torch.bfloat16, torch.float32)
 
 # (M, N, K, k_s, device index) -> (plan, its words packed: M, N, K, k_s,
 # then nt, row_groups, col_tiles, n4, nb, splits, bounds...)
@@ -45,28 +55,37 @@ _PER_SM: Dict[Tuple[int, int], int] = {}
 def mixed_matmul(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
                  z4: torch.Tensor, bits: torch.Tensor, alpha_s: torch.Tensor,
                  alpha_r1: torch.Tensor, alpha_r2: torch.Tensor,
-                 perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 perm: Optional[torch.Tensor] = None,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """x (M, K) bf16 — in original channel order when ``perm`` (K,) is
     given (the gather happens inside the kernel), else salient-first.
-    Returns (M, N) bf16: the f32 accumulator rounded once, as the TPU
-    kernel's output is cast to the activation dtype."""
+    With ``perm``, x may be wider than K: (M, K_x) whose channels the
+    perm's entries (all below K_x) name.  Returns (M, N) bf16: the f32
+    accumulator rounded once, as the TPU kernel's output is cast to the
+    activation dtype; with ``out_dtype=torch.float32`` that accumulator
+    itself."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f"mixed_matmul: out_dtype must be bf16 or f32, "
+                         f"got {out_dtype}")
     if x.device.type == "cpu":
         return ref.mixed_matmul_ref(x, w4, s4, z4, bits, alpha_s, alpha_r1,
-                                    alpha_r2, perm).to(torch.bfloat16)
+                                    alpha_r2, perm).to(out_dtype)
     k_s, n = w4.shape[0] * 2, bits.shape[1]
     k_b = bits.shape[0] * 8
-    check_packed("mixed_matmul", x, k_s + k_b, n,
+    k = k_s + k_b
+    check_packed("mixed_matmul", x, k if perm is None else x.shape[-1], n,
                  (w4, bits) if k_s else (bits,),
                  ((s4, k_s), (z4, k_s), (alpha_s, n), (alpha_r1, n),
                   (alpha_r2, k_b)))
     if perm is not None and (
-            perm.dtype != torch.int32 or perm.shape != (k_s + k_b,)
+            perm.dtype != torch.int32 or perm.shape != (k,)
             or not perm.is_contiguous()
             or perm.get_device() != x.get_device()):
         raise ValueError("mixed_matmul: perm must be contiguous int32 (K,) "
                          "on x's device")
     return launch_packed(KERNEL, x, perm, w4, s4, z4, bits, alpha_s,
-                         alpha_r1, alpha_r2, n, k_s)
+                         alpha_r1, alpha_r2, n, k_s, k=k,
+                         out_f32=out_dtype == torch.float32)
 
 
 def check_packed(name: str, x: torch.Tensor, k: int, n: int,
@@ -157,14 +176,21 @@ def launch_packed(kernel: CudaKernel, x: torch.Tensor,
                   alpha_s: Optional[torch.Tensor],
                   alpha_r1: Optional[torch.Tensor],
                   alpha_r2: Optional[torch.Tensor], n: int,
-                  k_s: int) -> torch.Tensor:
+                  k_s: int, k: Optional[int] = None,
+                  out_f32: bool = False) -> torch.Tensor:
     """Launch the packed-matmul body on checked operands; a span that is
-    empty passes None for its tensors.  Returns y (M, N) bf16.  The
-    launch is counted under its shape (M, K, N)."""
-    m, k = x.shape
-    y = x.new_empty((m, n))
+    empty passes None for its tensors.  ``k`` is the weight's K (x's
+    width by default; x may be wider under a ``perm``).  Returns y (M,
+    N) bf16, or with ``out_f32`` the f32 accumulator.  The launch is
+    counted under its shape (M, K, N); a K of 0 (a row-parallel view
+    that holds no byte row) launches nothing and returns zeros."""
+    m, ldx = x.shape
+    k = ldx if k is None else k
+    y = x.new_empty((m, n), dtype=torch.float32 if out_f32 else x.dtype)
     if m == 0 or n == 0:
         return y
+    if k == 0:
+        return y.zero_()
     dev = x.get_device()
     plan, words = launch_plan(m, n, k, k_s, dev)
     stream = torch._C._cuda_getCurrentRawStream(dev)
@@ -172,6 +198,7 @@ def launch_packed(kernel: CudaKernel, x: torch.Tensor,
     kernel.launch(_HEAD.pack(x.data_ptr(), _ptr(perm), _ptr(w4), _ptr(s4),
                              _ptr(z4), _ptr(bits), _ptr(alpha_s),
                              _ptr(alpha_r1), _ptr(alpha_r2), y.data_ptr(),
-                             _ptr(ws), _ptr(xg), stream) + words,
+                             _ptr(ws), _ptr(xg), stream, ldx, int(out_f32))
+                  + words,
                   shape=(m, k, n))
     return y

@@ -15,16 +15,19 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill
 
 
-def mixed_matmul(x: torch.Tensor, q) -> torch.Tensor:
+def mixed_matmul(x: torch.Tensor, q, out_dtype=None) -> torch.Tensor:
     """PTQ1.61 linear forward for a 2-D QLinear ``q``: x (..., K) ->
     (..., N) in x.dtype.  x is cast to bf16 (the kernel's operand type)
     and taken in original channel order; the salient-first gather by
-    ``q.perm`` happens inside the kernel."""
+    ``q.perm`` happens inside the kernel.  A row-parallel view's perm
+    gathers its K channels from a wider x.  With ``out_dtype=
+    torch.float32`` the result is the f32 accumulator before its
+    rounding to bf16."""
     lead = x.shape[:-1]
     xf = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
     y = _mixed(xf, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
-               q.alpha_r2, perm=q.perm)
-    return y.reshape(lead + (q.n,)).to(x.dtype)
+               q.alpha_r2, perm=q.perm, out_dtype=out_dtype or torch.bfloat16)
+    return y.reshape(lead + (q.n,)).to(out_dtype or x.dtype)
 
 
 __all__ = ["binary_matmul", "int4_matmul", "mixed_matmul",

@@ -7,7 +7,8 @@ held against.
 
 * ``mixed_matmul_ref`` — the fused PTQ1.61 linear: bf16 operands, int4
   weights dequantized in f32 and rounded to bf16, ``x_b·α_r2`` in f32
-  rounded to bf16, f32 accumulation.
+  rounded to bf16, f32 accumulation, returned unrounded (the wrapper
+  rounds it to bf16 unless asked for the f32 accumulator).
 * ``binary_matmul_ref`` — its binary span alone: ``x·α_in`` in f32
   rounded to bf16, a dot with ±1 into an f32 accumulator, times
   ``α_out``; returned in x.dtype.
@@ -41,7 +42,9 @@ def mixed_matmul_ref(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
                      alpha_r2: torch.Tensor,
                      perm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (M, K) in original channel order when ``perm`` is given, else
-    salient-first; returns (M, N) f32."""
+    salient-first; returns (M, N) f32, the accumulator before the
+    kernel's one rounding.  A ``perm`` may be shorter than x's rows (a
+    row-parallel view gathers its channels from the whole activation)."""
     if perm is not None:
         x = x[:, perm.long()]
     xf = x.to(torch.bfloat16).to(torch.float32)

@@ -11,8 +11,9 @@ the port's model code calls the collectives of :class:`Shards`
 explicitly: the FSDP gather of a block's leaves, Megatron's f and g
 around the tensor-parallel products, the vocab-parallel embedding and
 cross entropy, the experts' reshard under EP and the gathers of the
-group-local MoE and the sLSTM's replicated scan.  Off a mesh, or on a one-rank mesh, every helper here
-returns its input.
+group-local MoE and the sLSTM's replicated scan, and in sharded serving
+the row-parallel packed product (:meth:`Shards.row`).  Off a mesh, or on
+a one-rank mesh, every helper here returns its input.
 
 ``shard_map_compat`` of the reference is a shim across JAX versions and
 has no counterpart: ``distributed/pipeline.py`` runs its per-rank body
@@ -22,14 +23,18 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 import torch
 
+from repro_torch.core.qlinear import QLinear
 from repro_torch.core.select import map_tree
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import at, is_dtensor, placements
+from repro_torch.kernels import ops
+from repro_torch.models.linear import dense
 
 Tree = Any
 DATA_DIMS = ("pod", "data")
@@ -196,7 +201,11 @@ class Shards:
         (and pod) gathered, innermost mesh dim first; its backward
         reduce-scatters the gradient back to the shard.  A leaf with no
         dim over data gets its gradient summed over the data ranks
-        instead.  Dims over "model" stay local."""
+        instead.  Dims over "model" stay local.  A packed ``QLinear``
+        (a serving view of ``distributed.sharding.qlinear_local``, which
+        holds nothing over data) is returned as it is."""
+        if isinstance(t, QLinear):
+            return t
         over_data = False
         for i, entry in enumerate(spec):
             names = (entry,) if isinstance(entry, str) else tuple(entry or ())
@@ -215,11 +224,21 @@ class Shards:
         return map_tree(tree, lambda path, t: self.gather(
             t, at(spec_tree, path)))
 
-    def gather_model(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+    def gather_model(self, t, dim: int):
         """``t`` gathered over "model" along ``dim`` (backward: the
-        reduce-scatter of the gradient)."""
-        return t if self.tp == 1 else C.all_gather(t, dim,
-                                                   self.group("model"))
+        reduce-scatter of the gradient).  A column-parallel packed view
+        (its N over "model") is gathered along N: ``w4``, ``bits``,
+        ``alpha_s`` and ``alpha_r1`` along their last dim, beside the
+        vectors it holds whole."""
+        if self.tp == 1:
+            return t
+        group = self.group("model")
+        if isinstance(t, QLinear):
+            cols = {f: C.all_gather(getattr(t, f), getattr(t, f).ndim - 1,
+                                    group)
+                    for f in ("w4", "bits", "alpha_s", "alpha_r1")}
+            return dataclasses.replace(t, **cols, n=t.n * self.tp)
+        return C.all_gather(t, dim, group)
 
     # -- Megatron's f and g ------------------------------------------------
     def enter(self, x: torch.Tensor) -> torch.Tensor:
@@ -232,6 +251,24 @@ class Shards:
         """g: the sum over "model" (a row-parallel product's partial
         sums), whose backward is the identity."""
         return x if self.tp == 1 else C.sum_over(x, self.group("model"))
+
+    def row(self, x: torch.Tensor, w) -> torch.Tensor:
+        """A row-parallel product (``wo``, ``wd``) of this rank's input
+        columns ``x`` (its heads or ffn columns).  A plain leaf: the
+        local product's partial sums summed over "model" (g).  A packed
+        row view (``qlinear_local``): x gathered over "model" whole, the
+        view's perm gathers its channels from it, the packed matmul
+        returns its f32 accumulator, the partials are summed over
+        "model" in f32 and rounded to bf16 once, as one device's kernel
+        rounds its accumulator once (a bf16 sum of rounded partials
+        would add up to tp/2 ulps)."""
+        if not isinstance(w, QLinear):
+            return self.leave(dense(x, w))
+        y = ops.mixed_matmul(self.gather_model(x, x.ndim - 1), w,
+                             out_dtype=torch.float32)
+        if self.tp > 1:
+            y = C.all_reduce_(y.contiguous(), self.group("model"))
+        return y.to(torch.bfloat16).to(x.dtype)
 
     def part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This model rank's part along ``dim`` of a replicated leaf

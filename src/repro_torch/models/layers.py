@@ -114,7 +114,8 @@ def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards):
     """K and V (B, Sk, hkv_run / tp * dh) of this rank's run-time KV
     heads when a shard of wk / wv cuts through a head, or the heads are
     replicated to the TP degree: the small KV leaves are gathered over
-    "model" (their gradients reduce-scattered back), every true head is
+    "model" (their gradients reduce-scattered back; a packed leaf's
+    column view along N, ``Shards.gather_model``), every true head is
     projected, repeated ``kv_heads_run / hkv`` times consecutively as
     the reference repeats them, and this rank's heads are kept."""
     dh, hkv = cfg.head_dim_, cfg.n_kv_heads
@@ -261,9 +262,11 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     ``cache_window``, also returns the decode ring cache built from the
     K/V computed here; with ``return_kv``, those K/V themselves (the
     cross-attention's decode cache).  With ``shards`` (the sharded
-    train step): x and ``xkv`` are replicated over "model", the heads
-    are this rank's, and ``wo``'s row shard gives partial sums that are
-    summed over "model" (Megatron's f and g)."""
+    train step, and sharded serving): x and ``xkv`` are replicated over
+    "model", the heads are this rank's (the ring cache holds this
+    rank's run-time KV heads), and ``wo``'s row shard gives partial
+    sums that are summed over "model" (Megatron's f and g;
+    ``Shards.row``, which also runs a packed ``wo``'s row view)."""
     if shards is not None:
         x = shards.enter(x)
         if xkv is not None:
@@ -284,9 +287,7 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             mask = mask & (qp - kp < window)
         o = _attend(q, k, v, mask, cfg.logit_softcap)
     o = o.to(x.dtype).reshape(x.shape[:-1] + (-1,))
-    out = dense(o, p["wo"])
-    if shards is not None:
-        out = shards.leave(out)
+    out = dense(o, p["wo"]) if shards is None else shards.row(o, p["wo"])
     if return_kv:
         return out, k, v
     if cache_window is None:
@@ -318,16 +319,21 @@ def ring_cache_from_kv(k: torch.Tensor, v: torch.Tensor,
 
 def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                      pos: torch.Tensor, cache: Tree, *, layer: int,
-                     window: Optional[int] = None):
+                     window: Optional[int] = None, shards=None):
     """Single-token decode against the stacked ring caches.
 
     x (B, 1, D); pos (B,) absolute position of the new token; cache
     {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)}.  The new K/V and its
     position are written in place at ``[layer, b, pos % W]``; then the
     row attends every slot whose position is live and not in the future.
+    With ``shards`` (sharded serving) the heads are this rank's, the
+    cache holds its rows and run-time KV heads, and ``wo`` is the row
+    product of ``Shards.row``.
     """
     b = x.shape[0]
-    q, k, v = _project_qkv(cfg, p, x, pos[:, None])
+    if shards is not None:
+        x = shards.enter(x)
+    q, k, v = _project_qkv(cfg, p, x, pos[:, None], shards=shards)
     ck, cv, cp = cache["k"], cache["v"], cache["p"]
     bi = torch.arange(b, device=x.device)
     slot = torch.remainder(pos, ck.shape[2]).long()
@@ -340,6 +346,8 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         mask = mask & (qp - kp < window)
     o = _attend(q, ck[layer], cv[layer], mask, cfg.logit_softcap)
     o = o.to(x.dtype).reshape(b, 1, -1)
+    if shards is not None:
+        return shards.row(o, p["wo"]), cache
     return dense(o, p["wo"]), cache
 
 
@@ -497,7 +505,9 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
               ) -> torch.Tensor:
     """The gated MLP; with ``shards``, over this rank's ffn columns of
-    wg / wu and rows of wd, the partial sums summed over "model"."""
+    wg / wu and rows of wd, the partial sums summed over "model"
+    (``Shards.row``: a packed wd's row view sums f32 partials and rounds
+    once)."""
     if shards is not None:
         x = shards.enter(x)
     if "wgu" in p:
@@ -507,8 +517,9 @@ def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     else:
         g = _act(cfg.act, dense(x, p["wg"]))
         u = dense(x, p["wu"])
-    y = dense(g * u, p["wd"])
-    return y if shards is None else shards.leave(y)
+    if shards is None:
+        return dense(g * u, p["wd"])
+    return shards.row(g * u, p["wd"])
 
 
 # ---------------------------------------------------------------------------

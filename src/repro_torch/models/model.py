@@ -26,7 +26,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 from repro_torch.models.linear import dense
-from repro_torch.models.common import Parallel
+from repro_torch.distributed.sharding import distribute_tree, local_tree
+from repro_torch.models.common import Parallel, Shards
 from repro_torch.models.param import P, count_params, materialize
 
 Tree = Any
@@ -271,33 +272,63 @@ def forward_loss(cfg: ArchConfig, params: Tree,
     return loss + 0.01 * aux
 
 
-def _packed(tree: Tree) -> bool:
-    """True when ``tree`` holds a packed ``QLinear`` / ``QLinearGroup``."""
-    if isinstance(tree, (QLinear, QLinearGroup)):
+def _holds(tree: Tree, pred) -> bool:
+    """True when a node of ``tree`` satisfies ``pred``."""
+    if pred(tree):
         return True
     if isinstance(tree, dict):
-        return any(_packed(v) for v in tree.values())
+        return any(_holds(v, pred) for v in tree.values())
     if isinstance(tree, (list, tuple)):
-        return any(_packed(v) for v in tree)
+        return any(_holds(v, pred) for v in tree)
     return False
 
 
+SERVING_QUEUE = "ROADMAP.md queue 1, item 1 (sharded serving of the other kinds)"
+
+
+def _refuse_sharded_enc_dec(cfg: ArchConfig) -> None:
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: sharded serving of the encoder-decoder model "
+            f"waits for {SERVING_QUEUE}")
+
+
 def check_shardable(cfg: ArchConfig, par: Parallel,
-                    params: Optional[Tree] = None, ep: bool = False) -> None:
-    """Refuse what the sharded train step does not run: packed
-    (``QLinear``) leaves in ``params`` (``NotImplementedError``: sharded
-    serving of packed weights is ROADMAP queue 1), and tensor-parallel
-    shards that would cut unevenly (``ValueError``): a query head, a
-    run-time KV head group, the ffn, the padded vocabulary, the rnn
-    width or the RG-LRU's gate heads, the xLSTM heads, or (under EP,
-    ``ep``) the experts."""
-    if params is not None and _packed(params):
+                    params: Optional[Tree] = None, ep: bool = False,
+                    serving: bool = False) -> None:
+    """Refuse what the sharded step does not run.
+
+    Training (the default): packed (``QLinear``) leaves in ``params``
+    (``NotImplementedError``: the train step takes floating-point
+    parameters).  Serving (``serving``: ``prefill`` and ``decode_step``
+    with ``shards``): the dense kind alone, its packed leaves unfused;
+    ``NotImplementedError``, naming ``ROADMAP.md`` queue 1 item 1, for
+    fused ``QLinearGroup`` leaves, any other block kind and the
+    encoder-decoder model.  Both: tensor-parallel shards that would cut
+    unevenly (``ValueError``): a query head, a run-time KV head group,
+    the ffn, the padded vocabulary, the rnn width or the RG-LRU's gate
+    heads, the xLSTM heads, or (under EP, ``ep``) the experts.  The
+    byte rows of packed leaves are not among them: they take uneven
+    chunks (``distributed.sharding.qlinear_local``)."""
+    kinds = {k for s in cfg.stages for k in s.pattern}
+    if serving:
+        _refuse_sharded_enc_dec(cfg)
+        other = sorted(kinds - {"dense"})
+        if other:
+            raise NotImplementedError(
+                f"{cfg.name}: sharded serving runs the dense kind; "
+                f"{other} wait for {SERVING_QUEUE}")
+        if params is not None and _holds(params, lambda x: isinstance(
+                x, QLinearGroup) and isinstance(x.inner, QLinear)):
+            raise NotImplementedError(
+                f"{cfg.name}: fused QLinearGroup leaves (wqkv, wgu) wait "
+                f"for {SERVING_QUEUE}; quantize with fuse=False")
+    elif params is not None and _holds(params, lambda x: isinstance(
+            x, (QLinear, QLinearGroup))):
         raise NotImplementedError(
             f"{cfg.name}: the sharded train step takes floating-point "
-            "parameters; packed QLinear leaves wait for ROADMAP queue 1 "
-            "(sharded serving of packed weights)")
+            "parameters, not packed QLinear leaves")
     tp = par.tp
-    kinds = {k for s in cfg.stages for k in s.pattern}
     splits = [("query (or xLSTM) heads", cfg.n_heads),
               ("run-time KV heads",
                par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads)),
@@ -316,8 +347,19 @@ def check_shardable(cfg: ArchConfig, par: Parallel,
 # ---------------------------------------------------------------------------
 # Whole-prompt prefill and decode over the contiguous ring caches
 # ---------------------------------------------------------------------------
+def _logits_sharded(cfg: ArchConfig, params: Tree, x: torch.Tensor,
+                    shards) -> torch.Tensor:
+    """:func:`logits_fn` over this rank's vocabulary columns of the head,
+    gathered over "model": every rank gets the whole vocabulary."""
+    norm = shards.gather_tree(params["final_norm"],
+                              shards.specs["final_norm"])
+    x = shards.enter(L.apply_norm(cfg, norm, x))
+    w, off = _head_sharded(cfg, params, shards)
+    return shards.gather_model(_mask_pad(cfg, dense(x, w), off), x.ndim - 1)
+
+
 def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
-            max_seq: int, attn_chunk: int = 1024):
+            max_seq: int, attn_chunk: int = 1024, shards=None):
     """Whole-sequence prefill.  batch: tokens (B, S) int32 and optional
     positions (B, S) int32 (-1 = left padding); ``vision_embeds`` or
     ``frames`` as for :func:`forward_loss`.  Returns (last-token logits
@@ -325,14 +367,30 @@ def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
     {"k", "v": (L, B, W, hkv, dh), "p": (L, B, W)} (under "self", beside
     the cross K/V "xk", "xv" (L, B, S_enc, hkv, dh) of an
     encoder-decoder model), or recurrent state {"h": (L, B, R), "conv":
-    (L, B, cw-1, R)}."""
-    x, positions = _backbone_inputs(cfg, params, batch)
-    enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
+    (L, B, cw-1, R)}.
+
+    With ``shards`` (sharded serving, ``shard_for_serving``) ``params``
+    are this rank's local leaves and packed views and the batch its data
+    rows; the embedding and head are vocab-parallel, the blocks run
+    this rank's heads and ffn columns, and the logits are gathered over
+    "model", so every rank returns the whole vocabulary of its rows.
+    The caches are this rank's: its rows, its run-time KV heads."""
+    if shards is None:
+        x, positions = _backbone_inputs(cfg, params, batch)
+        enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
+    else:
+        _refuse_sharded_enc_dec(cfg)
+        x, positions = _backbone_inputs(cfg, params, batch, shards)
+        enc_out = enc_pos = None
     caches = []
-    for stage, sp in zip(cfg.stages, params["stages"]):
-        x, c = T.stage_prefill(cfg, stage, sp, x, positions, max_seq,
-                               attn_chunk, enc_out, enc_pos)
+    for si, (stage, sp) in enumerate(zip(cfg.stages, params["stages"])):
+        x, c = T.stage_prefill(
+            cfg, stage, sp, x, positions, max_seq, attn_chunk, enc_out,
+            enc_pos, shards,
+            None if shards is None else shards.specs["stages"][si])
         caches.append(c)
+    if shards is not None:
+        return _logits_sharded(cfg, params, x[:, -1:], shards), tuple(caches)
     return logits_fn(cfg, params, x[:, -1:]), tuple(caches)
 
 
@@ -346,14 +404,51 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                  for s in cfg.stages)
 
 
+def declare_caches(cfg: ArchConfig, par: Parallel, batch: int,
+                   max_seq: int, enc_len: int = 0) -> Tree:
+    """The decode caches of every stage as P leaves with logical axes
+    (the reference's ``init_caches``; ``transformer.declare_stage_cache``):
+    what :func:`init_caches` builds and :func:`prefill` returns, for
+    ``launch.inputs.decode_inputs``."""
+    return tuple(T.declare_stage_cache(cfg, par, s, batch, max_seq, enc_len)
+                 for s in cfg.stages)
+
+
 def decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
-                pos: torch.Tensor, caches, max_seq: int):
+                pos: torch.Tensor, caches, max_seq: int, shards=None):
     """One decode step over the ring caches, every row.  token/pos (B,)
-    int32.  Returns (logits (B, V), caches)."""
-    x = embed_tokens(cfg, params, token[:, None])
-    for stage, sp, c in zip(cfg.stages, params["stages"], caches):
-        x, _ = T.stage_step(cfg, stage, sp, x, pos, c, max_seq)
+    int32.  Returns (logits (B, V), caches).  With ``shards``, as
+    :func:`prefill`: this rank's rows, leaves and caches, the logits of
+    the whole vocabulary."""
+    if shards is None:
+        x = embed_tokens(cfg, params, token[:, None])
+    else:
+        _refuse_sharded_enc_dec(cfg)
+        x = _embed_sharded(cfg, params, token[:, None], shards)
+    for si, (stage, sp, c) in enumerate(zip(cfg.stages, params["stages"],
+                                            caches)):
+        x, _ = T.stage_step(
+            cfg, stage, sp, x, pos, c, max_seq, shards,
+            None if shards is None else shards.specs["stages"][si])
+    if shards is not None:
+        return _logits_sharded(cfg, params, x, shards)[:, 0], caches
     return logits_fn(cfg, params, x)[:, 0], caches
+
+
+def shard_for_serving(cfg: ArchConfig, par: Parallel, params: Tree,
+                      specs: Tree, mesh):
+    """Place ``params`` (whole on every rank; packed leaves unfused) on
+    ``mesh`` by ``specs`` (``launch.qdeclare.declare_quantized``'s, or
+    ``distributed.sharding.specs_for_tree(..., params=params)``) and
+    return (``Shards``, this rank's tree for :func:`prefill` and
+    :func:`decode_step`): local tensors, and each packed leaf as its
+    ``qlinear_local`` view (the row views' O(K) vectors gathered over
+    "model" once here).  Refuses what sharded serving does not run
+    (:func:`check_shardable` with ``serving``)."""
+    check_shardable(cfg, par, params, serving=True)
+    shards = Shards(mesh, par, specs)
+    placed = distribute_tree(params, specs, mesh)
+    return shards, local_tree(placed, specs, shards)
 
 
 def splice_prefill(cfg: ArchConfig, caches, cache1, slot: int):

@@ -44,7 +44,7 @@ class P:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"        # normal | zeros | ones | scaled (fan-in)
+    init: str = "normal"        # normal | zeros | ones | neg_ones | scaled
     dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self):
@@ -57,6 +57,8 @@ def _init_leaf(p: P, gen: torch.Generator, device) -> torch.Tensor:
         return torch.zeros(p.shape, dtype=p.dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=p.dtype, device=device)
+    if p.init == "neg_ones":
+        return torch.full(p.shape, -1, dtype=p.dtype, device=device)
     if p.init in ("normal", "scaled"):
         if p.init == "normal":
             std = 0.02
@@ -125,3 +127,12 @@ def tree_to(tree: Any, device=None, float_dtype=None) -> Any:
         return x
 
     return map_tree(tree, leaf)
+
+
+def stack_p(tree: Any, n: int) -> Any:
+    """Prepend a stacked ``layers`` dim of ``n`` to every P leaf (the
+    reference's ``transformer.stack_p``; decode caches keep the
+    reference's stacked layout)."""
+    return map_tree(tree, lambda _, p: P((n,) + p.shape, ("layers",) + p.axes,
+                                         p.init, p.dtype)
+                    if isinstance(p, P) else p)

@@ -567,6 +567,33 @@ def slstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree):
     return _slstm_ffn(p, state["h"][:, None].to(x.dtype)), state
 
 
+def declare_recurrent_state(cfg: ArchConfig, kind: str, batch: int
+                            ) -> Dict[str, P]:
+    """The decode state of one layer of a recurrent ``kind`` as P
+    leaves with the reference's logical axes (its
+    ``init_recurrent_state``): rglru ``h`` f32 and ``conv`` over
+    ("batch", ..., "rnn"), mlstm ``c``, ``n`` and slstm ``h``, ``c``,
+    ``n``, ``m`` f32 with the batch alone sharded."""
+    d = cfg.d_model
+    f32 = torch.float32
+    if kind == "rglru":
+        r = cfg.rnn_width or d
+        return {"h": P((batch, r), ("batch", "rnn"), "zeros", f32),
+                "conv": P((batch, cfg.conv_width - 1, r),
+                          ("batch", None, "rnn"), "zeros")}
+    if kind == "mlstm":
+        h = cfg.n_heads
+        dv = int(cfg.mlstm_proj_factor * d) // h
+        return {"c": P((batch, h, d // h, dv), ("batch", None, None, None),
+                       "zeros", f32),
+                "n": P((batch, h, d // h), ("batch", None, None), "zeros",
+                       f32)}
+    if kind == "slstm":
+        return {k: P((batch, d), ("batch", None), "zeros", f32)
+                for k in SLSTM_STATE}
+    raise ValueError(kind)
+
+
 def init_recurrent_state(cfg: ArchConfig, kind: str, batch: int,
                          n_layers: int, device="cpu"
                          ) -> Dict[str, torch.Tensor]:

@@ -41,6 +41,7 @@ from repro_torch.configs.base import ArchConfig, Stage
 from repro_torch.core.qlinear import QLinearGroup
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
+from repro_torch.models.param import P, stack_p
 
 Tree = Any
 ATTN_KINDS = ("dense", "moe", "local")
@@ -281,8 +282,10 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     computed), or a recurrent block's final state: rglru {"h": (B, R),
     "conv": (B, cw-1, R)}, mlstm {"c", "n"}, slstm {"h", "c", "n", "m"}.
     The recurrence runs over the padding too, as in the reference.
-    ``shards`` reaches the xLSTM kinds only (``block_full``'s sharded
-    step)."""
+    ``shards`` reaches the xLSTM kinds (``block_full``'s sharded step)
+    and the attention kinds (sharded serving: this rank's heads, its
+    run-time KV heads in the ring cache, row-parallel ``wo`` and ``wd``
+    through ``Shards.row``)."""
     _check_kind(kind)
     if kind == "mlstm":
         h, state = R.mlstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
@@ -303,15 +306,15 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), positions,
         causal=True, window=_kind_window(cfg, kind),
         attn_chunk=attn_chunk,
-        cache_window=_cache_window(cfg, kind, max_seq))
+        cache_window=_cache_window(cfg, kind, max_seq), shards=shards)
     x = x + h
     if "xattn" in p:
         h, xk, xv = _cross(cfg, p, x, positions, enc_out, enc_pos,
-                           attn_chunk, return_kv=True)
+                           attn_chunk, return_kv=True, shards=shards)
         x = x + h
         cache = {"self": cache, "xk": xk, "xv": xv}
-    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
-        cache
+    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
+                    shards), cache
 
 
 def _stack(caches: List[Tree]) -> Tree:
@@ -324,14 +327,21 @@ def _stack(caches: List[Tree]) -> Tree:
 
 def stage_prefill(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                   positions: torch.Tensor, max_seq: int,
-                  attn_chunk: int = 1024, enc_out=None, enc_pos=None):
+                  attn_chunk: int = 1024, enc_out=None, enc_pos=None,
+                  shards=None, sspec=None):
     """Prefill a stage.  Returns (x, caches): per pattern position, the
-    layers' caches stacked on a leading layer axis."""
+    layers' caches stacked on a leading layer axis.  With ``shards``
+    (sharded serving) ``sparams`` are this rank's local leaves and
+    packed views and ``sspec`` their specs (each layer's leaves over
+    data gathered first), and the caches hold this rank's rows and
+    run-time KV heads."""
     per_pos: List[List[Tree]] = [[] for _ in stage.pattern]
-    for lp in sparams:
+    for li, lp in enumerate(sparams):
+        if shards is not None:
+            lp = shards.gather_tree(lp, sspec[li])
         for i, kind in enumerate(stage.pattern):
             x, c = block_prefill(cfg, kind, lp[i], x, positions, max_seq,
-                                 attn_chunk, enc_out, enc_pos)
+                                 attn_chunk, enc_out, enc_pos, shards)
             per_pos[i].append(c)
     return x, tuple(_stack(cs) for cs in per_pos)
 
@@ -371,7 +381,11 @@ def _xlstm_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
 
 
 def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
-               pos: torch.Tensor, cache: Tree, max_seq: int, layer: int):
+               pos: torch.Tensor, cache: Tree, max_seq: int, layer: int,
+               shards=None):
+    """One decode step of one block against its stacked caches at
+    ``layer``; ``shards`` (sharded serving) reaches the attention
+    kinds."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
         return _xlstm_step(cfg, kind, p, x, cache, layer), cache
@@ -381,24 +395,28 @@ def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     h, _ = L.attention_decode(
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos,
         cache["self"] if cross else cache, layer=layer,
-        window=_kind_window(cfg, kind))
+        window=_kind_window(cfg, kind), shards=shards)
     x = x + h
     if cross:
         x = x + L.attention_cross_decode(
             cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x),
             cache["xk"][layer], cache["xv"][layer])
-    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x)), \
-        cache
+    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
+                    shards), cache
 
 
 def stage_step(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
-               pos: torch.Tensor, caches, max_seq: int):
+               pos: torch.Tensor, caches, max_seq: int, shards=None,
+               sspec=None):
     """Decode walk over a stage; each layer writes its slot of the
-    stacked ring caches in place."""
+    stacked ring caches in place.  With ``shards`` and the stage's
+    ``sspec``, as :func:`stage_prefill`."""
     for layer, lp in enumerate(sparams):
+        if shards is not None:
+            lp = shards.gather_tree(lp, sspec[layer])
         for i, kind in enumerate(stage.pattern):
             x, _ = block_step(cfg, kind, lp[i], x, pos, caches[i], max_seq,
-                              layer)
+                              layer, shards)
     return x, caches
 
 
@@ -426,6 +444,47 @@ def init_stage_cache(cfg: ArchConfig, stage: Stage, batch: int,
             c = {"self": c, "xk": x["k"], "xv": x["v"]}
         out.append(c)
     return tuple(out)
+
+
+def declare_stage_cache(cfg: ArchConfig, par, stage: Stage, batch: int,
+                        max_seq: int, enc_len: int = 0) -> Tuple[Tree, ...]:
+    """The decode caches of a stage as P leaves with logical axes (the
+    reference's ``init_stage_cache``, the layout :func:`init_stage_cache`
+    and :func:`stage_prefill` build), stacked on a leading ``layers``
+    dim: ring caches of ``kv_heads_run`` heads, positions -1, the KV
+    heads over "model" where they divide tp, else the window over
+    "ctx", else replicated; an encoder-decoder block's cross K/V beside
+    them (``enc_len`` positions); a recurrent block's state."""
+    per_pos = []
+    for kind in stage.pattern:
+        _check_kind(kind)
+        if kind in ATTN_KINDS:
+            w = _cache_window(cfg, kind, max_seq)
+            hkv = par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads)
+            tp = max(par.tp, 1)
+            if hkv % tp == 0:
+                kv_axes = ("batch", None, "kv_heads", None)
+            elif w % tp == 0:
+                kv_axes = ("batch", "ctx", "kv_heads", None)
+            else:
+                kv_axes = ("batch", None, None, None)
+            shape = (batch, w, hkv, cfg.head_dim_)
+            c = {"k": P(shape, kv_axes, "zeros"),
+                 "v": P(shape, kv_axes, "zeros"),
+                 "p": P((batch, w), ("batch", None), "neg_ones",
+                        torch.int32)}
+            if cfg.enc_dec and enc_len:
+                xa = (("batch", None, "kv_heads", None) if hkv % tp == 0
+                      else (("batch", "ctx", "kv_heads", None)
+                            if enc_len % tp == 0
+                            else ("batch", None, None, None)))
+                xs = (batch, enc_len, hkv, cfg.head_dim_)
+                c = {"self": c, "xk": P(xs, xa, "zeros"),
+                     "xv": P(xs, xa, "zeros")}
+        else:
+            c = R.declare_recurrent_state(cfg, kind, batch)
+        per_pos.append(stack_p(c, stage.repeats))
+    return tuple(per_pos)
 
 
 # ---------------------------------------------------------------------------

@@ -609,3 +609,72 @@ def test_checkpoint_roundtrip_of_card_tensors(cuda, tmp_path):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k,n,ratio,multiple", [
+    (4096, 4096, 0.2, 16),         # split K, both spans: the fold
+    (1032, 130, 0.2, 8),           # ragged spans, N not a multiple of 4
+    (64, 32, 0.25, 16)])           # one split of both spans: the epilogue
+def test_mixed_matmul_f32_output_is_the_accumulator_rounded_once(
+        cuda, k, n, ratio, multiple):
+    """``out_dtype=torch.float32`` returns the f32 accumulator whose one
+    rounding is the bf16 output, bit for bit, and that the plain
+    version's f32 accumulator matches at 1e-5 of its largest value."""
+    q = _qlinear(k, n, ratio, seed=k + 7, device=cuda, multiple=multiple)
+    for m in (1, 8, 64, 256):
+        x = torch.randn(m, k, device=cuda).to(torch.bfloat16)
+        args = (x, q.w4, q.s4, q.z4, q.bits, q.alpha_s, q.alpha_r1,
+                q.alpha_r2)
+        y = tmm.mixed_matmul(*args, perm=q.perm)
+        acc = tmm.mixed_matmul(*args, perm=q.perm, out_dtype=torch.float32)
+        assert acc.dtype == torch.float32
+        assert torch.equal(acc.to(torch.bfloat16).view(torch.int16),
+                           y.view(torch.int16)), (k, n, m)
+        want = ref.mixed_matmul_ref(*args, perm=q.perm)
+        assert float((acc - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("tp", [3, 4, 16])
+def test_mixed_matmul_row_views_gather_from_the_whole_input(cuda, tp):
+    """Row-parallel views (``distributed.sharding.local_view``): a perm
+    narrower than x gathers the view's channels from the whole x; the
+    views' f32 partials, summed in rank order, are the whole leaf's
+    accumulator within 1e-5 of its largest value, and each matches its
+    plain version; a view that holds no byte row returns zeros."""
+    from repro_torch.distributed.sharding import local_view
+    q = _qlinear(4096, 256, 0.2, seed=5, device=cuda)
+    for m in (1, 8, 256):
+        x = torch.randn(m, q.k, device=cuda).to(torch.bfloat16)
+        whole = tmm.mixed_matmul(x, q.w4, q.s4, q.z4, q.bits, q.alpha_s,
+                                 q.alpha_r1, q.alpha_r2, perm=q.perm,
+                                 out_dtype=torch.float32)
+        total = torch.zeros_like(whole)
+        for r in range(tp):
+            v = local_view(q, "row", r, tp)
+            args = (x, v.w4, v.s4, v.z4, v.bits, v.alpha_s, v.alpha_r1,
+                    v.alpha_r2)
+            part = tmm.mixed_matmul(*args, perm=v.perm,
+                                    out_dtype=torch.float32)
+            want = ref.mixed_matmul_ref(*args, perm=v.perm)
+            assert float((part - want).abs().max()) <= \
+                1e-5 * max(float(want.abs().max()), 1e-30)
+            total += part
+        assert float((total - whole).abs().max()) <= \
+            1e-5 * float(whole.abs().max())
+    empty = _no_rows(q)
+    x = torch.randn(4, q.k, device=cuda).to(torch.bfloat16)
+    y = tmm.mixed_matmul(x, empty.w4, empty.s4, empty.z4, empty.bits,
+                         empty.alpha_s, empty.alpha_r1, empty.alpha_r2,
+                         perm=empty.perm, out_dtype=torch.float32)
+    assert y.shape == (4, q.n) and not bool(y.any())
+
+
+def _no_rows(q):
+    """A row view of ``q`` that holds no byte row (k = 0)."""
+    import dataclasses
+    return dataclasses.replace(
+        q, perm=q.perm[:0].contiguous(), w4=q.w4[:0].contiguous(),
+        s4=q.s4[:0].contiguous(), z4=q.z4[:0].contiguous(),
+        bits=q.bits[:0].contiguous(), alpha_r2=q.alpha_r2[:0].contiguous(),
+        k_s=0, k=0)

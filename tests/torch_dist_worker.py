@@ -1,7 +1,9 @@
-"""One gloo rank of the port's sharded training and pipeline checks.
+"""One gloo rank of the port's sharded training, serving and pipeline
+checks.
 
 Started by ``tests/test_torch_dist_train.py``,
-``tests/test_torch_dist_kinds.py`` and ``tests/test_torch_pipeline.py``,
+``tests/test_torch_dist_kinds.py``, ``tests/test_torch_dist_serve.py``
+and ``tests/test_torch_pipeline.py``,
 one process per rank, with its rank,
 the world size, a rendezvous file under the test's ``tmp_path``, the
 case file the parent wrote and an output directory.  It imports torch
@@ -35,10 +37,12 @@ from repro_torch import pytree
 from repro_torch.configs import registry
 from repro_torch.configs.base import Stage
 from repro_torch.core.pipeline import quantize_params_data_free
-from repro_torch.core.qlinear import QuantConfig
+from repro_torch.core.qlinear import FIELDS, QLinear, QuantConfig
 from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
 from repro_torch.distributed.compression import (CompressionConfig,
                                                  init_residual)
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.distributed.sharding import (distribute, distribute_tree,
                                               full, is_dtensor, like, local)
@@ -251,8 +255,113 @@ def pipeline_case(case, rank):
     return out
 
 
+def pack_tree(tree):
+    """A tree with packed ``QLinear`` leaves -> plain dicts, lists and
+    tensors (the case file is loaded with ``weights_only``)."""
+    if isinstance(tree, QLinear):
+        return {"__qlinear__": [getattr(tree, f) for f in FIELDS],
+                "ksn": [tree.k_s, tree.k, tree.n]}
+    if isinstance(tree, dict):
+        return {k: pack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(pack_tree(v) for v in tree)
+    return tree
+
+
+def unpack_tree(tree):
+    if isinstance(tree, dict) and "__qlinear__" in tree:
+        k_s, k, n = tree["ksn"]
+        return QLinear(*tree["__qlinear__"], k_s=k_s, k=k, n=n)
+    if isinstance(tree, dict):
+        return {k: unpack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(unpack_tree(v) for v in tree)
+    return tree
+
+
+def serve_cfg(over):
+    """Reduced qwen2.5-3b (dense, GQA, tied) with the case's overrides
+    (its own stages among them)."""
+    cfg = registry.get("qwen2.5-3b").reduced()
+    over = dict(over)
+    n_layers = over.pop("n_layers", 2)
+    return dataclasses.replace(cfg, stages=(Stage(("dense",), n_layers),),
+                               **over)
+
+
+@contextlib.contextmanager
+def spec_perm_mutant():
+    """A faulty row view: the rank gathers its channels by the spec's
+    own chunk of ``perm`` (from its offset, as long as the view), not by
+    the perm of the byte rows it holds."""
+    plain = sharding.qlinear_local
+
+    def mutant(q, spec, shards):
+        v = plain(q, spec, shards)
+        if sharding.qlinear_role(spec) != "row" or shards.tp == 1:
+            return v
+        whole = collectives.gather_chunks(local(q.perm), q.k,
+                                          shards.group("model"))
+        lo = sharding.chunk_range(q.k, shards.tp, shards.tp_rank)[0]
+        idx = (torch.arange(v.k) + lo) % q.k
+        return dataclasses.replace(v, perm=whole[idx].contiguous())
+    sharding.qlinear_local = mutant
+    try:
+        yield
+    finally:
+        sharding.qlinear_local = plain
+
+
+def serve_tokens(cfg, params, batch, max_seq: int, steps: int,
+                 attn_chunk: int, shards=None):
+    """Whole-prompt prefill of ``batch``, then ``steps`` greedy decode
+    steps over the ring caches: the prefill's last logits and each
+    step's logits (B, V) and tokens (B,)."""
+    with torch.no_grad():
+        logits, caches = M.prefill(cfg, params, batch, max_seq, attn_chunk,
+                                   shards=shards)
+        out = {"prefill": logits[:, 0].clone(), "steps": [], "tokens": []}
+        tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        pos = batch["positions"][:, -1] + 1
+        for _ in range(steps):
+            out["tokens"].append(tok.clone())
+            logits, caches = M.decode_step(cfg, params, tok, pos, caches,
+                                           max_seq, shards=shards)
+            out["steps"].append(logits.clone())
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            pos = pos + 1
+    return out
+
+
+def serve_case(case, rank):
+    """Sharded serving of the case's packed params on its mesh
+    (``model.shard_for_serving`` under ``specs_for_tree(...,
+    params=...)``): this data rank's rows through ``serve_tokens``, and
+    each row-parallel view's (k_s, k) at layer 0."""
+    cfg = serve_cfg(case["cfg"])
+    params = unpack_tree(case["params"])
+    mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
+    par, rules = train.parallel_for(mesh)
+    specs = sharding.specs_for_tree(M.declare_params(cfg, par), rules,
+                                    params=params)
+    with (spec_perm_mutant() if case.get("mutant")
+          else contextlib.nullcontext()):
+        shards, lp = M.shard_for_serving(cfg, par, params, specs, mesh)
+    rows = shards.rows(case["tokens"].shape[0])
+    batch = {"tokens": case["tokens"][rows],
+             "positions": case["positions"][rows]}
+    out = serve_tokens(cfg, lp, batch, case["max_seq"], case["steps"],
+                       case["attn_chunk"], shards)
+    blk = lp["stages"][0][0][0]
+    out["views"] = {name: (w.k_s, w.k) for name, w in
+                    (("wo", blk["attn"]["wo"]), ("wd", blk["mlp"]["wd"]))}
+    out["rows"] = (rows.start, rows.stop)
+    out["coords"] = mesh.get_coordinate()
+    return out
+
+
 TASKS = {"train": train_case, "ckpt": ckpt_case, "refusals": refusals,
-         "hints": hints, "pipeline": pipeline_case}
+         "hints": hints, "pipeline": pipeline_case, "serve": serve_case}
 
 
 def main(argv) -> int:
