@@ -207,11 +207,28 @@ Phases, each of which raises on failure:
    layers over 4 x 1024 stub frames) at full width, 2 steps of 4 x 512
    tokens.  Step ms and peak GB of each side.  No kernel of the port is
    launched;
-16. check that every (M, K, N) the packed matmul launched at in phases
-   5-12 was held against its plain version in phase 3, 6, 8, 9 or 10, then
-   print the ``kernels`` JSON line (six entries, one per TPU kernel: the
-   five wrappers and the perm gather of ``mixed_matmul``) and the result
-   line.  Each phase's wall seconds print as it ends (``[phase]``).
+16. sharded serving of packed weights on one NCCL rank (``[dist
+   serve]``): qwen3-4b at full width, quantized data-free unfused, its
+   prefill of 8 x 256 tokens and 32 greedy decode steps through
+   ``model.shard_for_serving`` bit-identical to one device, with the
+   same mixed_matmul launches; then the tp 4 / 16 split arithmetic of
+   its column and row views on the card (``[dist serve split]``);
+17. sharded serving of the other block kinds the same way (``[dist
+   serve kinds moe|rg|xl|s2t]``): granite-moe-1b-a400m at full width
+   and depth (EP), recurrentgemma-2b, xlstm-1.3b and
+   seamless-m4t-medium (8 x 1024 stub frames, prompts of 64) at full
+   width and one superblock, prefill of 8 x 256 tokens and 16 greedy
+   steps, bit-identical to one device with equal mixed_matmul launches
+   and no paged launch; every packed-matmul shape new to the phase held
+   against its plain version; the tp-4 split of granite layer 0's
+   experts (column views of wg / wu, g·u joined, the whole wd) against
+   the whole leaves;
+18. check that every (M, K, N) the packed matmul launched at in phases
+   5-17 was held against its plain version in phase 3, 6, 8, 9, 10, 16
+   or 17, then print the ``kernels`` JSON line (six entries, one per TPU
+   kernel: the five wrappers and the perm gather of ``mixed_matmul``)
+   and the result line.  Each phase's wall seconds print as it ends
+   (``[phase]``).
 
 It exits non-zero without CUDA, and when run outside a checkout of the
 repository.
@@ -335,6 +352,22 @@ DIST_SERVE_MIN_DIM = 256      # launch.qdeclare's default
 QWEN3_ROWS = (8, 2048)
 SPLIT_TPS, SPLIT_ROWS, SPLIT_LEAVES = (4, 16), (8, 256), ("wq", "wo", "wd")
 SPLIT_RTOL = 1e-5
+# Sharded serving of the other kinds (phase 17, ``[dist serve kinds]``):
+# granite-moe-1b-a400m at full width and depth, then recurrentgemma-2b,
+# xlstm-1.3b and seamless-m4t-medium (SERVE_KIND_FRAMES stub frames a
+# row) at full width and one superblock (``_kind_dist_cases``'
+# configs), each quantized data-free unfused at the serving defaults
+# and served as one NCCL rank on a (1, 1) mesh against one device: 8
+# prompts of SERVE_KIND_PROMPT tokens (seamless's of S2T_PROMPT), ring
+# caches of DIST_SERVE_MAX_SEQ, SERVE_KIND_STEPS greedy decode steps.
+# Every packed-matmul shape the phase launches that phase 3 did not
+# hold is held here against its plain version on a leaf of that shape.
+# Then the tp-4 split of granite layer 0's experts at EXPERT_SPLIT_ROWS
+# capacity rows (a decode step's 8, a 8 x 256 prefill's 640): the
+# column views of wg / wu, g·u joined, through the whole wd, against
+# the whole leaves (f32 products within SPLIT_RTOL of max|y|).
+SERVE_KIND_PROMPT, SERVE_KIND_STEPS, SERVE_KIND_FRAMES = 256, 16, 1024
+EXPERT_SPLIT_TP, EXPERT_SPLIT_ROWS = 4, (8, 640)
 
 
 def _fail(msg: str) -> None:
@@ -4072,11 +4105,12 @@ def run_dist_kinds(torch, kernels, smi: str) -> dict:
     return out
 
 
-def _serve_greedy(torch, M, cfg, params, batch, shards=None) -> dict:
-    """Whole-prompt prefill of ``batch``, then DIST_SERVE_STEPS greedy
-    decode steps over the ring caches: logits, tokens, wall ms of each
-    call (card synchronized; the prefill timed after one untimed call,
-    whose first use of each shape would otherwise count)."""
+def _serve_greedy(torch, M, cfg, params, batch, shards=None,
+                  steps: int = DIST_SERVE_STEPS) -> dict:
+    """Whole-prompt prefill of ``batch``, then ``steps`` greedy decode
+    steps over the ring caches: logits, tokens, wall ms of each call
+    (card synchronized; the prefill timed after one untimed call, whose
+    first use of each shape would otherwise count)."""
     with torch.no_grad():
         M.prefill(cfg, params, batch, DIST_SERVE_MAX_SEQ, shards=shards)
         (logits, caches), pre_ms = _synced(torch, lambda: M.prefill(
@@ -4085,7 +4119,7 @@ def _serve_greedy(torch, M, cfg, params, batch, shards=None) -> dict:
                "step_ms": []}
         tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         pos = batch["positions"][:, -1] + 1
-        for _ in range(DIST_SERVE_STEPS):
+        for _ in range(steps):
             out["tokens"].append(tok)
             (logits, caches), ms = _synced(torch, lambda: M.decode_step(
                 cfg, params, tok, pos, caches, DIST_SERVE_MAX_SEQ,
@@ -4374,6 +4408,273 @@ def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
     out["split"] = split
     del qparams, timer
     torch.cuda.empty_cache()
+    return out
+
+
+def _serve_kind_cases(registry):
+    """(tag, config, prompt tokens, stub frames per row) of
+    ``[dist serve kinds]``: granite whole, the other kinds at
+    ``_kind_dist_cases``' cut depth."""
+    out = [("moe", registry.get(MOE_ARCH), SERVE_KIND_PROMPT, 0)]
+    for tag, arch, over, frames in _kind_dist_cases():
+        out.append((tag, dataclasses.replace(registry.get(arch), **over),
+                     S2T_PROMPT if frames else SERVE_KIND_PROMPT,
+                     SERVE_KIND_FRAMES if frames else 0))
+    return out
+
+
+def _leaf_of(qparams, k: int, n: int):
+    """A packed 2-D leaf of ``qparams`` of input K and output N, or
+    None."""
+    from repro_torch.core.qlinear import QLinear
+    found = []
+
+    def walk(t):
+        if isinstance(t, QLinear):
+            if t.w4.ndim == 2 and (t.k, t.n) == (k, n) and not found:
+                found.append(t)
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    walk(qparams)
+    return found[0] if found else None
+
+
+def hold_new_shapes(torch, qparams, shapes, checked, timer, peaks, gen,
+                    tag: str) -> list:
+    """Each (M, K, N) of ``shapes`` outside ``checked``, held against
+    the plain version on a leaf of ``qparams`` of that shape at that M
+    (``check_mixed_matmul``'s rows)."""
+    rows = []
+    for m, k, n in sorted(set(shapes) - set(checked)):
+        q = _leaf_of(qparams, k, n)
+        if q is None:
+            _fail(f"[dist serve kinds {tag}] mixed_matmul launched at "
+                  f"K={k}, N={n}, which no packed leaf of the model has")
+        rows += check_mixed_matmul(torch, {f"{k}x{n}": q}, timer, peaks, gen,
+                                   ms=(m,))
+    return rows
+
+
+def check_expert_split(torch, mlp, cfg, timer, peaks, gen) -> list:
+    """The packed MoE's split arithmetic of sharded serving at tp
+    EXPERT_SPLIT_TP, rank after rank on the card: the column views of
+    ``wg`` / ``wu`` (``distributed.sharding.local_view``, each rank's
+    ffn/tp columns of all E experts), g·u joined along ffn (the gather
+    over "model"), then the whole ``wd`` at full K, against the whole
+    leaves; at each capacity of EXPERT_SPLIT_ROWS.  The expert products
+    are the dequant path (``QLinear.__expert_matmul__``), as the
+    reference's einsum; run in f32 (TF32 off), each rank's columns and
+    the output through wd are held within SPLIT_RTOL of max|y| (the
+    same sums in another order); in bf16, as the model runs them, the
+    rows report how many outputs of the joined g·u and of y differ from
+    the whole's and the most bf16 steps apart among outputs above 2^-8
+    of max|y|.  Each view's time beside its bound."""
+    from repro_torch.distributed.sharding import local_view
+    from repro_torch.models.layers import _act
+    from repro_torch.models.linear import expert_dense
+    out = []
+    tp, e = EXPERT_SPLIT_TP, cfg.moe.n_experts
+    views = {n: [local_view(mlp[n], "column", r, tp) for r in range(tp)]
+             for n in ("wg", "wu")}
+
+    def gu(x, wg, wu):
+        return _act(cfg.act, expert_dense(x, wg)) * expert_dense(x, wu)
+
+    def held(got, want, what):
+        gap = float((got - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        if not gap <= SPLIT_RTOL:
+            _fail(f"[dist serve kinds split] {what}: f32 gap {gap} of "
+                  f"max|y| above {SPLIT_RTOL}")
+        return gap
+
+    for cap in EXPERT_SPLIT_ROWS:
+        x = torch.randn((e, cap, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        row = {"E": e, "capacity": cap, "d_model": cfg.d_model,
+               "d_ff": cfg.d_ff, "tp": tp}
+        # f32: the same sums in another order
+        xf = x.float()
+        whole = gu(xf, mlp["wg"], mlp["wu"])
+        parts = [gu(xf, g, u) for g, u in zip(views["wg"], views["wu"])]
+        row["gu_f32_rel_gap"] = held(torch.cat(parts, dim=2), whole,
+                                     f"g·u cap={cap}")
+        row["y_f32_rel_gap"] = held(
+            expert_dense(torch.cat(parts, dim=2), mlp["wd"]),
+            expert_dense(whole, mlp["wd"]), f"y cap={cap}")
+        # bf16, as the model runs it
+        whole = gu(x, mlp["wg"], mlp["wu"])
+        joined = torch.cat([gu(x, g, u) for g, u in zip(views["wg"],
+                                                        views["wu"])], dim=2)
+        y_w, y_j = (expert_dense(t, mlp["wd"]) for t in (whole, joined))
+        for name, a, b in (("gu", joined, whole), ("y", y_j, y_w)):
+            steps = _bf16_steps_apart(torch, a, b)
+            big = b.abs() >= b.abs().max() * 2.0 ** -8
+            row[f"{name}_bf16_outputs_differing"] = int((steps > 0).sum())
+            row[f"{name}_outputs"] = steps.numel()
+            row[f"{name}_max_bf16_steps_above_2^-8_max"] = int(
+                steps[big].max())
+        # each rank's view against the whole leaf, and the bounds
+        for name in ("wg", "wu"):
+            q, v = mlp[name], views[name][0]
+            vbytes = sum(getattr(v, f).numel() * getattr(v, f).element_size()
+                         for f in ("perm", "w4", "s4", "z4", "bits",
+                                   "alpha_s", "alpha_r1", "alpha_r2"))
+            b, by = bound_ms(x.numel() * 2 + vbytes + e * cap * v.n * 2,
+                             2.0 * e * cap * q.k * v.n, peaks)
+            row[f"{name}_view_us"] = 1e3 * timer.ms(
+                lambda: expert_dense(x, v))
+            row[f"{name}_whole_us"] = 1e3 * timer.ms(
+                lambda: expert_dense(x, q))
+            row[f"{name}_view_bound_us"], row["bound_by"] = 1e3 * b, by
+        row["wd_whole_us"] = 1e3 * timer.ms(lambda: expert_dense(
+            joined, mlp["wd"]))
+        out.append(row)
+    return out
+
+
+def run_dist_serve_kinds(torch, kernels, smi: str, peaks, checked) -> dict:
+    """``[dist serve kinds]``: sharded serving of every other block kind
+    and the encoder-decoder model as one NCCL rank on a (1, 1) mesh
+    (``_serve_kind_cases``).  Each model from seed 0, quantized
+    data-free unfused (ratio 0.2, multiple 16; its packed shapes and
+    dtypes equal ``launch.qdeclare.declare_quantized``'s under the
+    preset of the prefill cell: EP for granite), served on one device
+    and through ``model.shard_for_serving`` with ``shards``: the logits
+    and tokens must be the same bits, both runs must launch mixed_matmul
+    the same number of times (more than 0) and no paged attention
+    kernel.  Every new packed-matmul shape is held
+    (``hold_new_shapes``; ``checked``: the shapes held before), then
+    ``check_expert_split`` on granite's layer 0.  Returns the results
+    with ``held``, the rows held here."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.kernels.mixed_matmul import KERNEL
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.presets import make_preset
+    from repro_torch.launch.qdeclare import declare_quantized
+    from repro_torch.models import model as M
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    timer = Timer(torch)
+    out, held = {}, []
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        cell = next(c for c in SHAPE_CELLS if c.kind == "prefill")
+        for tag, cfg, prompt, frames in _serve_kind_cases(registry):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(KERNEL.shapes)
+            qparams, quant_ms = _synced(
+                torch, lambda: quantize_params_data_free(
+                    M.init_params(cfg, 0, "cuda"), qcfg,
+                    min_dim=DIST_SERVE_MIN_DIM))
+            b = DIST_SERVE_ROWS
+            batch = {"tokens": torch.randint(1, cfg.vocab, (b, prompt),
+                                             generator=gen, device="cuda",
+                                             dtype=torch.int32),
+                     "positions": torch.arange(
+                         prompt, dtype=torch.int32,
+                         device="cuda").expand(b, prompt)}
+            if frames:
+                batch["frames"] = torch.randn(
+                    (b, frames, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+            res = {"arch": cfg.name, "layers": cfg.n_layers,
+                   "enc_layers": cfg.n_enc_layers, "frames": frames,
+                   "rows": b, "prompt": prompt, "steps": SERVE_KIND_STEPS,
+                   "quantize_s": quant_ms / 1e3}
+            _reset(kernels)
+            one = _serve_greedy(torch, M, cfg, qparams, batch,
+                                steps=SERVE_KIND_STEPS)
+            one_launches = _launches(kernels)
+            one_peak = torch.cuda.max_memory_allocated() / 1e9
+            preset = make_preset(cfg, cell, mesh)
+            abstract, specs = declare_quantized(cfg, preset.par, qcfg,
+                                                preset.rules,
+                                                min_dim=DIST_SERVE_MIN_DIM)
+            res["declared_leaves_equal"] = _same_declaration(qparams,
+                                                             abstract)
+            res["ep"] = preset.rules.ep
+            torch.cuda.reset_peak_memory_stats()
+            (shards, lp), place_ms = _synced(
+                torch, lambda: M.shard_for_serving(cfg, preset.par, qparams,
+                                                   specs, mesh))
+            _reset(kernels)
+            sh = _serve_greedy(torch, M, cfg, lp, batch, shards,
+                               steps=SERVE_KIND_STEPS)
+            sh_launches = _launches(kernels)
+            sh_peak = torch.cuda.max_memory_allocated() / 1e9
+            del lp, shards
+            same = all(_bits_equal(torch, a, c)
+                       for a, c in zip(one["logits"], sh["logits"])) and all(
+                torch.equal(a, c) for a, c in zip(one["tokens"],
+                                                  sh["tokens"]))
+            gap = max(float((a.float() - c.float()).abs().max())
+                      for a, c in zip(one["logits"], sh["logits"]))
+            toks = b * SERVE_KIND_STEPS
+
+            def side(r, launches, peak):
+                return {"prefill_ms": r["prefill_ms"],
+                        "decode_step_ms": sum(r["step_ms"])
+                        / len(r["step_ms"]),
+                        "decode_tokens_per_s": toks * 1e3 / sum(r["step_ms"]),
+                        "peak_mem_gb": peak, "launches": launches}
+
+            res.update(one_device=side(one, one_launches, one_peak),
+                       sharded=dict(side(sh, sh_launches, sh_peak),
+                                    mesh=[1, 1], place_ms=place_ms),
+                       bit_identical=same, max_logit_gap=gap)
+            if not same:
+                _fail(f"[dist serve kinds {tag}] the sharded prefill and "
+                      f"decode part from one device's (largest logit gap "
+                      f"{gap})")
+            for what, n in (("one device", one_launches),
+                            ("sharded", sh_launches)):
+                if n["mixed_matmul"] <= 0:
+                    _fail(f"[dist serve kinds {tag}] {what}: kernel "
+                          "mixed_matmul was not launched")
+                if n["paged_attention"] or n["paged_prefill"]:
+                    _fail(f"[dist serve kinds {tag}] {what}: a paged "
+                          "attention kernel launched on the contiguous path")
+            if one_launches["mixed_matmul"] != sh_launches["mixed_matmul"]:
+                _fail(f"[dist serve kinds {tag}] mixed_matmul launched "
+                      f"{sh_launches} times sharded against {one_launches} "
+                      "on one device")
+            del one, sh
+            new = [s for s, c in KERNEL.shapes.items()
+                   if c > before.get(s, 0)]
+            rows = hold_new_shapes(torch, qparams, new, checked, timer, peaks,
+                                   gen, tag)
+            if rows:
+                print_rows(f"dist serve kinds {tag} mixed_matmul",
+                           "the shapes new to the phase", rows,
+                           sorted({r["M"] for r in rows}))
+            held += rows
+            checked = set(checked) | {(r["M"], r["K"], r["N"]) for r in rows}
+            res["shapes_held_here"] = [[r["M"], r["K"], r["N"]] for r in rows]
+            if tag == "moe":
+                res["expert_split"] = check_expert_split(
+                    torch, qparams["stages"][0][0][0]["mlp"], cfg, timer,
+                    peaks, gen)
+            out[tag] = res
+            print(f"[dist serve kinds {tag}] {smi}: " + json.dumps(res),
+                  flush=True)
+            del qparams, batch
+    finally:
+        dist.destroy_process_group()
+    del timer
+    torch.cuda.empty_cache()
+    out["held"] = held
     return out
 
 
@@ -4806,8 +5107,6 @@ def main() -> int:
     dist_serve = run_dist_serve(torch, kernels, smi, peaks)
 
     laps("16")
-    # -- 17. every packed-matmul shape of the paths was checked; the kernels
-    # line and the result ---------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
@@ -4815,6 +5114,13 @@ def main() -> int:
                + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm + q3_mm}
     checked |= {(m, k, n) for r in dist_serve["split"]
                 for (m, k, n) in r["shapes"] + [(r["M"], r["K"], r["N"])]}
+    # -- 17. sharded serving of the other kinds on one NCCL rank ----------
+    serve_kinds = run_dist_serve_kinds(torch, kernels, smi, peaks, checked)
+    checked |= {(r["M"], r["K"], r["N"]) for r in serve_kinds["held"]}
+
+    laps("17")
+    # -- 18. every packed-matmul shape of the paths was checked; the kernels
+    # line and the result ---------------------------------------------------
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
     if unchecked:
@@ -4823,8 +5129,8 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-16 was held against its plain version in phase 3, "
-          "6, 8, 9, 10 or 16; launches by shape: " + json.dumps(by_shape),
+          "at in phases 5-17 was held against its plain version in phase 3, "
+          "6, 8, 9, 10, 16 or 17; launches by shape: " + json.dumps(by_shape),
           flush=True)
     launches = {"datafree": summary["launches"],
                 "calibrated": cal_summary["launches"],
@@ -4867,7 +5173,13 @@ def main() -> int:
                 "dist pipeline": dist_pipe["launches"],
                 "dist serve one device":
                     dist_serve["one_device"]["launches"],
-                "dist serve": dist_serve["sharded"]["launches"]}
+                "dist serve": dist_serve["sharded"]["launches"],
+                **{f"dist serve kinds {tag} one device":
+                   serve_kinds[tag]["one_device"]["launches"]
+                   for tag in ("moe", "rg", "xl", "s2t")},
+                **{f"dist serve kinds {tag}":
+                   serve_kinds[tag]["sharded"]["launches"]
+                   for tag in ("moe", "rg", "xl", "s2t")}}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -4903,7 +5215,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("17")
+    laps("18")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,10 @@ of n holds ``[r·c, min((r+1)·c, len))`` with c = ceil(len / n), the
 layout of ``torch.chunk`` and of GSPMD's padding, empty past the end.
 :func:`qlinear_local` turns a placed leaf into this rank's view for the
 packed matmul: column-parallel, its columns; row-parallel, its byte
-rows with the O(K) vectors that belong to them.
+rows with the O(K) vectors that belong to them.  A stacked expert leaf
+takes the reference's quantized MoE layout instead, whatever its
+storage spec (:func:`expert_local`): ``wg`` / ``wu`` over ffn, ``wd``
+whole.
 """
 from __future__ import annotations
 
@@ -351,6 +354,16 @@ def local_view(q: QLinear, role: Optional[str], rank: int, tp: int
                      q.alpha_r1, q.k_s, rows4, rowsb)
 
 
+def _refuse_data(spec: QLinear) -> None:
+    """Raise for a packed leaf whose specs put a field over data."""
+    for f in FIELDS:
+        for entry in getattr(spec, f):
+            if any(n != "model" for n in _names(entry)):
+                raise NotImplementedError(
+                    "a packed leaf sharded over data (FSDP): serving keeps "
+                    "packed leaves replicated over data")
+
+
 def qlinear_local(q: QLinear, spec: QLinear, shards) -> QLinear:
     """This rank's view of a placed packed leaf ``q`` (fields DTensors
     placed by :func:`distribute` under ``spec``) for the packed matmul.
@@ -369,12 +382,7 @@ def qlinear_local(q: QLinear, spec: QLinear, shards) -> QLinear:
     names channels of the whole input, which a row-parallel product
     gathers first (``models.common.Shards.row``).  A packed leaf
     sharded over data (FSDP) is refused."""
-    for f in FIELDS:
-        for entry in getattr(spec, f):
-            if any(n != "model" for n in _names(entry)):
-                raise NotImplementedError(
-                    "a packed leaf sharded over data (FSDP): serving keeps "
-                    "packed leaves replicated over data")
+    _refuse_data(spec)
     lq = q.map(local)
     role = qlinear_role(spec, "model")
     if role is None or shards.tp == 1:
@@ -400,10 +408,51 @@ def qlinear_local(q: QLinear, spec: QLinear, shards) -> QLinear:
                      lq.alpha_r1, q.k_s, rows4, rowsb)
 
 
+# the stacked expert leaves whose ffn (N) the packed MoE splits over
+# "model"; every other expert leaf (wd) is held whole
+EXPERT_COLUMNS = ("wg", "wu")
+
+
+def expert_local(q: QLinear, spec: QLinear, shards, column: bool
+                 ) -> QLinear:
+    """This rank's compute view of a placed packed expert leaf (fields
+    (E, ...)), the layout of the reference's quantized
+    ``_apply_moe_shard_map``: ``wg`` and ``wu`` (``column``) split over
+    "model" along their ffn columns for all E experts, ``wd`` whole (run
+    at full K, no partial sums).  Whatever the storage spec (EP: the
+    experts over "model"; else the ffn), every field is gathered whole
+    over "model" here, once at placement, then a column view keeps its
+    N/tp columns; the packed bytes move once, never per call."""
+    _refuse_data(spec)
+    lq = q.map(local)
+    if shards.tp > 1:
+        group = shards.group("model")
+        fields = {}
+        for f in FIELDS:
+            t = getattr(lq, f)
+            for i, entry in enumerate(getattr(spec, f)):
+                if "model" in _names(entry):
+                    n = getattr(q, f).shape[i]
+                    t = C.gather_chunks(t.movedim(i, 0).contiguous(), n,
+                                        group).movedim(0, i).contiguous()
+            fields[f] = t
+        lq = dataclasses.replace(lq, **fields)
+    if not column:
+        return lq
+    if q.n % shards.tp:
+        raise ValueError(f"a packed expert leaf of {q.n} columns does not "
+                         f"split over tp={shards.tp}")
+    return local_view(lq, "column", shards.tp_rank, shards.tp)
+
+
 def local_tree(tree: Tree, spec_tree: Tree, shards) -> Tree:
     """A placed tree (:func:`distribute_tree`) -> this rank's local
-    tensors, each packed leaf as its :func:`qlinear_local` view."""
+    tensors, each packed leaf as its :func:`qlinear_local` view, each
+    packed expert leaf as its :func:`expert_local` one."""
     def leaf(path, t):
+        if isinstance(t, QLinear) and t.w4.ndim == 3:
+            return expert_local(t, at(spec_tree, path), shards,
+                                path[-1] in EXPERT_COLUMNS)
         if isinstance(t, QLinear):
             return qlinear_local(t, at(spec_tree, path), shards)
         return local(t)

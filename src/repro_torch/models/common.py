@@ -290,11 +290,16 @@ class Shards:
 
     def experts(self, t: torch.Tensor, n_experts: int, ffn_dim: int
                 ) -> torch.Tensor:
-        """An expert leaf (E or E/tp, ...), gathered over data, -> its
-        compute shard (E, ..., ffn/tp).  Under EP it holds E/tp whole
-        experts, and the all-to-all over "model" trades them for every
-        expert's ffn part (backward: the inverse all-to-all); without
-        EP it is the compute shard already."""
+        """A floating-point expert leaf (E or E/tp, ...), gathered over
+        data, -> its compute shard (E, ..., ffn/tp).  Under EP it holds
+        E/tp whole experts, and the all-to-all over "model" trades them
+        for every expert's ffn part (backward: the inverse all-to-all);
+        without EP it is the compute shard already.  A packed leaf is
+        refused: sharded serving lays its experts out once at placement
+        (``distributed.sharding.expert_local``)."""
+        if isinstance(t, QLinear):
+            raise TypeError("a packed expert leaf takes the layout of "
+                            "sharding.expert_local, not the all-to-all")
         if self.tp == 1 or t.shape[0] == n_experts:
             return t
         return C.all_to_all(t, ffn_dim, 0, self.group("model"))
@@ -326,7 +331,10 @@ class Shards:
 
     def rows(self, n: int) -> slice:
         """This data rank's rows of ``n`` (the batch over data, pod
-        major)."""
+        major); every row when the batch is not sharded
+        (``par.shard_batch`` off: every data rank runs the same rows)."""
+        if not self.par.shard_batch:
+            return slice(0, n)
         if n % self.dp:
             raise ValueError(f"{n} rows do not split over {self.dp} data "
                              "ranks")

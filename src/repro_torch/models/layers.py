@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.qlinear import QLinear
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill
 from repro_torch.models.linear import dense, expert_dense
@@ -352,17 +353,23 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 
 
 def attention_cross_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                           xk: torch.Tensor, xv: torch.Tensor
+                           xk: torch.Tensor, xv: torch.Tensor, shards=None
                            ) -> torch.Tensor:
     """One decode step of cross-attention: x (B, 1, D) projected to the
     query alone (no RoPE), attending every position of the cached
-    encoder K/V (B, S_enc, hkv, dh), then ``wo``."""
+    encoder K/V (B, S_enc, hkv, dh), then ``wo``.  With ``shards``
+    (sharded serving) the query heads are this rank's (``wq``'s column
+    view), the cached K/V its run-time KV heads, and ``wo`` the row
+    product of ``Shards.row``."""
     b = x.shape[0]
-    q = dense(x, p["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim_)
+    if shards is not None:
+        x = shards.enter(x)
+    q = dense(x, p["wq"]).reshape(b, 1, -1, cfg.head_dim_)
     mask = torch.ones((b, 1, xk.shape[1]), dtype=torch.bool,
                       device=x.device)
     o = _attend(q, xk, xv, mask, cfg.logit_softcap)
-    return dense(o.to(x.dtype).reshape(b, 1, -1), p["wo"])
+    o = o.to(x.dtype).reshape(b, 1, -1)
+    return dense(o, p["wo"]) if shards is None else shards.row(o, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -594,19 +601,24 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     ``repeat(arange(T), k)``, without atomics, so repeated calls give
     the same bits on the card.
 
-    With ``shards`` (the sharded train step) the MoE is the reference's
-    group-local one (``_apply_moe_shard_map``): x holds this data rank's
-    rows, which it routes alone with the capacity of their token count,
-    the same on every model rank; the experts run over this rank's ffn
-    part (an EP leaf is resharded to it, ``Shards.experts``), and the
-    combine's partial sums are summed over "model".  Where the
-    reference keeps the whole-batch function under a mesh (a sequence
-    of one token), every data rank routes the whole batch and keeps its
-    rows.  (The reference's other whole-batch case, a batch not split
-    over data, does not reach here: ``Shards.rows`` refuses it.)"""
+    With ``shards`` (the sharded train step, and sharded serving) the
+    MoE is the reference's group-local one (``_apply_moe_shard_map``):
+    x holds this data rank's rows, which it routes alone with the
+    capacity of their token count, the same on every model rank.  Float
+    experts run over this rank's ffn part (an EP leaf is resharded to
+    it, ``Shards.experts``) and the combine's partial sums are summed
+    over "model"; packed experts (sharded serving) take the reference's
+    quantized layout: ``wg`` / ``wu`` over this rank's ffn columns of
+    every expert, g·u gathered over "model", ``wd`` whole at full K, no
+    partial sums (``distributed.sharding.expert_local`` lays them out
+    at placement).  Where the reference keeps the whole-batch function
+    under a mesh, so does the port: with rows of one token every data
+    rank routes the whole batch and keeps its rows, and with the batch
+    not split over data (``par.shard_batch`` off) every data rank holds
+    and routes the whole batch."""
     if shards is None:
         return _moe(cfg, p, x)
-    if x.shape[1] > 1:
+    if x.shape[1] > 1 or not shards.par.shard_batch:
         return _moe(cfg, p, x, shards)
     rows = shards.rows(x.shape[0] * shards.dp)
     return _moe(cfg, p, shards.data_gather(x), shards)[rows]
@@ -626,11 +638,13 @@ def _moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     buf[dest_e, dest_c] = xt[src]        # duplicates land on the ghost only
     buf = buf[:m.n_experts]
     gate_w = r["gate_w"]
+    packed = isinstance(p.get("wd"), QLinear)
     if shards is not None:
         buf, gate_w = shards.enter(buf), shards.enter(gate_w)
-        p = {"wg": shards.experts(p["wg"], m.n_experts, 2),
-             "wu": shards.experts(p["wu"], m.n_experts, 2),
-             "wd": shards.experts(p["wd"], m.n_experts, 1)}
+        if not packed:
+            p = {"wg": shards.experts(p["wg"], m.n_experts, 2),
+                 "wu": shards.experts(p["wu"], m.n_experts, 2),
+                 "wd": shards.experts(p["wd"], m.n_experts, 1)}
 
     if "wgu" in p:
         g, u = p["wgu"].split_out(expert_dense(buf, p["wgu"]))
@@ -638,7 +652,10 @@ def _moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     else:
         g = _act(cfg.act, expert_dense(buf, p["wg"]))
         u = expert_dense(buf, p["wu"])
-    y = expert_dense(g * u, p["wd"])                       # (E, cap, D)
+    gu = g * u                                             # (E, cap, F/tp)
+    if shards is not None and packed:
+        gu = shards.gather_model(gu, 2)                    # (E, cap, F)
+    y = expert_dense(gu, p["wd"])                          # (E, cap, D)
 
     gathered = y[dest_e.clamp(0, m.n_experts - 1), dest_c]
     gathered = torch.where(keep[:, None], gathered,
@@ -649,7 +666,7 @@ def _moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     for j in range(m.top_k):
         out = out + contrib[:, j]
     out = out.reshape(b, s, d)
-    return out if shards is None else shards.leave(out)
+    return out if shards is None or packed else shards.leave(out)
 
 
 def moe_aux_loss(cfg: ArchConfig, x: torch.Tensor, router: torch.Tensor,

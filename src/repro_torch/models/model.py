@@ -283,14 +283,8 @@ def _holds(tree: Tree, pred) -> bool:
     return False
 
 
-SERVING_QUEUE = "ROADMAP.md queue 1, item 1 (sharded serving of the other kinds)"
-
-
-def _refuse_sharded_enc_dec(cfg: ArchConfig) -> None:
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: sharded serving of the encoder-decoder model "
-            f"waits for {SERVING_QUEUE}")
+FUSED_QUEUE = ("ROADMAP.md queue 1, item 5 (fused QLinearGroup leaves "
+               "under a mesh)")
 
 
 def check_shardable(cfg: ArchConfig, par: Parallel,
@@ -301,28 +295,23 @@ def check_shardable(cfg: ArchConfig, par: Parallel,
     Training (the default): packed (``QLinear``) leaves in ``params``
     (``NotImplementedError``: the train step takes floating-point
     parameters).  Serving (``serving``: ``prefill`` and ``decode_step``
-    with ``shards``): the dense kind alone, its packed leaves unfused;
-    ``NotImplementedError``, naming ``ROADMAP.md`` queue 1 item 1, for
-    fused ``QLinearGroup`` leaves, any other block kind and the
-    encoder-decoder model.  Both: tensor-parallel shards that would cut
-    unevenly (``ValueError``): a query head, a run-time KV head group,
-    the ffn, the padded vocabulary, the rnn width or the RG-LRU's gate
-    heads, the xLSTM heads, or (under EP, ``ep``) the experts.  The
-    byte rows of packed leaves are not among them: they take uneven
-    chunks (``distributed.sharding.qlinear_local``)."""
+    with ``shards``): every block kind and the encoder-decoder model,
+    packed leaves unfused; fused ``QLinearGroup`` leaves raise
+    ``NotImplementedError`` naming ``FUSED_QUEUE`` (the reference's
+    sharded serving declares unfused leaves only).  Both:
+    tensor-parallel shards that would cut unevenly (``ValueError``): a
+    query head, a run-time KV head group, the ffn, the padded
+    vocabulary, the rnn width or the RG-LRU's gate heads, the xLSTM
+    heads, or (under EP, ``ep``) the experts.  The byte rows of packed
+    leaves are not among them: they take uneven chunks
+    (``distributed.sharding.qlinear_local``)."""
     kinds = {k for s in cfg.stages for k in s.pattern}
     if serving:
-        _refuse_sharded_enc_dec(cfg)
-        other = sorted(kinds - {"dense"})
-        if other:
-            raise NotImplementedError(
-                f"{cfg.name}: sharded serving runs the dense kind; "
-                f"{other} wait for {SERVING_QUEUE}")
         if params is not None and _holds(params, lambda x: isinstance(
                 x, QLinearGroup) and isinstance(x.inner, QLinear)):
             raise NotImplementedError(
                 f"{cfg.name}: fused QLinearGroup leaves (wqkv, wgu) wait "
-                f"for {SERVING_QUEUE}; quantize with fuse=False")
+                f"for {FUSED_QUEUE}; quantize with fuse=False")
     elif params is not None and _holds(params, lambda x: isinstance(
             x, (QLinear, QLinearGroup))):
         raise NotImplementedError(
@@ -370,18 +359,18 @@ def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
     (L, B, cw-1, R)}.
 
     With ``shards`` (sharded serving, ``shard_for_serving``) ``params``
-    are this rank's local leaves and packed views and the batch its data
-    rows; the embedding and head are vocab-parallel, the blocks run
-    this rank's heads and ffn columns, and the logits are gathered over
-    "model", so every rank returns the whole vocabulary of its rows.
-    The caches are this rank's: its rows, its run-time KV heads."""
-    if shards is None:
-        x, positions = _backbone_inputs(cfg, params, batch)
-        enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk)
-    else:
-        _refuse_sharded_enc_dec(cfg)
-        x, positions = _backbone_inputs(cfg, params, batch, shards)
-        enc_out = enc_pos = None
+    are this rank's local leaves and packed views and the batch (and
+    ``frames``) its data rows, or every row when the batch is not split
+    over data (``par.shard_batch`` off); the embedding and head are
+    vocab-parallel, the encoder and the blocks run this rank's heads,
+    ffn columns and RG-LRU channels, the MoE is the reference's
+    group-local one (``layers.apply_moe``), and the logits are gathered
+    over "model", so every rank returns the whole vocabulary of its
+    rows.  The caches are this rank's, in the layout of
+    :func:`declare_caches`: its rows, its run-time KV heads (self and
+    cross), its RG-LRU channels, the xLSTM state whole."""
+    x, positions = _backbone_inputs(cfg, params, batch, shards)
+    enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk, shards)
     caches = []
     for si, (stage, sp) in enumerate(zip(cfg.stages, params["stages"])):
         x, c = T.stage_prefill(
@@ -423,7 +412,6 @@ def decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
     if shards is None:
         x = embed_tokens(cfg, params, token[:, None])
     else:
-        _refuse_sharded_enc_dec(cfg)
         x = _embed_sharded(cfg, params, token[:, None], shards)
     for si, (stage, sp, c) in enumerate(zip(cfg.stages, params["stages"],
                                             caches)):
@@ -441,10 +429,12 @@ def shard_for_serving(cfg: ArchConfig, par: Parallel, params: Tree,
     ``mesh`` by ``specs`` (``launch.qdeclare.declare_quantized``'s, or
     ``distributed.sharding.specs_for_tree(..., params=params)``) and
     return (``Shards``, this rank's tree for :func:`prefill` and
-    :func:`decode_step`): local tensors, and each packed leaf as its
+    :func:`decode_step`): local tensors, each packed leaf as its
     ``qlinear_local`` view (the row views' O(K) vectors gathered over
-    "model" once here).  Refuses what sharded serving does not run
-    (:func:`check_shardable` with ``serving``)."""
+    "model" once here) and each packed expert leaf as its
+    ``expert_local`` one (wg / wu over ffn, wd whole, gathered once
+    here whatever the storage spec).  Refuses what sharded serving does
+    not run (:func:`check_shardable` with ``serving``)."""
     check_shardable(cfg, par, params, serving=True)
     shards = Shards(mesh, par, specs)
     placed = distribute_tree(params, specs, mesh)

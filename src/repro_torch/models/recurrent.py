@@ -136,16 +136,12 @@ def rglru_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     the final h (B, R) f32, the conv state (B, cw-1, R)).  A carried
     ``h0`` folds into the first step: b_1 += a_1 * h0.
 
-    With ``shards`` (the sharded train step) x is replicated over
-    "model" and this rank holds R / tp channels: the column shards of
-    ``w_x`` and ``w_gate``, the conv's and ``lam``'s channels, and its
-    RG_HEADS / tp heads of the replicated ``w_inp`` / ``w_rec``
-    (``Shards.part``); the scan is elementwise per channel, and ``w_out``'s
-    row shard gives partial sums that are summed over "model"."""
+    With ``shards`` (the sharded train step, and sharded serving) x is
+    replicated over "model" and this rank holds R / tp channels
+    (``_rg_local``), their state too; the scan is elementwise per
+    channel, and ``w_out`` is the row product of ``Shards.row``."""
     if shards is not None:
-        x = shards.enter(x)
-        p = dict(p, w_inp=shards.part(p["w_inp"], 0),
-                 w_rec=shards.part(p["w_rec"], 0))
+        x, p = shards.enter(x), _rg_local(p, shards)
     gate = _gelu(dense(x, p["w_gate"]))
     u = dense(x, p["w_x"])
     u, conv_state = _causal_conv(p, u, conv0)
@@ -156,16 +152,34 @@ def rglru_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         b_t = torch.cat([b_t[:, :1] + a_t[:, :1]
                          * h0.to(torch.float32)[:, None], b_t[:, 1:]], dim=1)
     h = linear_scan(a_t, b_t)
-    out = dense(h.to(x.dtype) * gate, p["w_out"])
-    if shards is not None:
-        out = shards.leave(out)
-    return out, h[:, -1], conv_state
+    return _row(h.to(x.dtype) * gate, p["w_out"], shards), h[:, -1], \
+        conv_state
+
+
+def _rg_local(p: Tree, shards) -> Tree:
+    """An RG-LRU block's leaves as this rank uses them: its column
+    shards of ``w_x`` and ``w_gate``, the conv's and ``lam``'s channels
+    (local leaves already), and its RG_HEADS / tp heads of the
+    replicated ``w_inp`` / ``w_rec`` (``Shards.part``)."""
+    return dict(p, w_inp=shards.part(p["w_inp"], 0),
+                w_rec=shards.part(p["w_rec"], 0))
+
+
+def _row(x: torch.Tensor, w, shards) -> torch.Tensor:
+    """The block's output projection: ``dense`` on one device, the row
+    product of ``Shards.row`` (this rank's input columns) with
+    ``shards``."""
+    return dense(x, w) if shards is None else shards.row(x, w)
 
 
 def rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, h: torch.Tensor,
-               conv_state: torch.Tensor):
+               conv_state: torch.Tensor, shards=None):
     """One decode step: x (B, 1, D), h (B, R), conv_state (B, cw-1, R).
-    Returns (out (B, 1, D), h (B, R) f32, conv state in x's dtype)."""
+    Returns (out (B, 1, D), h (B, R) f32, conv state in x's dtype).
+    With ``shards`` (sharded serving), as :func:`rglru_seq`: h and the
+    conv state are this rank's R / tp channels."""
+    if shards is not None:
+        x, p = shards.enter(x), _rg_local(p, shards)
     gate = _gelu(dense(x, p["w_gate"]))
     u = dense(x, p["w_x"])
     u, conv_state = _causal_conv(p, u, conv_state)
@@ -173,8 +187,8 @@ def rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, h: torch.Tensor,
     a_t = _rg_decay(p, r_t)[:, 0]
     b_t = _input(a_t, i_t[:, 0], u[:, 0])
     h = a_t * h.to(torch.float32) + b_t
-    out = dense(h[:, None].to(x.dtype) * gate, p["w_out"])
-    return out, h, conv_state
+    return _row(h[:, None].to(x.dtype) * gate, p["w_out"], shards), h, \
+        conv_state
 
 
 def init_rglru_state(cfg: ArchConfig, batch: int, n_layers: int,
@@ -244,9 +258,9 @@ def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     """The block over a whole sequence, chunk by chunk: x (B, S, D) ->
     (out (B, S, D), {"c": (B, H, dk, dv), "n": (B, H, dk)} f32).  S must
     be a multiple of min(chunk, S).  With ``shards`` (the sharded train
-    step) x is replicated over "model", the heads and their state are
-    this rank's H / tp, and ``w_out``'s row shard gives partial sums
-    that are summed over "model"."""
+    step, and sharded serving's prefill) x is replicated over "model",
+    the heads and their state are this rank's H / tp, and ``w_out`` is
+    the row product of ``Shards.row``."""
     b, s, _ = x.shape
     if shards is not None:
         x = shards.enter(x)
@@ -289,10 +303,7 @@ def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             "blhd,blhv,blh->bhdv", kc, vc, tail)
         n = n * f_all[:, :, None] + torch.einsum("blhd,blh->bhd", kc, tail)
     o = torch.cat(outs, dim=1).reshape(b, s, h * dv).to(x.dtype)
-    out = dense(o * g, p["w_out"])
-    if shards is not None:
-        out = shards.leave(out)
-    return out, {"c": c, "n": n}
+    return _row(o * g, p["w_out"], shards), {"c": c, "n": n}
 
 
 def mlstm_state_step_(c: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
@@ -314,13 +325,29 @@ def mlstm_state_step_(c: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
 
 
 def mlstm_step_(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                c: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+                c: torch.Tensor, n: torch.Tensor, shards=None
+                ) -> torch.Tensor:
     """One decode step that updates the f32 state in place: x (B, 1, D),
-    c (B, H, dk, dv), n (B, H, dk) -> out (B, 1, D)."""
-    q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x)
+    c (B, H, dk, dv), n (B, H, dk) -> out (B, 1, D).
+
+    With ``shards`` (sharded serving) the state is the whole one,
+    replicated over "model" (as the reference declares it), and every
+    model rank updates it alike, as the sLSTM's scan: this rank's heads
+    of the step's q, k, v and gates (one token each) are gathered over
+    "model" (``Shards.gather_rep``), and ``w_out``'s row product takes
+    this rank's heads of the read-out."""
+    if shards is not None:
+        x = shards.enter(x)
+    q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x, shards)
+    if shards is not None:
+        q, k, v = (shards.gather_rep(t, 2) for t in (q, k, v))
+        log_i, log_f = (shards.gather_rep(t, 2) for t in (log_i, log_f))
     o = mlstm_state_step_(c, n, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
                           log_f[:, 0])
-    return dense(o.reshape(x.shape[0], 1, -1).to(x.dtype) * g, p["w_out"])
+    if shards is not None:
+        o = shards.part(o, 1)
+    return _row(o.reshape(x.shape[0], 1, -1).to(x.dtype) * g, p["w_out"],
+                shards)
 
 
 def mlstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree):
@@ -525,12 +552,12 @@ def _slstm_scan(cfg: ArchConfig, p_rec: Tree, zx: torch.Tensor, state: Tree):
 
 def _slstm_ffn(p: Tree, hs: torch.Tensor, shards=None) -> torch.Tensor:
     """The gated FFN; with ``shards``, over this rank's ffn columns of
-    ``w_up`` / ``w_gate`` and rows of ``w_down``, summed over "model"."""
+    ``w_up`` / ``w_gate``, and ``w_down`` the row product of
+    ``Shards.row``."""
     if shards is not None:
         hs = shards.enter(hs)
     up = _gelu(dense(hs, p["w_up"])) * dense(hs, p["w_gate"])
-    y = dense(up, p["w_down"])
-    return y if shards is None else shards.leave(y)
+    return _row(up, p["w_down"], shards)
 
 
 def slstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
@@ -559,12 +586,20 @@ def slstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     return _slstm_ffn(p, hs.to(x.dtype), shards), state
 
 
-def slstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree):
+def slstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree,
+               shards=None):
     """One decode step: x (B, 1, D), state {h, c, n, m} (B, D) -> (out
-    (B, 1, D), the new state)."""
+    (B, 1, D), the new state).  With ``shards`` (sharded serving), as
+    :func:`slstm_seq`: ``w_gates`` column-parallel and its output
+    gathered over "model", the cell and its state replicated, the FFN
+    tensor-parallel."""
+    if shards is not None:
+        x = shards.enter(x)
     zx = dense(x, p["w_gates"])[:, 0]
+    if shards is not None:
+        zx = shards.gather_rep(zx, 1)
     state = _slstm_cell(cfg, p, zx, state)
-    return _slstm_ffn(p, state["h"][:, None].to(x.dtype)), state
+    return _slstm_ffn(p, state["h"][:, None].to(x.dtype), shards), state
 
 
 def declare_recurrent_state(cfg: ArchConfig, kind: str, batch: int

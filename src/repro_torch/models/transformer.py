@@ -210,8 +210,7 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     data rank's share of the global batch's."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
-        return block_prefill(cfg, kind, p, x, positions, 0,
-                             shards=shards)[0]
+        return _xlstm_seq(cfg, kind, p, x, shards)[0]
     if kind == "rglru":
         h, _, _ = R.rglru_seq(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x),
                               shards=shards)
@@ -282,25 +281,28 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     computed), or a recurrent block's final state: rglru {"h": (B, R),
     "conv": (B, cw-1, R)}, mlstm {"c", "n"}, slstm {"h", "c", "n", "m"}.
     The recurrence runs over the padding too, as in the reference.
-    ``shards`` reaches the xLSTM kinds (``block_full``'s sharded step)
-    and the attention kinds (sharded serving: this rank's heads, its
-    run-time KV heads in the ring cache, row-parallel ``wo`` and ``wd``
-    through ``Shards.row``)."""
+
+    With ``shards`` (sharded serving, every kind) ``p`` holds this
+    rank's leaves and packed views and x this data rank's rows,
+    replicated over "model"; the caches are as the reference declares
+    them (``declare_stage_cache``): an attention block's ring (and cross
+    K/V) of this rank's run-time KV heads, an rglru block's state of its
+    R / tp channels, the xLSTM state whole on every model rank (the
+    mLSTM's heads gathered over "model" here, the sLSTM's scan
+    replicated); row-parallel products go through ``Shards.row``."""
     _check_kind(kind)
-    if kind == "mlstm":
-        h, state = R.mlstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
-                               shards=shards)
-        return x + h, state
-    if kind == "slstm":
-        h, state = R.slstm_seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
-                               shards=shards)
-        return x + h, state
+    if kind in XLSTM_KINDS:
+        x, state = _xlstm_seq(cfg, kind, p, x, shards)
+        if kind == "mlstm" and shards is not None:
+            state = {k: shards.gather_model(v, 1) for k, v in state.items()}
+        return x, state
     if kind == "rglru":
         h, h_n, conv = R.rglru_seq(cfg, p["rec"],
-                                   L.apply_norm(cfg, p["ln1"], x))
+                                   L.apply_norm(cfg, p["ln1"], x),
+                                   shards=shards)
         x = x + h
         return x + L.apply_mlp(cfg, p["mlp"],
-                               L.apply_norm(cfg, p["ln2"], x)), \
+                               L.apply_norm(cfg, p["ln2"], x), shards), \
             {"h": h_n, "conv": conv}
     h, cache = L.attention_full(
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), positions,
@@ -315,6 +317,17 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         cache = {"self": cache, "xk": xk, "xv": xv}
     return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
                     shards), cache
+
+
+def _xlstm_seq(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
+               shards=None):
+    """An mlstm or slstm block over a whole sequence: (x + the cell,
+    its final state; the mLSTM's of this rank's heads under
+    ``shards``)."""
+    seq = R.mlstm_seq if kind == "mlstm" else R.slstm_seq
+    h, state = seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
+                   shards=shards)
+    return x + h, state
 
 
 def _stack(caches: List[Tree]) -> Tree:
@@ -347,34 +360,39 @@ def stage_prefill(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
 
 
 def _rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, cache: Tree,
-                layer: int, promote: bool) -> torch.Tensor:
+                layer: int, promote: bool, shards=None) -> torch.Tensor:
     """One decode step of an rglru block against its stacked state,
     written back in place at ``layer``.  With ``promote`` the conv state
     takes the step's dtype first, as the reference's scanned contiguous
     decode returns it (an f32 model's state leaves its bf16 declaration
     at the first step); without, it is written back into its buffer's
-    dtype, as the reference's unrolled paged walk does."""
+    dtype, as the reference's unrolled paged walk does.  ``shards``
+    (sharded serving): the state holds this rank's channels."""
     out, h, conv = R.rglru_step(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x),
-                                cache["h"][layer], cache["conv"][layer])
+                                cache["h"][layer], cache["conv"][layer],
+                                shards)
     if promote and cache["conv"].dtype != conv.dtype:
         cache["conv"] = cache["conv"].to(conv.dtype)
     cache["h"][layer] = h
     cache["conv"][layer] = conv
     x = x + out
-    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x))
+    return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
+                           shards)
 
 
 def _xlstm_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
-                cache: Tree, layer: int) -> torch.Tensor:
+                cache: Tree, layer: int, shards=None) -> torch.Tensor:
     """One decode step of an mlstm or slstm block against its stacked
     f32 state, written back at ``layer``: the mLSTM's (B, H, dk, dv)
-    matrix memory is updated where it lies."""
+    matrix memory is updated where it lies.  ``shards`` (sharded
+    serving): the state is whole on every model rank."""
     z = L.apply_norm(cfg, p["ln1"], x)
     if kind == "mlstm":
         return x + R.mlstm_step_(cfg, p["cell"], z, cache["c"][layer],
-                                 cache["n"][layer])
+                                 cache["n"][layer], shards)
     out, state = R.slstm_step(cfg, p["cell"], z,
-                              {k: v[layer] for k, v in cache.items()})
+                              {k: v[layer] for k, v in cache.items()},
+                              shards)
     for k, v in state.items():
         cache[k][layer] = v
     return x + out
@@ -384,13 +402,14 @@ def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                pos: torch.Tensor, cache: Tree, max_seq: int, layer: int,
                shards=None):
     """One decode step of one block against its stacked caches at
-    ``layer``; ``shards`` (sharded serving) reaches the attention
-    kinds."""
+    ``layer``; with ``shards`` (sharded serving, every kind), as
+    :func:`block_prefill`."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
-        return _xlstm_step(cfg, kind, p, x, cache, layer), cache
+        return _xlstm_step(cfg, kind, p, x, cache, layer, shards), cache
     if kind == "rglru":
-        return _rglru_step(cfg, p, x, cache, layer, promote=True), cache
+        return _rglru_step(cfg, p, x, cache, layer, promote=True,
+                           shards=shards), cache
     cross = "xattn" in p
     h, _ = L.attention_decode(
         cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), pos,
@@ -400,7 +419,7 @@ def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     if cross:
         x = x + L.attention_cross_decode(
             cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x),
-            cache["xk"][layer], cache["xv"][layer])
+            cache["xk"][layer], cache["xv"][layer], shards)
     return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
                     shards), cache
 

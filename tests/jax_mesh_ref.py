@@ -1,7 +1,8 @@
-"""The reference's first-step loss and gradients under a mesh of host
-CPU devices, for the port's sharded-step tests.  Not a test module: the
-tests start it as a subprocess (:func:`start`), because the count of
-host devices is fixed when JAX starts
+"""The reference's first-step loss and gradients, and its sharded
+serving of packed weights, under a mesh of host CPU devices, for the
+port's sharded-step and sharded-serving tests.  Not a test module: the
+tests start it as a subprocess (:func:`start`, :func:`start_serve`),
+because the count of host devices is fixed when JAX starts
 (``XLA_FLAGS=--xla_force_host_platform_device_count``).
 
     python tests/jax_mesh_ref.py OUT_DIR ARCH BATCH SEQ FRAMES \
@@ -16,6 +17,24 @@ fsdp, ep)`` and the batch over "data", as the reference's ``run``
 places them.  It writes ``OUT_DIR/NAME.npz``: ``loss`` and the
 gradients ``g0``, ``g1``, ... in the order of ``jax.tree.leaves`` of
 the parameters.
+
+    python tests/jax_mesh_ref.py serve OUT_DIR INPUTS \
+        NAME:ARCH:REPEATS:DATA:MODEL:EP:PACKED ...
+
+For each case, the reference's ``M.prefill`` of the prompts of the
+``.npz`` file INPUTS (``tokens``, ``positions``, ``frames`` for an
+encoder-decoder ARCH; ``max_seq``, ``steps``, ``attn_chunk``), then
+``steps`` greedy ``M.decode_step``s, on the reduced ``ARCH`` (its
+stages' repeats set to REPEATS unless 0): its packed weights of
+:func:`serve_params` with PACKED (the packed products on the
+reference's kernel route, its Pallas kernel in interpret mode at every
+shape, as the one-device tests run it), else its f32 weights of
+:func:`params_f32`.  DATA x MODEL = 1: the one-device functions, run
+eagerly as the one-device tests run them; else each jitted under a
+(DATA, MODEL) mesh of ("data", "model"), the weights placed by
+``launch.qdeclare.declare_quantized``'s specs (EP with EP) and the
+batch over "data".  It writes ``OUT_DIR/NAME.npz``: ``prefill`` (B, V),
+``step<i>`` (B, V) and ``token<i>`` (B,).
 """
 from __future__ import annotations
 
@@ -45,10 +64,170 @@ def params_f32(cfg):
     return jax.tree.map(lambda x: np.asarray(x, np.float32), p)
 
 
-def reduced(arch: str):
+def reduced(arch: str, repeats: int = 0):
+    """The reduced ``arch``, its vocabulary at most 512, its stages'
+    repeats set to ``repeats`` unless 0."""
     from repro.configs import registry
+    from repro.configs.base import Stage
     cfg = registry.get(arch).reduced()
-    return dataclasses.replace(cfg, vocab=min(cfg.vocab, 512))
+    cfg = dataclasses.replace(cfg, vocab=min(cfg.vocab, 512))
+    if repeats:
+        cfg = dataclasses.replace(cfg, stages=tuple(
+            Stage(s.pattern, repeats) for s in cfg.stages))
+    return cfg
+
+
+# data-free PTQ1.61 of the serving tests: ratio, multiple, min_dim
+SERVE_QUANT = (0.2, 8, 32)
+
+
+def serve_qcfg():
+    from repro.core.qlinear import QuantConfig
+    ratio, multiple, _ = SERVE_QUANT
+    return QuantConfig(use_kernel=True, ratio=ratio, multiple=multiple)
+
+
+def serve_params(cfg):
+    """:func:`params_f32` of ``cfg`` quantized data-free, unfused, with
+    the reference's kernel route (``SERVE_QUANT``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.pipeline import quantize_params_data_free
+    p = jax.tree.map(jnp.asarray, params_f32(cfg))
+    return quantize_params_data_free(p, serve_qcfg(), min_dim=SERVE_QUANT[2],
+                                     fuse=False)
+
+
+def kernel_route(patch) -> None:
+    """The reference's packed products on its Pallas kernel (interpret
+    mode on the CPU) at every shape with both spans: ``patch(module,
+    name, value)`` replaces ``ops._kernel_choice`` (``setattr``, or a
+    pytest ``MonkeyPatch``'s)."""
+    from repro.kernels import autotune, ops as rops
+
+    def choice(m, k_s, k_b, n):
+        if k_s <= 0 or k_b <= 0:
+            return None
+        return autotune.BlockChoice(bm=m, bn=n,
+                                    bk=autotune.common_bk(k_s, k_b),
+                                    vmem_bytes=0, hbm_bytes=0, time_s=0.0)
+    patch(rops, "_kernel_choice", choice)
+
+
+def placeable(mesh, tree, shardings):
+    """``shardings`` with each leaf whose spec cuts a dim that its mesh
+    dims do not divide (a packed leaf's byte rows) replicated instead:
+    JAX places only even shards, and a jitted function's values do not
+    depend on where its inputs lie."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as PS
+
+    def one(a, sh):
+        for size, entry in zip(a.shape, sh.spec):
+            names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            n = 1
+            for name in names:
+                n *= mesh.shape[name]
+            if size % n:
+                return NamedSharding(mesh, PS())
+        return sh
+    return jax.tree.map(one, tree, shardings)
+
+
+def serve_eager(cfg, params, batch, max_seq: int, steps: int, chunk: int
+                ) -> dict:
+    """The reference's one-device prefill of ``batch`` (numpy arrays)
+    and ``steps`` greedy decode steps, eagerly: the ``.npz`` arrays of
+    the serve mode."""
+    import jax.numpy as jnp
+    from repro.models import model as RM
+    from repro.models.common import Parallel
+    par = Parallel(attn_chunk=chunk)
+    logits, caches = RM.prefill(cfg, par, params, {
+        k: jnp.asarray(v) for k, v in batch.items()}, max_seq)
+    res = {"prefill": np.asarray(logits[:, 0])}
+    tok = jnp.argmax(logits[:, 0], axis=-1).astype(jnp.int32)
+    pos = jnp.asarray(batch["positions"][:, -1] + 1)
+    for i in range(steps):
+        res[f"token{i}"] = np.asarray(tok)
+        logits, caches = RM.decode_step(cfg, par, params, tok, pos, caches,
+                                        max_seq)
+        res[f"step{i}"] = np.asarray(logits)
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        pos = pos + 1
+    return res
+
+
+def read_serve(path) -> dict:
+    """A serve-mode ``.npz`` as {"prefill", "steps": [...], "tokens":
+    [...]}."""
+    z = np.load(path)
+    n = sum(1 for k in z.files if k.startswith("step"))
+    return {"prefill": z["prefill"],
+            "steps": [z[f"step{i}"] for i in range(n)],
+            "tokens": [z[f"token{i}"] for i in range(n)]}
+
+
+def serve_main(argv) -> int:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as PS
+    from repro.distributed.sharding import (named_shardings, rules_for_mesh,
+                                            specs_for_tree)
+    from repro.launch.mesh import compat_make_mesh
+    from repro.launch.qdeclare import declare_quantized
+    from repro.models import model as RM
+    from repro.models.common import Parallel
+
+    out, inp = Path(argv[0]), np.load(argv[1])
+    max_seq, steps, chunk = (int(inp[k]) for k in ("max_seq", "steps",
+                                                   "attn_chunk"))
+    kernel_route(setattr)
+    for spec in argv[2:]:
+        name, arch, repeats, dp, tp, ep, packed = spec.split(":")
+        dp, tp = int(dp), int(tp)
+        cfg = reduced(arch, int(repeats))
+        weights = (serve_params(cfg) if packed == "1" else
+                   jax.tree.map(jnp.asarray, params_f32(cfg)))
+        names = ("tokens", "positions") + (("frames",) if cfg.enc_dec
+                                           else ())
+        if dp * tp == 1:
+            res = serve_eager(cfg, weights, {k: inp[k] for k in names},
+                              max_seq, steps, chunk)
+            np.savez(out / f"{name}.npz", **res)
+            continue
+        mesh = compat_make_mesh((dp, tp), ("data", "model"))
+        par = Parallel(tp=tp, dp=dp, sp=tp > 1, remat=False,
+                       attn_chunk=chunk)
+        rules = rules_for_mesh(mesh, ep=ep == "1")
+        pspec = (declare_quantized(cfg, par, serve_qcfg(), rules,
+                                   min_dim=SERVE_QUANT[2])[1]
+                 if packed == "1" else
+                 specs_for_tree(RM.declare_params(cfg, par), rules))
+        rows = NamedSharding(mesh, PS("data" if dp > 1 else None))
+        res = {}
+        with mesh:
+            params = jax.device_put(weights, placeable(
+                mesh, weights, named_shardings(mesh, pspec)))
+            batch = {k: jax.device_put(jnp.asarray(inp[k]), rows)
+                     for k in names}
+            prefill = jax.jit(lambda p, b: RM.prefill(cfg, par, p, b,
+                                                      max_seq))
+            step = jax.jit(lambda p, t, q, c: RM.decode_step(
+                cfg, par, p, t, q, c, max_seq))
+            logits, caches = prefill(params, batch)
+            res["prefill"] = np.asarray(logits[:, 0])
+            tok = jnp.argmax(logits[:, 0], axis=-1).astype(jnp.int32)
+            pos = jnp.asarray(inp["positions"][:, -1] + 1)
+            for i in range(steps):
+                res[f"token{i}"] = np.asarray(tok)
+                logits, caches = step(params, jax.device_put(tok, rows),
+                                      jax.device_put(pos, rows), caches)
+                res[f"step{i}"] = np.asarray(logits)
+                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+                pos = pos + 1
+        np.savez(out / f"{name}.npz", **res)
+    return 0
 
 
 def main(argv) -> int:
@@ -88,32 +267,51 @@ def main(argv) -> int:
     return 0
 
 
+def _env():
+    root = Path(__file__).resolve().parents[1]
+    return dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+                XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") +
+                           f" --xla_force_host_platform_device_count="
+                           f"{N_DEVICES}").strip(),
+                PYTHONPATH=os.pathsep.join(
+                    [str(root / "src")] +
+                    [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+
+def _spawn(args, log: Path) -> tuple:
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, __file__] + args, stdout=f,
+                                stderr=subprocess.STDOUT, env=_env())
+    return proc, log
+
+
+def start_serve(out_dir: Path, tag: str, inputs: dict, cases) -> tuple:
+    """Start the ``serve`` mode on ``cases`` ((name, arch, repeats,
+    data, model, ep, packed), ...) in a process of its own with four
+    host devices; ``inputs`` are the arrays and ints of the INPUTS file
+    (``OUT_DIR/<tag>.serve_inputs.npz``).  Returns (process, log path)
+    for :func:`finish`."""
+    path = Path(out_dir) / f"{tag}.serve_inputs.npz"
+    np.savez(path, **inputs)
+    return _spawn(["serve", str(out_dir), str(path)]
+                  + [":".join(str(int(v) if isinstance(v, bool) else v)
+                              for v in c) for c in cases],
+                  Path(out_dir) / f"jax_mesh_ref.serve.{tag}.log")
+
+
 def start(out_dir: Path, arch: str, batch: int, seq: int, cases,
           frames=None) -> tuple:
     """Start the script on ``cases`` ((name, data, model, fsdp, ep), ...)
     of ``arch`` in a process of its own with four host devices, the
     batch carrying ``frames`` (a numpy array (batch, S_enc, D)) when
     given; returns (process, log path) for :func:`finish`."""
-    root = Path(__file__).resolve().parents[1]
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               XLA_FLAGS=(os.environ.get("XLA_FLAGS", "") +
-                          f" --xla_force_host_platform_device_count="
-                          f"{N_DEVICES}").strip(),
-               PYTHONPATH=os.pathsep.join(
-                   [str(root / "src")] +
-                   [p for p in [os.environ.get("PYTHONPATH")] if p]))
     specs = [f"{n}:{d}:{m}:{int(f)}:{int(e)}" for n, d, m, f, e in cases]
     frames_arg = "-"
     if frames is not None:
         frames_arg = str(Path(out_dir) / f"{arch}.frames.npy")
         np.save(frames_arg, frames)
-    log = Path(out_dir) / f"jax_mesh_ref.{arch}.log"
-    with open(log, "w") as f:
-        proc = subprocess.Popen(
-            [sys.executable, __file__, str(out_dir), arch, str(batch),
-             str(seq), frames_arg] + specs, stdout=f,
-            stderr=subprocess.STDOUT, env=env)
-    return proc, log
+    return _spawn([str(out_dir), arch, str(batch), str(seq), frames_arg]
+                  + specs, Path(out_dir) / f"jax_mesh_ref.{arch}.log")
 
 
 def finish(handle, deadline_s: float) -> None:
@@ -137,4 +335,5 @@ def finish(handle, deadline_s: float) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(serve_main(sys.argv[2:]) if sys.argv[1:2] == ["serve"]
+             else main(sys.argv[1:]))

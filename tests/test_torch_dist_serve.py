@@ -61,13 +61,13 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import jax_mesh_ref as JR  # noqa: E402
 import torch_dist_worker as W  # noqa: E402
 
 from repro.configs import registry as r_registry  # noqa: E402
 from repro.configs.base import Stage as RStage  # noqa: E402
 from repro.core.pipeline import quantize_params_data_free as r_qdf  # noqa: E402
 from repro.core.qlinear import QuantConfig as RQC  # noqa: E402
-from repro.kernels import autotune, ops as rops  # noqa: E402
 from repro.models import model as RM  # noqa: E402
 from repro.models.common import Parallel as RParallel  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -128,21 +128,11 @@ def _reference(rcfg, rp, toks, pos):
     return out
 
 
-def _kernel_route(monkeypatch):
-    def choice(m, k_s, k_b, n):
-        if k_s <= 0 or k_b <= 0:
-            return None
-        return autotune.BlockChoice(bm=m, bn=n,
-                                    bk=autotune.common_bk(k_s, k_b),
-                                    vmem_bytes=0, hbm_bytes=0, time_s=0.0)
-    monkeypatch.setattr(rops, "_kernel_choice", choice)
-
-
 def collect(tmp):
     toks, pos = _prompts()
     params, ref = {}, {}
     mp = pytest.MonkeyPatch()
-    _kernel_route(mp)
+    JR.kernel_route(mp.setattr)
     try:
         for name, over in MODELS.items():
             rcfg = _rcfg(over)
@@ -288,6 +278,11 @@ def test_spec_perm_mutant_fails(runs):
 
 
 def test_check_shardable_refuses_what_sharded_serving_does_not_run():
+    """Sharded serving admits every block kind and the encoder-decoder
+    model on unfused packed leaves; it refuses fused ``QLinearGroup``
+    leaves (``NotImplementedError``, naming the roadmap item) and splits
+    that do not divide tp (``ValueError``); the train step still refuses
+    packed leaves."""
     par = Parallel(tp=2)
     qc = TQC(**QCFG)
     dense = W.serve_cfg(MODELS["qwen3"])
@@ -303,17 +298,26 @@ def test_check_shardable_refuses_what_sharded_serving_does_not_run():
     for arch in ("granite-moe-1b-a400m", "recurrentgemma-2b", "xlstm-1.3b",
                  "seamless-m4t-medium"):
         cfg = t_registry.get(arch).reduced()
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            TM.check_shardable(cfg, Parallel(tp=1), serving=True)
+        packed = quantize_params_data_free(TM.init_params(cfg), qc,
+                                           min_dim=32)
+        for tp in (1, 2, 4):
+            TM.check_shardable(cfg, Parallel(tp=tp), packed, serving=True)
+        if arch != "xlstm-1.3b":       # the xLSTM projections never fuse
+            with pytest.raises(NotImplementedError, match="queue 1"):
+                TM.check_shardable(cfg, par, quantize_params_data_free(
+                    TM.init_params(cfg), qc, min_dim=32, fuse=True),
+                    serving=True)
     local = dataclasses.replace(dense, stages=(
         W.Stage(("dense", "local"), 1),))
-    with pytest.raises(NotImplementedError, match="local"):
-        TM.check_shardable(local, par, serving=True)
+    TM.check_shardable(local, par, serving=True)
     with pytest.raises(ValueError):               # head splits stay
         TM.check_shardable(dense, Parallel(tp=16), serving=True)
+    for arch, tp in (("recurrentgemma-2b", 4), ("xlstm-1.3b", 16)):
+        with pytest.raises(ValueError):           # 10 and 4 heads
+            TM.check_shardable(t_registry.get(arch), Parallel(tp=tp),
+                               serving=True)
     assert isinstance(quantize_params_data_free(
         fp, qc, min_dim=32)["stages"][0][0][0]["attn"]["wo"], QLinear)
-
 
 if __name__ == "__main__":
     import tempfile

@@ -2,8 +2,9 @@
 checks.
 
 Started by ``tests/test_torch_dist_train.py``,
-``tests/test_torch_dist_kinds.py``, ``tests/test_torch_dist_serve.py``
-and ``tests/test_torch_pipeline.py``,
+``tests/test_torch_dist_kinds.py``, ``tests/test_torch_dist_serve.py``,
+``tests/test_torch_dist_serve_kinds.py`` and
+``tests/test_torch_pipeline.py``,
 one process per rank, with its rank,
 the world size, a rendezvous file under the test's ``tmp_path``, the
 case file the parent wrote and an output directory.  It imports torch
@@ -46,7 +47,7 @@ from repro_torch.distributed import sharding
 from repro_torch.distributed.pipeline import pipeline_apply
 from repro_torch.distributed.sharding import (distribute, distribute_tree,
                                               full, is_dtensor, like, local)
-from repro_torch.launch import train
+from repro_torch.launch import qdeclare, train
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import common
 from repro_torch.models import layers
@@ -312,24 +313,40 @@ def spec_perm_mutant():
         sharding.qlinear_local = plain
 
 
+def clone_tree(tree):
+    """A copy of a tree of tensors (the caches, which decode updates in
+    place)."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone()
+
+
 def serve_tokens(cfg, params, batch, max_seq: int, steps: int,
-                 attn_chunk: int, shards=None):
+                 attn_chunk: int, shards=None, keep_caches: bool = False):
     """Whole-prompt prefill of ``batch``, then ``steps`` greedy decode
     steps over the ring caches: the prefill's last logits and each
-    step's logits (B, V) and tokens (B,)."""
+    step's logits (B, V) and tokens (B,); with ``keep_caches``, the
+    caches after the prefill and after each step."""
     with torch.no_grad():
         logits, caches = M.prefill(cfg, params, batch, max_seq, attn_chunk,
                                    shards=shards)
-        out = {"prefill": logits[:, 0].clone(), "steps": [], "tokens": []}
+        out = {"prefill": logits[:, 0].clone(), "steps": [], "tokens": [],
+               "caches": []}
         tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
         pos = batch["positions"][:, -1] + 1
         for _ in range(steps):
+            if keep_caches:
+                out["caches"].append(clone_tree(caches))
             out["tokens"].append(tok.clone())
             logits, caches = M.decode_step(cfg, params, tok, pos, caches,
                                            max_seq, shards=shards)
             out["steps"].append(logits.clone())
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             pos = pos + 1
+        if keep_caches:
+            out["caches"].append(clone_tree(caches))
     return out
 
 
@@ -360,8 +377,101 @@ def serve_case(case, rank):
     return out
 
 
+def kind_cfg(case):
+    """The reduced ``arch`` (vocabulary at most 512) with the case's
+    ``stages``, a list of (pattern, repeats), when it gives them."""
+    cfg = arch_cfg(case["arch"])
+    if "stages" in case:
+        cfg = dataclasses.replace(cfg, stages=tuple(
+            Stage(tuple(pat), n) for pat, n in case["stages"]))
+    return cfg
+
+
+@contextlib.contextmanager
+def whole_batch_moe():
+    """A faulty MoE under a mesh: every data rank routes the whole batch
+    (the rows of every data rank gathered) and keeps its own rows, in
+    prefill too, where the reference routes each data rank's rows
+    alone."""
+    plain = layers.apply_moe
+
+    def moe(cfg, p, x, shards=None):
+        if shards is None or not shards.par.shard_batch:
+            return plain(cfg, p, x, shards)
+        rows = shards.rows(x.shape[0] * shards.dp)
+        return layers._moe(cfg, p, shards.data_gather(x), shards)[rows]
+    layers.apply_moe = moe
+    try:
+        yield
+    finally:
+        layers.apply_moe = plain
+
+
+@contextlib.contextmanager
+def encoder_output(record: list, given=None):
+    """``model.encode`` in the body: each output appended to
+    ``record``; with ``given`` (B, S_enc, D), that output returned in
+    its place (the decoder run from a given encoder output)."""
+    plain = M.encode
+
+    def encode(cfg, params, frames, attn_chunk=1024, shards=None):
+        if given is not None:
+            b, s = given.shape[:2]
+            return given, torch.arange(s, dtype=torch.int32).expand(b, s)
+        out = plain(cfg, params, frames, attn_chunk, shards)
+        record.append(out[0].clone())
+        return out
+    M.encode = encode
+    try:
+        yield record
+    finally:
+        M.encode = plain
+
+
+def serve_kinds_case(case, rank):
+    """Sharded serving of the case's params (any kind) on its mesh:
+    packed ones placed by ``launch.qdeclare.declare_quantized``'s specs,
+    f32 ones (``packed`` False) by ``specs_for_tree``'s (EP with the
+    case's ``ep``; the batch over data unless ``shard_batch`` is off).
+    This data rank's rows (every row with ``shard_batch`` off) through
+    ``serve_tokens``, with its caches after the prefill and after each
+    step and an encoder-decoder model's encoder output (``enc_out``);
+    given the case's ``enc_out``, the same again with the decoder run
+    from it (``fixed``).  ``mutant``: :func:`whole_batch_moe`."""
+    cfg = kind_cfg(case)
+    params = unpack_tree(case["params"])
+    mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
+    par, _ = train.parallel_for(mesh)
+    par = dataclasses.replace(par, shard_batch=case["shard_batch"])
+    rules = sharding.rules_for_mesh(mesh, ep=case["ep"])
+    if case.get("packed", True):
+        _, specs = qdeclare.declare_quantized(
+            cfg, par, QuantConfig(**case["qcfg"]), rules,
+            min_dim=case["min_dim"])
+    else:
+        specs = sharding.specs_for_tree(M.declare_params(cfg, par), rules)
+    shards, lp = M.shard_for_serving(cfg, par, params, specs, mesh)
+    rows = shards.rows(case["tokens"].shape[0])
+    batch = {k: case[k][rows] for k in ("tokens", "positions", "frames")
+             if k in case}
+    args = (cfg, lp, batch, case["max_seq"], case["steps"],
+            case["attn_chunk"], shards)
+    with (whole_batch_moe() if case.get("mutant")
+          else contextlib.nullcontext()), encoder_output([]) as enc:
+        out = serve_tokens(*args, keep_caches=True)
+    if enc:
+        out["enc_out"] = enc[0]
+    if "enc_out" in case:
+        with encoder_output([], case["enc_out"][rows]):
+            out["fixed"] = serve_tokens(*args)
+    out["rows"] = (rows.start, rows.stop)
+    out["coords"] = mesh.get_coordinate()
+    return out
+
+
 TASKS = {"train": train_case, "ckpt": ckpt_case, "refusals": refusals,
-         "hints": hints, "pipeline": pipeline_case, "serve": serve_case}
+         "hints": hints, "pipeline": pipeline_case, "serve": serve_case,
+         "serve_kinds": serve_kinds_case}
 
 
 def main(argv) -> int:
@@ -392,6 +502,12 @@ def launch(cases: dict, tmp: Path, world: int = 4,
     returns each rank's {name: result}.  Every rank's output goes to
     ``tmp / rank<r>.log``; past the deadline the ranks are killed and
     the call fails with the logs' ends."""
+    return finish(start(cases, tmp, world), deadline_s)
+
+
+def start(cases: dict, tmp: Path, world: int = 4) -> tuple:
+    """Start :func:`launch`'s ranks and return at once; :func:`finish`
+    waits for them."""
     tmp = Path(tmp)
     case_file, out = tmp / "cases.pt", tmp / "out"
     out.mkdir()
@@ -405,6 +521,14 @@ def launch(cases: dict, tmp: Path, world: int = 4,
         [sys.executable, __file__, str(r), str(world), str(tmp / "rdv"),
          str(case_file), str(out)], stdout=logs[r],
         stderr=subprocess.STDOUT, env=env) for r in range(world)]
+    return procs, logs, tmp, out
+
+
+def finish(handle, deadline_s: float = 240.0) -> list:
+    """Wait for the ranks of :func:`start` until ``deadline_s`` from
+    now, kill them past it, and return each rank's {name: result} or
+    fail with the logs' ends."""
+    procs, logs, tmp, out = handle
     end = time.monotonic() + deadline_s
     late = False
     try:
@@ -426,7 +550,7 @@ def launch(cases: dict, tmp: Path, world: int = 4,
         raise AssertionError(("deadline of %.0f s passed\n" % deadline_s
                               if late else "a rank failed\n") + tails)
     return [torch.load(out / f"rank{r}.pt", weights_only=True)
-            for r in range(world)]
+            for r in range(len(procs))]
 
 
 if __name__ == "__main__":
