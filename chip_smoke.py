@@ -223,9 +223,25 @@ Phases, each of which raises on failure:
    against its plain version; the tp-4 split of granite layer 0's
    experts (column views of wg / wu, g·u joined, the whole wd) against
    the whole leaves;
-18. check that every (M, K, N) the packed matmul launched at in phases
-   5-17 was held against its plain version in phase 3, 6, 8, 9, 10, 16
-   or 17, then print the ``kernels`` JSON line (six entries, one per TPU
+18. uneven tensor-parallel head splits (``[dist uneven]``):
+   phi4-mini-3.8b (24 query heads over 8 KV heads) at full width and
+   depth, quantized data-free unfused, its prefill of 8 x 256 tokens
+   and 16 greedy steps through ``model.shard_for_serving`` as one NCCL
+   rank bit-identical to one device with equal mixed_matmul launches
+   and no paged launch, and its sharded train step at full width and 4
+   of its 32 layers (2 steps of 4 x 512 tokens) bit-identical to one
+   device with no launch; then the tp-16 split arithmetic rank after
+   rank (``[dist uneven split ...]``): phi4-mini's and llava-next-34b's
+   layer 0 attention (query head views with empty ranks, every KV head,
+   wo's row partials), recurrentgemma-2b's first rglru layer (each gate
+   head cut in two) and first local layer (10 run-time KV heads),
+   xlstm-1.3b's first mLSTM layer (4 heads over 16), and the
+   context-sharded decode combine of phi4-mini (8 slots, 16 chunks of
+   2048) and of recurrentgemma's local window (16 chunks of 128), each
+   against the whole on one device in f32;
+19. check that every (M, K, N) the packed matmul launched at in phases
+   5-18 was held against its plain version in phase 3, 6, 8, 9, 10, 16,
+   17 or 18, then print the ``kernels`` JSON line (six entries, one per TPU
    kernel: the five wrappers and the perm gather of ``mixed_matmul``)
    and the result line.  Each phase's wall seconds print as it ends
    (``[phase]``).
@@ -368,6 +384,23 @@ SPLIT_RTOL = 1e-5
 # the whole leaves (f32 products within SPLIT_RTOL of max|y|).
 SERVE_KIND_PROMPT, SERVE_KIND_STEPS, SERVE_KIND_FRAMES = 256, 16, 1024
 EXPERT_SPLIT_TP, EXPERT_SPLIT_ROWS = 4, (8, 640)
+
+
+# Uneven head splits (phase 18, ``[dist uneven]``): phi4-mini-3.8b at
+# full width and depth, quantized data-free unfused at the serving
+# defaults, served as one NCCL rank on a (1, 1) mesh against one device
+# (8 prompts of DIST_SERVE_PROMPT tokens, UNEVEN_STEPS greedy steps), and
+# its sharded train step at full width and UNEVEN_TRAIN_DEPTH of its 32
+# layers (KIND_DIST_STEPS steps of KIND_DIST_ROWS x KIND_DIST_SEQ
+# tokens) against one device.  Then the split arithmetic of tp UNEVEN_TP
+# rank after rank (whole heads per rank, ``Shards.heads``) at
+# UNEVEN_SPLIT_ROWS rows of the packed products and UNEVEN_ATT_SHAPE
+# (rows, positions) of attention and the mLSTM, and the context-sharded
+# decode combine at CTX_SLOTS slots; f32 gaps within SPLIT_RTOL of
+# max|y| (the same sums in another order).
+UNEVEN_ARCH = "phi4-mini-3.8b"
+UNEVEN_STEPS, UNEVEN_TRAIN_DEPTH, UNEVEN_TP = 16, 4, 16
+UNEVEN_SPLIT_ROWS, UNEVEN_ATT_SHAPE, CTX_SLOTS = (8, 256), (2, 128), 8
 
 
 def _fail(msg: str) -> None:
@@ -4678,6 +4711,592 @@ def run_dist_serve_kinds(torch, kernels, smi: str, peaks, checked) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: uneven tensor-parallel head splits
+# ---------------------------------------------------------------------------
+def _rank_shards(par, r: int, whole=None):
+    """Rank ``r`` of ``par.tp`` on the "model" dim without a process
+    group (one card runs the ranks one after another): ``Shards``' head
+    layout (``heads``, ``head_part``, ``part``); ``gather_model`` hands
+    back ``whole``, what the gather over "model" would give, or its
+    input (a leaf given whole), and ``enter`` is the identity."""
+    from repro_torch.models.common import Shards
+
+    class _Rank(Shards):
+        def __init__(self):
+            self.tp, self.tp_rank, self.par = par.tp, r, par
+
+        def gather_model(self, t, dim):
+            return t if whole is None else whole
+
+        def enter(self, x):
+            return x
+    return _Rank()
+
+
+def _held_split(got, want, what: str) -> float:
+    gap = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    if not gap <= SPLIT_RTOL:
+        _fail(f"[dist uneven split] {what}: f32 gap {gap} of max|y| above "
+              f"{SPLIT_RTOL}")
+    return gap
+
+
+def _split_product(torch, what: str, q, views, role: str, x, timer,
+                   peaks) -> dict:
+    """The packed matmul of ``x`` by each rank's view of the leaf ``q``
+    (``role`` "column": joined along N; "row": f32 partials summed in
+    rank order), each held against its plain version, the join against
+    the whole leaf's f32 accumulator within SPLIT_RTOL of max|y|, and
+    after the one rounding each output within one bf16 ulp of the whole
+    leaf's beyond the f32 gap.  A view of no column launches nothing.
+    The time of each distinct view shape beside its bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mixed_matmul import KERNEL, mixed_matmul
+
+    def f32(v):
+        return mixed_matmul(x, v.w4, v.s4, v.z4, v.bits, v.alpha_s,
+                            v.alpha_r1, v.alpha_r2, perm=v.perm,
+                            out_dtype=torch.float32)
+
+    def plain(v):
+        return ref.mixed_matmul_ref(x, v.w4, v.s4, v.z4, v.bits, v.alpha_s,
+                                    v.alpha_r1, v.alpha_r2, perm=v.perm)
+
+    m = x.shape[0]
+    whole = f32(q)
+    plain_gap = _held_split(whole, plain(q), f"{what} M={m} whole")
+    parts, timed, empty = [], {}, 0
+    for r, v in enumerate(views):
+        before = KERNEL.launches
+        y = f32(v)
+        launched = KERNEL.launches - before
+        if v.n == 0 or v.k == 0:
+            empty += 1
+            if launched:
+                _fail(f"[dist uneven split] {what} rank {r}: a view of no "
+                      f"column or row launched {launched} times")
+        else:
+            _held_split(y, plain(v), f"{what} M={m} rank {r}")
+            shape = (m, v.k, v.n)
+            if shape not in timed:
+                nbytes = (m * x.shape[1] * 2 + v.perm.numel() * 4
+                          + v.w4.numel() + v.bits.numel()
+                          + (2 * v.k_s + v.k - v.k_s + 2 * v.n) * 4
+                          + m * v.n * 4)
+                b, by = bound_ms(nbytes, 2.0 * m * v.k * v.n, peaks)
+                timed[shape] = {
+                    "kernel_us": 1e3 * timer.ms(lambda: f32(v)),
+                    "plain_us": 1e3 * timer.ms(lambda: plain(v)),
+                    "bound_us": 1e3 * b, "bound_by": by}
+        parts.append(y)
+    if role == "row":
+        total = torch.zeros_like(whole)
+        for y in parts:
+            total += y
+    else:
+        total = torch.cat(parts, dim=1)
+    gap = _held_split(total, whole, f"{what} M={m}")
+    rw, rt = whole.to(torch.bfloat16), total.to(torch.bfloat16)
+    ulp = lambda t: torch.exp2(torch.floor(torch.log2(  # noqa: E731
+        t.float().abs().clamp_min(1e-30))) - 7)
+    slack = (ulp(rw) + ulp(rt)) / 2 + (total - whole).abs()
+    if bool(((rt.float() - rw.float()).abs() > slack).any()):
+        _fail(f"[dist uneven split] {what} M={m}: a rounded output beyond "
+              "one bf16 ulp of the f32 gap")
+    steps = _bf16_steps_apart(torch, rt, rw)
+    return {"leaf": what, "role": role, "M": m, "K": q.k, "N": q.n,
+            "tp": len(views), "widths": [v.n if role == "column" else v.k
+                                         for v in views],
+            "empty_ranks": empty, "f32_rel_gap": gap,
+            "whole_vs_plain_rel_gap": plain_gap,
+            "rounded_outputs_differing": int((steps > 0).sum()),
+            "outputs": steps.numel(),
+            "views": {f"{a}x{b}x{c}": t for (a, b, c), t in timed.items()},
+            "shapes": sorted(set(timed) | {(m, q.k, q.n)})}
+
+
+def _view_products(torch, what, leaves, role, timer, peaks, gen,
+                   heads=None) -> list:
+    """``_split_product`` of each leaf of ``leaves`` ({name: QLinear})
+    over its UNEVEN_TP views, at each M of UNEVEN_SPLIT_ROWS: the views
+    of its ``heads`` heads' columns (``sharding.head_view``) when given,
+    else ``sharding.local_view``'s (N / tp columns, or chunks of byte
+    rows)."""
+    from repro_torch.distributed.sharding import head_view, local_view
+    rows = []
+    for name, q in leaves.items():
+        views = [head_view(q, heads, r, UNEVEN_TP) if heads else
+                 local_view(q, role, r, UNEVEN_TP) for r in range(UNEVEN_TP)]
+        for m in UNEVEN_SPLIT_ROWS:
+            x = torch.randn((m, q.k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            rows.append(_split_product(torch, f"{what} {name}", q, views,
+                                       role, x, timer, peaks))
+    return rows
+
+
+def check_attention_split(torch, tag, cfg, attn, window, timer, peaks,
+                          gen) -> dict:
+    """An attention block's split at tp UNEVEN_TP, rank after rank:
+    ``wq``'s head views (``sharding.head_view``: each rank's whole
+    heads, none on the trailing ranks) against the whole leaf; each
+    rank's heads attended over every KV head (``layers._per_head_kv``,
+    a rank's query heads may straddle two KV groups) from the whole
+    layer's q, k and v, joined against the whole attention (f32); the
+    rank's own projection through the port's uneven path
+    (``layers._project_qkv`` with the rank's ``Shards``: its head view
+    of ``wq``, ``wk`` / ``wv`` whole, their products held at these rows
+    too), its K / V the whole layer's bits and its q's rounded outputs
+    counted against the whole's; ``wo``'s row views over the whole
+    output."""
+    from repro_torch.distributed.sharding import head_view, local_view
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import Parallel
+    par = Parallel(tp=UNEVEN_TP)
+    hq, dh = cfg.n_heads, cfg.head_dim_
+    ranks = [_rank_shards(par, r) for r in range(UNEVEN_TP)]
+    out = {"arch": cfg.name, "heads": hq, "kv_heads": cfg.n_kv_heads,
+           "run_kv_heads": par.kv_heads_run(cfg.n_kv_heads, hq),
+           "heads_per_rank": [hi - lo for lo, hi in
+                              (sh.heads(hq) for sh in ranks)]}
+    out["wq"] = _view_products(torch, tag, {"wq": attn["wq"]}, "column",
+                               timer, peaks, gen, hq)
+    b, s = UNEVEN_ATT_SHAPE
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s)
+    with torch.no_grad():
+        q, k, v = L._project_qkv(cfg, attn, x, pos)
+        qp, kp = pos[:, :, None], pos[:, None, :]
+        mask = (kp <= qp) & (kp >= 0)
+        if window is not None:
+            mask = mask & (qp - kp < window)
+        whole = L._attend(q, k, v, mask, cfg.logit_softcap)
+        parts, q_diff, kv_equal = [], 0, True
+        for r, sh in enumerate(ranks):
+            lo, hi = sh.heads(hq)
+            ka, va = L._per_head_kv(cfg, k, v, sh)
+            parts.append(L._attend(q[:, :, lo:hi], ka, va, mask,
+                                   cfg.logit_softcap))
+            own = dict(attn, wq=head_view(attn["wq"], hq, r, UNEVEN_TP))
+            qr, kr, vr = L._project_qkv(cfg, own, x, pos, shards=sh)
+            q_diff += int((_bf16_steps_apart(torch, qr, q[:, :, lo:hi])
+                           > 0).sum())
+            kv_equal &= _bits_equal(torch, kr, k) and _bits_equal(
+                torch, vr, v)
+        out["attention_f32_rel_gap"] = _held_split(
+            torch.cat(parts, dim=2), whole, f"{tag} attention")
+        if not kv_equal:
+            _fail(f"[dist uneven split] {tag}: a rank's K / V of every KV "
+                  "head part from the whole layer's")
+        out["own_q_rounded_outputs_differing"] = q_diff
+        out["q_outputs"] = q.numel()
+        o = whole.to(torch.bfloat16).reshape(b * s, hq * dh)
+    # the whole K / V leaves at the attention's rows, as projected above
+    out["kv"] = [dict(r, shapes=[[r["M"], r["K"], r["N"]]])
+                 for r in check_mixed_matmul(
+                     torch, {n: attn[n] for n in ("wk", "wv")
+                             if hasattr(attn[n], "w4")},
+                     timer, peaks, gen, ms=(b * s,))]
+    out["wo"] = _view_products(torch, tag, {"wo": attn["wo"]}, "row", timer,
+                               peaks, gen)
+    out["wo"].append(_split_product(
+        torch, f"{tag} wo (attention output)", attn["wo"],
+        [local_view(attn["wo"], "row", r, UNEVEN_TP)
+         for r in range(UNEVEN_TP)], "row", o, timer, peaks))
+    return out
+
+
+def check_rglru_split(torch, cfg, rec, timer, peaks, gen) -> dict:
+    """An rglru block's split at tp UNEVEN_TP (each rank's R / tp
+    channels cut a gate head in two at recurrentgemma's 8 heads of 320):
+    ``w_x`` / ``w_gate``'s column views (N / tp columns) and ``w_out``'s
+    row views; the gates of each rank's channels
+    (``recurrent._rg_gates_cut``, the whole input handed in as the
+    gather over "model" gives it) joined against the whole
+    block-diagonal product (f32)."""
+    from repro_torch.models import recurrent as R
+    from repro_torch.models.common import Parallel
+    par = Parallel(tp=UNEVEN_TP)
+    r_width = rec["w_x"].n
+    per = r_width // UNEVEN_TP
+    hd = rec["w_inp"].shape[1]
+    out = {"rnn": r_width, "gate_heads": rec["w_inp"].shape[0],
+           "channels_per_rank": per,
+           "gate_heads_per_rank": [list(range(r * per // hd,
+                                              -(-(r + 1) * per // hd)))
+                                   for r in range(UNEVEN_TP)]}
+    out["columns"] = _view_products(
+        torch, "rg", {n: rec[n] for n in ("w_x", "w_gate")}, "column", timer,
+        peaks, gen)
+    b, s = UNEVEN_ATT_SHAPE
+    u = torch.randn((b, s, r_width), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        gi, gr = R._rg_gates(rec, u)
+        parts_i, parts_r = [], []
+        for r in range(UNEVEN_TP):
+            sh = _rank_shards(par, r, whole=u)
+            ci, cr = R._rg_gates_cut(rec, u[..., r * per:(r + 1) * per], sh)
+            parts_i.append(ci)
+            parts_r.append(cr)
+    out["input_gate_f32_rel_gap"] = _held_split(torch.cat(parts_i, -1), gi,
+                                                "rg input gate")
+    out["recurrence_gate_f32_rel_gap"] = _held_split(
+        torch.cat(parts_r, -1), gr, "rg recurrence gate")
+    out["w_out"] = _view_products(torch, "rg", {"w_out": rec["w_out"]},
+                                  "row", timer, peaks, gen)
+    return out
+
+
+def check_mlstm_split(torch, cfg, cell, timer, peaks, gen) -> dict:
+    """An mLSTM block's split at tp UNEVEN_TP (xlstm-1.3b's 4 heads: one
+    on ranks 0-3, none on 4-15): the head views of ``w_q``, ``w_k``,
+    ``w_v`` and ``w_gate``; each rank's heads through the chunkwise
+    recurrence (``recurrent.mlstm_chunks``) from the whole block's q,
+    k, v and gates, joined against the whole (f32); the rank's own
+    projections (``recurrent._mlstm_qkvg`` with its ``Shards``: its head
+    views and its heads' columns of ``w_if``), their rounded outputs
+    counted against the whole's and its log gates held (f32);
+    ``w_out``'s row views."""
+    from repro_torch.distributed.sharding import head_view, local_view
+    from repro_torch.models import recurrent as R
+    from repro_torch.models.common import Parallel
+    par = Parallel(tp=UNEVEN_TP)
+    h = cfg.n_heads
+    ranks = [_rank_shards(par, r) for r in range(UNEVEN_TP)]
+    names = ("w_q", "w_k", "w_v", "w_gate")
+    out = {"heads": h, "heads_per_rank": [hi - lo for lo, hi in
+                                          (sh.heads(h) for sh in ranks)]}
+    out["columns"] = _view_products(torch, "xl", {n: cell[n] for n in names},
+                                    "column", timer, peaks, gen, h)
+    b, s = UNEVEN_ATT_SHAPE
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        q, k, v, g, li, lf = R._mlstm_qkvg(cfg, cell, x)
+        whole, _ = R.mlstm_chunks(q, k, v, li, lf)
+        parts, diff, gates = [], 0, []
+        for r, sh in enumerate(ranks):
+            lo, hi = sh.heads(h)
+            parts.append(R.mlstm_chunks(q[:, :, lo:hi], k[:, :, lo:hi],
+                                        v[:, :, lo:hi], li[..., lo:hi],
+                                        lf[..., lo:hi])[0])
+            own = dict(cell, **{n: head_view(cell[n], h, r, UNEVEN_TP)
+                                for n in names})
+            qr, kr, vr, gr_, lir, lfr = R._mlstm_qkvg(cfg, own, x, sh)
+            for a, w in ((qr, q[:, :, lo:hi]), (kr, k[:, :, lo:hi]),
+                         (vr, v[:, :, lo:hi])):
+                diff += int((a != w).sum())
+            gates.append((torch.cat([lir, lfr], -1),
+                          torch.cat([li[..., lo:hi], lf[..., lo:hi]], -1)))
+        out["recurrence_f32_rel_gap"] = _held_split(
+            torch.cat(parts, dim=2), whole, "xl mLSTM recurrence")
+        out["log_gates_f32_rel_gap"] = _held_split(
+            torch.cat([a for a, _ in gates], -1),
+            torch.cat([w for _, w in gates], -1), "xl log gates")
+        out["own_qkv_outputs_differing"] = diff
+        o = (whole.reshape(b, s, -1).to(torch.bfloat16) * g).reshape(b * s, -1)
+    out["w_out"] = _view_products(torch, "xl", {"w_out": cell["w_out"]},
+                                  "row", timer, peaks, gen)
+    out["w_out"].append(_split_product(
+        torch, "xl w_out (the read-out)", cell["w_out"],
+        [local_view(cell["w_out"], "row", r, UNEVEN_TP)
+         for r in range(UNEVEN_TP)], "row", o, timer, peaks))
+    return out
+
+
+def check_ctx_combine(torch, tag, b, w, hkv, hq, dh, window, softcap, timer,
+                      gen) -> dict:
+    """The context-sharded decode (the "ctx" cache layout where the
+    run-time KV heads do not divide tp): ``b`` slots of a ``w``-slot
+    ring of every run-time KV head cut into UNEVEN_TP chunks, each
+    rank's (max, sum, accumulator) of ``layers.attend_split`` combined
+    as the all-reduces over "model" combine them
+    (``layers.drive_split``), against one device's decode attention
+    (``layers._attend``) over the whole ring.  Slots of lengths from
+    one key to a ring that has turned over, and an empty one (no live
+    key: spread evenly, as one device's).  f32 caches are held within
+    SPLIT_RTOL of max|y| (the same sums in another order); on bf16
+    caches the weights are rounded to bf16 from sums in another order,
+    so the gap is reported."""
+    from repro_torch.models import layers as L
+    wc = w // UNEVEN_TP
+    lens = torch.tensor([w + 37, w, w // 2 + 5, 3 * wc, wc + 1, 17, 1, 0],
+                        device="cuda")[:b]
+    slot = torch.arange(w, device="cuda")
+    # slot s holds the latest position p < len with p % w == s
+    last = lens[:, None] - 1
+    kp = last - torch.remainder(last - slot, w)
+    kp = torch.where((kp >= 0) & (lens[:, None] > 0), kp, -1)
+    qp = last.clamp_min(0)[:, :, None]
+    kq = kp[:, None, :]
+    mask = (kq <= qp) & (kq >= 0)
+    if window is not None:
+        mask = mask & (qp - kq < window)
+    out = {"slots": b, "window_slots": w, "chunks": UNEVEN_TP,
+           "chunk_slots": wc, "kv_heads": hkv, "heads": hq, "head_dim": dh,
+           "lens": lens.tolist()}
+    for dtype in (torch.float32, torch.bfloat16):
+        k = torch.randn((b, w, hkv, dh), generator=gen, device="cuda").to(
+            dtype)
+        v = torch.randn((b, w, hkv, dh), generator=gen, device="cuda").to(
+            dtype)
+        q = torch.randn((b, 1, hq, dh), generator=gen, device="cuda").to(
+            dtype)
+
+        def one():
+            return L._attend(q, k, v, mask, softcap)
+
+        def split():
+            return L.drive_split([L.attend_split(
+                q, k[:, c * wc:(c + 1) * wc], v[:, c * wc:(c + 1) * wc],
+                mask[..., c * wc:(c + 1) * wc], softcap)
+                for c in range(UNEVEN_TP)])
+
+        with torch.no_grad():
+            want = one()
+            outs = split()
+        if not all(torch.equal(o, outs[0]) for o in outs[1:]):
+            _fail(f"[dist uneven ctx] {tag}: the ranks' combined outputs "
+                  "differ")
+        name = "f32" if dtype == torch.float32 else "bf16"
+        gap = float((outs[0] - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30))
+        if dtype == torch.float32:
+            gap = _held_split(outs[0], want, f"{tag} ctx combine f32")
+        with torch.no_grad():
+            out[name] = {"rel_gap": gap, "one_device_ms": timer.ms(one),
+                         "sixteen_chunks_ms": timer.ms(split)}
+        del k, v, q
+    return out
+
+
+def _layer0(torch, cfg, pos: int, qcfg):
+    """Layer 0's block at pattern position ``pos`` of ``cfg``'s first
+    stage, alone: its bf16 weights materialized as a whole
+    ``init_params`` would (seed 0) and quantized data-free unfused."""
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.models import model as M
+    from repro_torch.models.param import materialize
+    decl = M.declare_params(cfg)["stages"][0][0][pos]
+    block = materialize(decl, 0, "cuda", prefix=("stages", 0, 0, pos))
+    return quantize_params_data_free({"stages": [[(block,)]]}, qcfg,
+                                     min_dim=DIST_SERVE_MIN_DIM,
+                                     fuse=False)["stages"][0][0][0]
+
+
+def run_dist_uneven(torch, kernels, smi: str, peaks, checked) -> dict:
+    """``[dist uneven]``: step 1, phi4-mini-3.8b (24 query heads over 8
+    KV heads, never built on the card before) at full width and depth
+    from seed 0, quantized data-free unfused (its packed shapes and
+    dtypes equal ``declare_quantized``'s under the prefill cell's
+    preset): a prefill of 8 x DIST_SERVE_PROMPT tokens and UNEVEN_STEPS
+    greedy steps on one device and through ``model.shard_for_serving``
+    as one NCCL rank, the same bits, equal mixed_matmul launches and no
+    paged launch, every new packed shape held; its sharded train step
+    at full width and UNEVEN_TRAIN_DEPTH layers, KIND_DIST_STEPS steps
+    of KIND_DIST_ROWS x KIND_DIST_SEQ tokens, against one device (the
+    same bits, no launch).  Step 2, the split arithmetic of tp
+    UNEVEN_TP rank after rank, which one NCCL rank (tp 1) cannot run:
+    phi4-mini's and llava-next-34b's layer 0 attention
+    (``check_attention_split``), recurrentgemma-2b's first rglru and
+    first local layer, xlstm-1.3b's first mLSTM layer, and the
+    context-sharded decode combine of phi4-mini at the decode_32k
+    window and of recurrentgemma's local window
+    (``check_ctx_combine``).  Returns the results with ``held``, the
+    packed-matmul rows held here."""
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS, Stage
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.kernels.mixed_matmul import KERNEL
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.presets import make_preset
+    from repro_torch.launch.qdeclare import declare_quantized
+    from repro_torch.models import model as M
+    from repro_torch import pytree
+    cfg = registry.get(UNEVEN_ARCH)
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    timer = Timer(torch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(KERNEL.shapes)
+    qparams, quant_ms = _synced(torch, lambda: quantize_params_data_free(
+        M.init_params(cfg, 0, "cuda"), qcfg, min_dim=DIST_SERVE_MIN_DIM))
+    b, s = DIST_SERVE_ROWS, DIST_SERVE_PROMPT
+    batch = {"tokens": torch.randint(1, cfg.vocab, (b, s), generator=gen,
+                                     device="cuda", dtype=torch.int32),
+             "positions": torch.arange(s, dtype=torch.int32,
+                                       device="cuda").expand(b, s)}
+    serve = {"arch": cfg.name, "layers": cfg.n_layers, "rows": b,
+             "prompt": s, "steps": UNEVEN_STEPS,
+             "bits_per_weight": check_bits(qparams, "dist uneven"),
+             "quantize_s": quant_ms / 1e3}
+    _reset(kernels)
+    one = _serve_greedy(torch, M, cfg, qparams, batch, steps=UNEVEN_STEPS)
+    one_launches = _launches(kernels)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        cell = next(c for c in SHAPE_CELLS if c.kind == "prefill")
+        preset = make_preset(cfg, cell, mesh)
+        abstract, specs = declare_quantized(cfg, preset.par, qcfg,
+                                            preset.rules,
+                                            min_dim=DIST_SERVE_MIN_DIM)
+        serve["declared_leaves_equal"] = _same_declaration(qparams, abstract)
+        torch.cuda.reset_peak_memory_stats()
+        (shards, lp), place_ms = _synced(torch, lambda: M.shard_for_serving(
+            cfg, preset.par, qparams, specs, mesh))
+        _reset(kernels)
+        sh = _serve_greedy(torch, M, cfg, lp, batch, shards,
+                           steps=UNEVEN_STEPS)
+        sh_launches = _launches(kernels)
+        sh_peak = torch.cuda.max_memory_allocated() / 1e9
+        del lp, shards
+        same = all(_bits_equal(torch, a, c) for a, c in zip(
+            one["logits"], sh["logits"])) and all(
+            torch.equal(a, c) for a, c in zip(one["tokens"], sh["tokens"]))
+        gap = max(float((a.float() - c.float()).abs().max())
+                  for a, c in zip(one["logits"], sh["logits"]))
+        toks = b * UNEVEN_STEPS
+
+        def side(r, launches, peak):
+            return {"prefill_ms": r["prefill_ms"],
+                    "decode_step_ms": sum(r["step_ms"]) / len(r["step_ms"]),
+                    "decode_tokens_per_s": toks * 1e3 / sum(r["step_ms"]),
+                    "peak_mem_gb": peak, "launches": launches}
+
+        serve.update(one_device=side(one, one_launches, one_peak),
+                     sharded=dict(side(sh, sh_launches, sh_peak),
+                                  mesh=[1, 1], place_ms=place_ms),
+                     bit_identical=same, max_logit_gap=gap)
+        print(f"[dist uneven phi4 serve] {smi}: " + json.dumps(serve),
+              flush=True)
+        if not same:
+            _fail(f"[dist uneven phi4 serve] the sharded prefill and decode "
+                  f"part from one device's (largest logit gap {gap})")
+        for what, n in (("one device", one_launches),
+                        ("sharded", sh_launches)):
+            if n["mixed_matmul"] <= 0:
+                _fail(f"[dist uneven phi4 serve] {what}: kernel "
+                      "mixed_matmul was not launched")
+            if n["paged_attention"] or n["paged_prefill"]:
+                _fail(f"[dist uneven phi4 serve] {what}: a paged attention "
+                      "kernel launched on the contiguous path")
+        if one_launches["mixed_matmul"] != sh_launches["mixed_matmul"]:
+            _fail(f"[dist uneven phi4 serve] mixed_matmul launched "
+                  f"{sh_launches} times sharded against {one_launches} on "
+                  "one device")
+        del one, sh, batch
+        out["phi4 serve"] = serve
+        # the sharded train step at full width, cut depth
+        tcfg = dataclasses.replace(cfg, stages=(Stage(
+            ("dense",), UNEVEN_TRAIN_DEPTH),))
+        batches = _kind_batches(torch, tcfg, KIND_DIST_ROWS, KIND_DIST_SEQ,
+                                KIND_DIST_STEPS, 0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        losses, ms, fn, state = _kind_steps(torch, train, tcfg, batches)
+        t_one = {"losses": losses, "step_ms": ms,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        _no_launches("[dist uneven phi4 train] one device", kernels)
+        ref = [t.detach().clone() for t in pytree.leaves(state["params"])]
+        del fn, state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        par, rules = train.parallel_for(mesh, 1, True, 1024, fsdp=True)
+        tshards = train.make_shards(tcfg, par, mesh, rules)
+        _reset(kernels)
+        dlosses, dms, fn, state = _kind_steps(torch, train, tcfg, batches,
+                                              tshards)
+        t_sh = {"losses": dlosses, "step_ms": dms,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": _launches(kernels)}
+        _no_launches("[dist uneven phi4 train] sharded", kernels)
+        held_t = _held(torch, "uneven phi4", tcfg, losses, dlosses, ref,
+                       state)
+        if not held_t["bit_identical"]:
+            _fail("[dist uneven phi4 train] the sharded step parts from the "
+                  f"one device's: {held_t}")
+        out["phi4 train"] = {"arch": cfg.name, "layers": tcfg.n_layers,
+                             "of_layers": cfg.n_layers,
+                             "rows": KIND_DIST_ROWS, "seq": KIND_DIST_SEQ,
+                             "one_device": t_one, "sharded": t_sh, **held_t}
+        print(f"[dist uneven phi4 train] {smi}: "
+              + json.dumps(out["phi4 train"]), flush=True)
+        del fn, state, ref, batches
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    new = [sh_ for sh_, c in KERNEL.shapes.items() if c > before.get(sh_, 0)]
+    held = hold_new_shapes(torch, qparams, new, checked, timer, peaks, gen,
+                           "phi4")
+    if held:
+        print_rows("dist uneven phi4 mixed_matmul",
+                   "the shapes new to the phase", held,
+                   sorted({r["M"] for r in held}))
+    out["phi4 serve"]["shapes_held_here"] = [[r["M"], r["K"], r["N"]]
+                                             for r in held]
+    # step 2: the tp-16 split arithmetic, rank after rank
+    split = {"phi4 attention": check_attention_split(
+        torch, "phi4", cfg, qparams["stages"][0][0][0]["attn"], None, timer,
+        peaks, gen)}
+    del qparams
+    torch.cuda.empty_cache()
+    vcfg = registry.get(VLM_ARCH)
+    split["llava attention"] = check_attention_split(
+        torch, "llava", vcfg, _layer0(torch, vcfg, 0, qcfg)["attn"], None,
+        timer, peaks, gen)
+    rcfg = registry.get(RG_ARCH)
+    split["rg rglru"] = check_rglru_split(
+        torch, rcfg, _layer0(torch, rcfg, 0, qcfg)["rec"], timer, peaks, gen)
+    local_pos = rcfg.stages[0].pattern.index("local")
+    split["rg local attention"] = check_attention_split(
+        torch, "rg local", rcfg,
+        _layer0(torch, rcfg, local_pos, qcfg)["attn"], rcfg.local_window,
+        timer, peaks, gen)
+    xcfg = registry.get(XL_ARCH)
+    split["xl mlstm"] = check_mlstm_split(
+        torch, xcfg, _layer0(torch, xcfg, 0, qcfg)["cell"], timer, peaks, gen)
+    torch.cuda.empty_cache()
+    decode = next(c for c in SHAPE_CELLS if c.name == "decode_32k")
+    from repro_torch.models.common import Parallel
+    par16 = Parallel(tp=UNEVEN_TP)
+    split["phi4 ctx combine"] = check_ctx_combine(
+        torch, "phi4", CTX_SLOTS, decode.seq_len,
+        par16.kv_heads_run(cfg.n_kv_heads, cfg.n_heads), cfg.n_heads,
+        cfg.head_dim_, None, cfg.logit_softcap, timer, gen)
+    split["rg local ctx combine"] = check_ctx_combine(
+        torch, "rg local", CTX_SLOTS, rcfg.local_window,
+        par16.kv_heads_run(rcfg.n_kv_heads, rcfg.n_heads), rcfg.n_heads,
+        rcfg.head_dim_, rcfg.local_window, rcfg.logit_softcap, timer, gen)
+    for name, row in split.items():
+        print(f"[dist uneven split {name}] {smi} (tp {UNEVEN_TP}, f32 gap "
+              f"limit {SPLIT_RTOL} of max|y|): " + json.dumps(row),
+              flush=True)
+        for rows in row.values():
+            if isinstance(rows, list) and rows and isinstance(rows[0], dict):
+                for r in rows:
+                    if "shapes" in r:
+                        checked = set(checked) | {tuple(t) for t in
+                                                  r["shapes"]}
+    out["split"] = split
+    out["held"] = held
+    out["checked"] = checked
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
 class Laps:
     """Wall seconds of each phase, printed as it ends (``[phase]``)."""
 
@@ -5119,7 +5738,14 @@ def main() -> int:
     checked |= {(r["M"], r["K"], r["N"]) for r in serve_kinds["held"]}
 
     laps("17")
-    # -- 18. every packed-matmul shape of the paths was checked; the kernels
+    # -- 18. uneven head splits: phi4-mini served and trained as one NCCL
+    # rank, and the tp-16 split arithmetic rank after rank ---------------
+    uneven = run_dist_uneven(torch, kernels, smi, peaks, checked)
+    checked = set(uneven["checked"]) | {(r["M"], r["K"], r["N"])
+                                        for r in uneven["held"]}
+
+    laps("18")
+    # -- 19. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
@@ -5129,9 +5755,9 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-17 was held against its plain version in phase 3, "
-          "6, 8, 9, 10, 16 or 17; launches by shape: " + json.dumps(by_shape),
-          flush=True)
+          "at in phases 5-18 was held against its plain version in phase 3, "
+          "6, 8, 9, 10, 16, 17 or 18; launches by shape: "
+          + json.dumps(by_shape), flush=True)
     launches = {"datafree": summary["launches"],
                 "calibrated": cal_summary["launches"],
                 "whole": whole["whole"]["launches"],
@@ -5179,7 +5805,12 @@ def main() -> int:
                    for tag in ("moe", "rg", "xl", "s2t")},
                 **{f"dist serve kinds {tag}":
                    serve_kinds[tag]["sharded"]["launches"]
-                   for tag in ("moe", "rg", "xl", "s2t")}}
+                   for tag in ("moe", "rg", "xl", "s2t")},
+                "dist uneven phi4 one device":
+                    uneven["phi4 serve"]["one_device"]["launches"],
+                "dist uneven phi4": uneven["phi4 serve"]["sharded"]["launches"],
+                "dist uneven phi4 train":
+                    uneven["phi4 train"]["sharded"]["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -5215,7 +5846,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("18")
+    laps("19")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

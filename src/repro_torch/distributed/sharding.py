@@ -31,8 +31,10 @@ over the output dim's.  Their lengths rarely divide the mesh (LLaMA-7B's
 of n holds ``[r·c, min((r+1)·c, len))`` with c = ceil(len / n), the
 layout of ``torch.chunk`` and of GSPMD's padding, empty past the end.
 :func:`qlinear_local` turns a placed leaf into this rank's view for the
-packed matmul: column-parallel, its columns; row-parallel, its byte
-rows with the O(K) vectors that belong to them.  A stacked expert leaf
+packed matmul: column-parallel, its columns (a query projection whose
+heads tp does not divide: the columns of the rank's whole heads,
+:func:`head_view`); row-parallel, its byte rows with the O(K) vectors
+that belong to them.  A stacked expert leaf
 takes the reference's quantized MoE layout instead, whatever its
 storage spec (:func:`expert_local`): ``wg`` / ``wu`` over ffn, ``wd``
 whole.
@@ -364,14 +366,45 @@ def _refuse_data(spec: QLinear) -> None:
                     "packed leaves replicated over data")
 
 
-def qlinear_local(q: QLinear, spec: QLinear, shards) -> QLinear:
+def _gather_columns(lq: QLinear, n: int, group) -> QLinear:
+    """A column view's placed chunks (``w4``, ``bits``, ``alpha_s``,
+    ``alpha_r1`` along N) gathered over ``group`` into the whole leaf's
+    columns, once at placement."""
+    def whole(t):
+        return C.gather_chunks(t.movedim(-1, 0).contiguous(), n,
+                               group).movedim(0, -1)
+    return dataclasses.replace(lq, w4=whole(lq.w4), bits=whole(lq.bits),
+                               alpha_s=whole(lq.alpha_s),
+                               alpha_r1=whole(lq.alpha_r1), n=n)
+
+
+def head_view(q: QLinear, heads: int, rank: int, tp: int) -> QLinear:
+    """Rank ``rank``'s column view of the whole leaf ``q`` whose N
+    columns are ``heads`` heads: the columns of its whole heads
+    (:func:`chunk_range` of the heads; phi4-mini's ``wq`` at tp 16: 256
+    columns on ranks 0-11, none on 12-15), ``perm`` and the O(K)
+    vectors whole."""
+    width = q.n // heads
+    lo, hi = chunk_range(heads, tp, rank)
+    cut = lambda t: t[..., lo * width:hi * width].contiguous()  # noqa: E731
+    return dataclasses.replace(q, w4=cut(q.w4), bits=cut(q.bits),
+                               alpha_s=cut(q.alpha_s),
+                               alpha_r1=cut(q.alpha_r1),
+                               n=(hi - lo) * width)
+
+
+def qlinear_local(q: QLinear, spec: QLinear, shards,
+                  heads: Optional[int] = None) -> QLinear:
     """This rank's view of a placed packed leaf ``q`` (fields DTensors
     placed by :func:`distribute` under ``spec``) for the packed matmul.
 
     Column-parallel (the output dim over "model": wq, wk, wv, wg, wu):
     the local fields are the view, N/tp columns of ``w4``, ``bits``,
     ``alpha_s`` and ``alpha_r1`` beside the whole ``perm``, ``s4``,
-    ``z4`` and ``alpha_r2``.  Row-parallel (the input dim over "model":
+    ``z4`` and ``alpha_r2``.  A query projection whose ``heads`` tp
+    does not divide takes the columns of the rank's whole heads
+    instead (:func:`head_view`, possibly none), cut from its columns
+    gathered over "model" once here.  Row-parallel (the input dim over "model":
     wo, wd): the local byte rows of ``w4`` and ``bits`` say which
     salient and binary channels the rank owns; the spec's chunks of
     ``perm`` (K), ``s4``/``z4`` (k_s) and ``alpha_r2`` (k_b) do not line
@@ -388,6 +421,9 @@ def qlinear_local(q: QLinear, spec: QLinear, shards) -> QLinear:
     if role is None or shards.tp == 1:
         return lq
     if role == "column":
+        if heads is not None and heads % shards.tp:
+            return head_view(_gather_columns(lq, q.n, shards.group("model")),
+                             heads, shards.tp_rank, shards.tp)
         if q.n % shards.tp:
             raise ValueError(f"a packed leaf of {q.n} columns does not "
                              f"split over tp={shards.tp}")
@@ -445,15 +481,17 @@ def expert_local(q: QLinear, spec: QLinear, shards, column: bool
     return local_view(lq, "column", shards.tp_rank, shards.tp)
 
 
-def local_tree(tree: Tree, spec_tree: Tree, shards) -> Tree:
+def local_tree(tree: Tree, spec_tree: Tree, shards, heads=None) -> Tree:
     """A placed tree (:func:`distribute_tree`) -> this rank's local
-    tensors, each packed leaf as its :func:`qlinear_local` view, each
-    packed expert leaf as its :func:`expert_local` one."""
+    tensors, each packed leaf as its :func:`qlinear_local` view (given
+    ``heads(path)``, the heads of a query projection's columns, or
+    None), each packed expert leaf as its :func:`expert_local` one."""
     def leaf(path, t):
         if isinstance(t, QLinear) and t.w4.ndim == 3:
             return expert_local(t, at(spec_tree, path), shards,
                                 path[-1] in EXPERT_COLUMNS)
         if isinstance(t, QLinear):
-            return qlinear_local(t, at(spec_tree, path), shards)
+            return qlinear_local(t, at(spec_tree, path), shards,
+                                 None if heads is None else heads(path))
         return local(t)
     return map_tree(tree, leaf)

@@ -32,7 +32,8 @@ import torch
 from repro_torch.core.qlinear import QLinear
 from repro_torch.core.select import map_tree
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import at, is_dtensor, placements
+from repro_torch.distributed.sharding import (at, chunk_range, is_dtensor,
+                                              placements)
 from repro_torch.kernels import ops
 from repro_torch.models.linear import dense
 
@@ -72,7 +73,7 @@ class Parallel:
         run-time KV count divides the query-head count.  Where the head
         counts do not divide the TP degree, the largest valid count <=
         tp (the reference lets GSPMD pad the uneven shard; the port's
-        sharded step refuses such a shard)."""
+        sharded step gives each rank whole heads, ``Shards.heads``)."""
         if self.tp <= n_kv:
             return n_kv
         best = n_kv
@@ -252,7 +253,8 @@ class Shards:
         sums), whose backward is the identity."""
         return x if self.tp == 1 else C.sum_over(x, self.group("model"))
 
-    def row(self, x: torch.Tensor, w) -> torch.Tensor:
+    def row(self, x: torch.Tensor, w, heads: Optional[Tuple[int, int]] = None
+            ) -> torch.Tensor:
         """A row-parallel product (``wo``, ``wd``) of this rank's input
         columns ``x`` (its heads or ffn columns).  A plain leaf: the
         local product's partial sums summed over "model" (g).  A packed
@@ -261,24 +263,87 @@ class Shards:
         returns its f32 accumulator, the partials are summed over
         "model" in f32 and rounded to bf16 once, as one device's kernel
         rounds its accumulator once (a bf16 sum of rounded partials
-        would add up to tp/2 ulps)."""
+        would add up to tp/2 ulps).
+
+        ``heads`` (n, width): x holds this rank's whole heads
+        (:meth:`heads` of n) of ``width`` columns each; a plain leaf
+        takes the rows of those heads (:meth:`head_part`), and a packed
+        view's input is joined from the ranks' uneven head parts
+        (:meth:`gather_heads`)."""
         if not isinstance(w, QLinear):
+            if heads is not None:
+                w = self.head_part(w, heads[0], 0)
             return self.leave(dense(x, w))
-        y = ops.mixed_matmul(self.gather_model(x, x.ndim - 1), w,
-                             out_dtype=torch.float32)
+        if heads is None:
+            xw = self.gather_model(x, x.ndim - 1)
+        else:
+            n, width = heads
+            xh = x.reshape(x.shape[:-1] + (-1, width))
+            xw = self.gather_heads(xh, n, xh.ndim - 2).reshape(
+                x.shape[:-1] + (n * width,))
+        y = ops.mixed_matmul(xw, w, out_dtype=torch.float32)
         if self.tp > 1:
             y = C.all_reduce_(y.contiguous(), self.group("model"))
         return y.to(torch.bfloat16).to(x.dtype)
 
     def part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """This model rank's part along ``dim`` of a replicated leaf
-        (or activation) that the rank uses only in part: the whole
+        (or activation) that the rank uses only in part, in the layout
+        of :meth:`heads` (even where tp divides the dim): the whole
         passes through :meth:`enter` before the cut, so its gradient,
         zero outside each rank's part, is summed over "model"."""
         if self.tp == 1:
             return t
-        k = t.shape[dim] // self.tp
-        return self.enter(t).narrow(dim, self.tp_rank * k, k)
+        lo, hi = self.heads(t.shape[dim])
+        return self.enter(t).narrow(dim, lo, hi - lo)
+
+    # -- whole heads per rank ----------------------------------------------
+    def heads(self, n: int) -> Tuple[int, int]:
+        """[lo, hi) of this model rank's heads of ``n``: the ceil layout
+        of ``distributed.sharding.chunk_range`` (``torch.chunk``'s,
+        DTensor's ``Shard`` and GSPMD's padding), ceil(n / tp) heads a
+        rank, the trailing ranks short or empty (phi4-mini's 24 query
+        heads at tp 16: 2 on ranks 0-11, none on 12-15)."""
+        return chunk_range(n, self.tp, self.tp_rank)
+
+    def head_part(self, t, n: int, dim: int):
+        """This rank's whole heads (:meth:`heads` of ``n``) of a leaf
+        whose ``dim`` holds ``n`` heads and lies over "model" in even
+        chunks (``t`` the local chunk: phi4-mini's ``wq`` at tp 16
+        holds 1.5 heads a rank).  Where tp divides n the chunk is those
+        heads; else the leaf is gathered over "model" and narrowed to
+        them (backward: the reduce-scatter of a gradient that is zero
+        outside the range, back into the storage chunk).  A packed
+        view (sharded serving's column view, cut to the head range once
+        at placement) is returned as it is."""
+        if isinstance(t, QLinear) or self.tp == 1 or n % self.tp == 0:
+            return t
+        width = t.shape[dim] * self.tp // n
+        lo, hi = self.heads(n)
+        return C.all_gather(t, dim, self.group("model")).narrow(
+            dim, lo * width, (hi - lo) * width)
+
+    def gather_heads(self, t: torch.Tensor, n: int, dim: int,
+                     rep: bool = False) -> torch.Tensor:
+        """All ``n`` heads along ``dim`` from every rank's :meth:`heads`
+        of them (``t``: this rank's, possibly none): each part padded
+        with zeros to ceil(n / tp) heads, gathered over "model", and the
+        padding stripped (in the ceil layout the heads are the first n
+        of the padded whole).  Backward: the gradient's reduce-scatter
+        (:meth:`gather_model`), or with ``rep`` this rank's part of it
+        (:meth:`gather_rep`, for a computation every model rank runs
+        alike)."""
+        if self.tp == 1:
+            return t
+        group = self.group("model")
+        c = -(-n // self.tp)
+        if t.shape[dim] < c:
+            shape = list(t.shape)
+            shape[dim] = c - t.shape[dim]
+            t = torch.cat([t, t.new_zeros(shape)], dim=dim)
+        whole = (C.gather_narrow(t, dim, group) if rep
+                 else C.all_gather(t, dim, group))
+        return whole.narrow(dim, 0, n)
 
     def gather_rep(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """``t`` gathered over "model" along ``dim`` for a computation

@@ -14,6 +14,14 @@ ring caches are written where they lie.
 Decode ring caches are ``window`` slots per decode row with a parallel
 int32 absolute-position array (``"p"``, -1 = empty) for the masks: slot
 ``pos % window`` holds position ``pos``.
+
+Under a mesh whose tensor-parallel degree does not divide the run-time
+KV heads (``_uneven``: phi4-mini and llava at tp 16, recurrentgemma's
+10 heads) a rank computes its whole query heads (``Shards.heads``) over
+every KV head, and its decode caches hold every run-time KV head over
+its chunk of the window (the reference's "ctx" layout) or over the
+whole window; a decode step combines the ranks' softmax partials over
+"model" (:func:`attend_split`).
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import QLinear
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill
 from repro_torch.models.linear import dense, expert_dense
@@ -32,6 +41,8 @@ from repro_torch.models.param import P
 
 Tree = Any
 NEG_INF = -1e30
+CTX_QUEUE = ("ROADMAP.md queue 1, item 2 (the cross K/V's context-sharded "
+             "layout)")
 
 
 # ---------------------------------------------------------------------------
@@ -111,14 +122,27 @@ def _kv_heads_local(cfg: ArchConfig, shards) -> bool:
             and hkv % shards.tp == 0)
 
 
-def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards):
+def _uneven(cfg: ArchConfig, shards) -> bool:
+    """True under ``shards`` when the run-time KV heads do not divide
+    tp: a rank then computes its whole query heads (``Shards.heads``,
+    possibly none) against every KV head, each query head reading its
+    own (:func:`_per_head_kv`), and its decode caches hold every
+    run-time KV head (``transformer.declare_stage_cache``'s "ctx"
+    layout, or the whole window)."""
+    return shards is not None and shards.par.kv_heads_run(
+        cfg.n_kv_heads, cfg.n_heads) % shards.tp != 0
+
+
+def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards,
+                   narrow: bool = True):
     """K and V (B, Sk, hkv_run / tp * dh) of this rank's run-time KV
     heads when a shard of wk / wv cuts through a head, or the heads are
     replicated to the TP degree: the small KV leaves are gathered over
     "model" (their gradients reduce-scattered back; a packed leaf's
     column view along N, ``Shards.gather_model``), every true head is
     projected, repeated ``kv_heads_run / hkv`` times consecutively as
-    the reference repeats them, and this rank's heads are kept."""
+    the reference repeats them, and this rank's heads are kept.  Without
+    ``narrow`` (:func:`_uneven`): every true head, (B, Sk, hkv * dh)."""
     dh, hkv = cfg.head_dim_, cfg.n_kv_heads
     run = shards.par.kv_heads_run(hkv, cfg.n_heads)
     per = run // shards.tp
@@ -127,6 +151,9 @@ def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards):
         bias = p.get(b)
         y = dense(xkv, shards.gather_model(p[w], 1),
                   None if bias is None else shards.gather_model(bias, 0))
+        if not narrow:
+            out.append(y)
+            continue
         y = y.reshape(y.shape[:-1] + (hkv, dh))
         y = torch.repeat_interleave(y, run // hkv, dim=-2)
         y = y.narrow(-2, shards.tp_rank * per, per)
@@ -144,7 +171,10 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     fused ``wqkv`` group runs one matmul (one activation gather) for all
     three projections.  With ``shards`` (``models.common.Shards``) the
     weights are this rank's column shards and the heads its own: hq /
-    tp query heads and ``kv_heads_run`` / tp KV heads."""
+    tp query heads and ``kv_heads_run`` / tp KV heads; where those do
+    not divide tp (:func:`_uneven`), the query heads of
+    ``Shards.heads`` (``wq`` and ``bq`` cut to them by
+    ``Shards.head_part``) and every true KV head."""
     dh = cfg.head_dim_
     if xkv is None:
         xkv, kv_positions = x, positions
@@ -155,6 +185,12 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             q = q + p["bq"].to(q.dtype)
             k = k + p["bk"].to(k.dtype)
             v = v + p["bv"].to(v.dtype)
+    elif _uneven(cfg, shards):
+        bq = p.get("bq")
+        q = dense(x, shards.head_part(p["wq"], cfg.n_heads, 1),
+                  None if bq is None else shards.head_part(bq, cfg.n_heads,
+                                                           0))
+        k, v = _kv_replicated(cfg, p, xkv, shards, narrow=False)
     else:
         q = dense(x, p["wq"], p.get("bq"))
         if shards is None or _kv_heads_local(cfg, shards):
@@ -162,9 +198,9 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
             v = dense(xkv, p["wv"], p.get("bv"))
         else:
             k, v = _kv_replicated(cfg, p, xkv, shards)
-    q = q.reshape(q.shape[:-1] + (-1, dh))
-    k = k.reshape(k.shape[:-1] + (-1, dh))
-    v = v.reshape(v.shape[:-1] + (-1, dh))
+    q = q.reshape(q.shape[:-1] + (q.shape[-1] // dh, dh))
+    k = k.reshape(k.shape[:-1] + (k.shape[-1] // dh, dh))
+    v = v.reshape(v.shape[:-1] + (v.shape[-1] // dh, dh))
     if "q_norm" in p:
         qn, kn = p["q_norm"], p["k_norm"]
         if shards is not None:          # replicated scales on local heads
@@ -177,6 +213,24 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     return q, k, v
 
 
+def kv_index(n_q: int, n_k: int, lo: int, hi: int) -> torch.Tensor:
+    """The K/V head each query head of [lo, hi) reads, of ``n_k`` K/V
+    heads under ``n_q`` query heads (the GQA group of query head j is j
+    // (n_q / n_k); run-time replicas are consecutive, so it is the same
+    head for the true and the run-time count)."""
+    return torch.arange(lo, hi) // (n_q // n_k)
+
+
+def _per_head_kv(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, shards):
+    """Every true KV head (B, Sk, hkv, dh) -> the one each of this
+    rank's query heads reads, (B, Sk, hi - lo, dh): a rank's whole query
+    heads may straddle two KV groups (phi4-mini at tp 16: rank 1's query
+    heads 2-3 read KV heads 0 and 1), so the heads attend one to one."""
+    lo, hi = shards.heads(cfg.n_heads)
+    idx = kv_index(cfg.n_heads, k.shape[2], lo, hi).to(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 # ---------------------------------------------------------------------------
 # Full-sequence attention and the ring caches (plain PyTorch, as the
 # reference leaves both to XLA)
@@ -184,10 +238,13 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
 def _attend(q, k, v, mask, softcap: Optional[float]) -> torch.Tensor:
     """q (B, Sq, hq, dh), k/v (B, Sk, hkv, dh), mask (B or 1, Sq, Sk)
     bool -> (B, Sq, hq, dh) f32.  Scores and softmax in f32; the weights
-    are cast to the V dtype before PV, with f32 sums."""
+    are cast to the V dtype before PV, with f32 sums.  A rank that holds
+    no query head (and so no K/V head) gets an empty output through the
+    same operations, which keeps its autograd graph, and with it the
+    order of its collectives, the other ranks'."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
-    rep = hq // hkv
+    rep = hq // hkv if hkv else 1
     qr = q.reshape(b, sq, hkv, rep, dh).to(torch.float32)
     s = torch.einsum("bqhrd,bkhd->bhrqk", qr, k.to(torch.float32))
     s = s / math.sqrt(dh)
@@ -207,7 +264,7 @@ def _attend_chunked(q, k, v, q_pos, kv_pos, causal: bool,
     and position -1 marks padding."""
     b, sq, hq, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    rep = hq // hkv
+    rep = hq // hkv if hkv else 1
     if sk % chunk:
         raise ValueError(f"key length {sk} is not a multiple of {chunk}")
     qf = q.to(torch.float32).reshape(b, sq, hkv, rep, dh) / math.sqrt(dh)
@@ -276,9 +333,16 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         xkv, kv_positions = x, positions
     q, k, v = _project_qkv(cfg, p, x, positions, xkv, kv_positions,
                            use_rope, shards)
+    ka, va = k, v
+    if _uneven(cfg, shards):
+        if return_kv:
+            raise NotImplementedError(
+                f"{cfg.name}: cross K/V caches whose run-time KV heads do "
+                f"not divide tp={shards.tp} wait for {CTX_QUEUE}")
+        ka, va = _per_head_kv(cfg, k, v, shards)
     sk = k.shape[1]
     if sk > attn_chunk and sk % attn_chunk == 0:
-        o = _attend_chunked(q, k, v, positions, kv_positions, causal,
+        o = _attend_chunked(q, ka, va, positions, kv_positions, causal,
                             window, cfg.logit_softcap, attn_chunk)
     else:
         qp, kp = positions[:, :, None], kv_positions[:, None, :]
@@ -286,14 +350,38 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         mask = mask & (kp >= 0)
         if window is not None:
             mask = mask & (qp - kp < window)
-        o = _attend(q, k, v, mask, cfg.logit_softcap)
-    o = o.to(x.dtype).reshape(x.shape[:-1] + (-1,))
-    out = dense(o, p["wo"]) if shards is None else shards.row(o, p["wo"])
+        o = _attend(q, ka, va, mask, cfg.logit_softcap)
+    o = o.to(x.dtype).reshape(x.shape[:-1] + (o.shape[2] * o.shape[3],))
+    out = (dense(o, p["wo"]) if shards is None else
+           shards.row(o, p["wo"], (cfg.n_heads, cfg.head_dim_)))
     if return_kv:
         return out, k, v
     if cache_window is None:
         return out
+    if _uneven(cfg, shards):
+        return out, _ctx_cache(cfg, k, v, positions, cache_window, shards)
     return out, ring_cache_from_kv(k, v, positions, cache_window)
+
+
+def _ctx_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
+               positions: torch.Tensor, window: int, shards
+               ) -> Dict[str, torch.Tensor]:
+    """The decode cache of a rank whose run-time KV heads do not divide
+    tp (``transformer.declare_stage_cache``): the ring of every run-time
+    KV head (the true heads of k / v repeated as the reference repeats
+    them), cut to this rank's chunk of the window where tp divides it
+    (the "ctx" layout: slots [r·W/tp, (r+1)·W/tp)), else whole;
+    positions ``"p"`` whole on every rank, as declared."""
+    rep = shards.par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads) // k.shape[2]
+    ring = ring_cache_from_kv(torch.repeat_interleave(k, rep, dim=2),
+                              torch.repeat_interleave(v, rep, dim=2),
+                              positions, window)
+    if window % shards.tp == 0:
+        wc = window // shards.tp
+        for name in ("k", "v"):
+            ring[name] = ring[name].narrow(1, shards.tp_rank * wc,
+                                           wc).contiguous()
+    return ring
 
 
 def ring_cache_from_kv(k: torch.Tensor, v: torch.Tensor,
@@ -334,6 +422,9 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     b = x.shape[0]
     if shards is not None:
         x = shards.enter(x)
+    if _uneven(cfg, shards):
+        return _attention_decode_ctx(cfg, p, x, pos, cache, layer, window,
+                                     shards), cache
     q, k, v = _project_qkv(cfg, p, x, pos[:, None], shards=shards)
     ck, cv, cp = cache["k"], cache["v"], cache["p"]
     bi = torch.arange(b, device=x.device)
@@ -352,6 +443,108 @@ def attention_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     return dense(o, p["wo"]), cache
 
 
+def attend_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: torch.Tensor, softcap: Optional[float]):
+    """:func:`_attend` over one part of the keys, as a generator that
+    yields what the parts combine: ("max", the part's row maxima), then
+    ("sum", its sums of exp(s - M)) and ("sum", its f32 accumulator of
+    the weights (rounded to the V dtype, as :func:`_attend` rounds them)
+    times V), each time receiving the combined value (M the maximum over
+    every part, then the sum); it returns the (B, Sq, hq, dh) f32
+    output.  The parts' results add up to :func:`_attend` over all the
+    keys up to the order of f32 sums; a row with no live key is spread
+    evenly over every key, as there."""
+    b, sq, hq, dh = q.shape
+    hkv = k.shape[2]
+    qr = q.reshape(b, sq, hkv, hq // hkv, dh).to(torch.float32)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qr, k.to(torch.float32))
+    s = s / math.sqrt(dh)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(mask[:, None, None, :, :], s, NEG_INF)
+    m = yield "max", torch.amax(s, dim=-1)
+    e = torch.exp(s - m[..., None])
+    l = yield "sum", torch.sum(e, dim=-1)
+    w = (e / l[..., None]).to(v.dtype).to(torch.float32)
+    o = yield "sum", torch.einsum("bhrqk,bkhd->bqhrd", w,
+                                  v.to(torch.float32))
+    return o.reshape(b, sq, hq, dh)
+
+
+def drive_split(parts) -> list:
+    """Run the :func:`attend_split` generators of every part in lock
+    step, combining what they yield in part order (the maximum, or the
+    f32 sum) as an all-reduce over the parts would: each part's output,
+    all equal."""
+    msgs = [next(g) for g in parts]
+    while True:
+        op, vals = msgs[0][0], [t for _, t in msgs]
+        tot = vals[0].clone()
+        for t in vals[1:]:
+            tot = torch.maximum(tot, t) if op == "max" else tot + t
+        outs = []
+        for g in parts:
+            try:
+                outs.append(g.send(tot.clone()))
+            except StopIteration as done:
+                outs.append(done.value)
+        if not isinstance(outs[0], tuple):
+            return outs
+        msgs = outs
+
+
+def _attention_decode_ctx(cfg: ArchConfig, p: Tree, x: torch.Tensor,
+                          pos: torch.Tensor, cache: Tree, layer: int,
+                          window: Optional[int], shards) -> torch.Tensor:
+    """:func:`attention_decode` of a rank whose run-time KV heads do not
+    divide tp (:func:`_uneven`), against its caches of every run-time KV
+    head: over its chunk of the window (the "ctx" layout, when the
+    cache's slots are fewer than the positions ``"p"``'s) or the whole
+    window.  Every rank projects the new token's K/V for every KV head;
+    the rank whose chunk holds slot ``pos % W`` writes it, and every
+    rank its position (``"p"`` is whole on each).  The query heads are
+    gathered over "model"; each rank attends its slots for every head
+    in f32, and with the "ctx" layout the partials combine over "model"
+    (an all-reduce of the maxima, then of the sums and accumulators:
+    :func:`attend_split`).  This rank's heads of the output go through
+    ``wo``'s row product."""
+    b = x.shape[0]
+    q, k, v = _project_qkv(cfg, p, x, pos[:, None], shards=shards)
+    ck, cv, cp = cache["k"], cache["v"], cache["p"]
+    rep = ck.shape[3] // k.shape[2]
+    k = torch.repeat_interleave(k[:, 0], rep, dim=1)
+    v = torch.repeat_interleave(v[:, 0], rep, dim=1)
+    wc, w = ck.shape[2], cp.shape[2]
+    lo = shards.tp_rank * wc if wc < w else 0
+    bi = torch.arange(b, device=x.device)
+    slot = torch.remainder(pos, w).long()
+    mine = slot - lo
+    own = ((mine >= 0) & (mine < wc))[:, None, None]
+    mine = mine.clamp(0, wc - 1)
+    ck[layer, bi, mine] = torch.where(own, k.to(ck.dtype), ck[layer, bi, mine])
+    cv[layer, bi, mine] = torch.where(own, v.to(cv.dtype), cv[layer, bi, mine])
+    cp[layer, bi, slot] = pos.to(cp.dtype)
+    qp, kp = pos[:, None, None], cp[layer][:, None, lo:lo + wc]
+    mask = (kp <= qp) & (kp >= 0)
+    if window is not None:
+        mask = mask & (qp - kp < window)
+    q = shards.gather_heads(q, cfg.n_heads, 2)
+    part = attend_split(q, ck[layer], cv[layer], mask, cfg.logit_softcap)
+    group = shards.group("model") if wc < w and shards.tp > 1 else None
+    msg = next(part)
+    try:
+        while True:
+            op, t = msg
+            if group is not None:
+                t = C.all_reduce_(t.contiguous(), group, op)
+            msg = part.send(t)
+    except StopIteration as done:
+        o = done.value
+    hlo, hhi = shards.heads(cfg.n_heads)
+    o = o[:, :, hlo:hhi].to(x.dtype).reshape(b, 1, (hhi - hlo) * o.shape[3])
+    return shards.row(o, p["wo"], (cfg.n_heads, cfg.head_dim_))
+
+
 def attention_cross_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                            xk: torch.Tensor, xv: torch.Tensor, shards=None
                            ) -> torch.Tensor:
@@ -360,8 +553,13 @@ def attention_cross_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     encoder K/V (B, S_enc, hkv, dh), then ``wo``.  With ``shards``
     (sharded serving) the query heads are this rank's (``wq``'s column
     view), the cached K/V its run-time KV heads, and ``wo`` the row
-    product of ``Shards.row``."""
+    product of ``Shards.row``.  Run-time KV heads that do not divide tp
+    (a context-sharded cross cache) raise ``NotImplementedError``."""
     b = x.shape[0]
+    if _uneven(cfg, shards):
+        raise NotImplementedError(
+            f"{cfg.name}: cross K/V caches whose run-time KV heads do not "
+            f"divide tp={shards.tp} wait for {CTX_QUEUE}")
     if shards is not None:
         x = shards.enter(x)
     q = dense(x, p["wq"]).reshape(b, 1, -1, cfg.head_dim_)

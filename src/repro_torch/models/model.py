@@ -298,39 +298,73 @@ def check_shardable(cfg: ArchConfig, par: Parallel,
     with ``shards``): every block kind and the encoder-decoder model,
     packed leaves unfused; fused ``QLinearGroup`` leaves raise
     ``NotImplementedError`` naming ``FUSED_QUEUE`` (the reference's
-    sharded serving declares unfused leaves only).  Both:
-    tensor-parallel shards that would cut unevenly (``ValueError``): a
-    query head, a run-time KV head group, the ffn, the padded
-    vocabulary, the rnn width or the RG-LRU's gate heads, the xLSTM
-    heads, or (under EP, ``ep``) the experts.  The byte rows of packed
-    leaves are not among them: they take uneven chunks
+    sharded serving declares unfused leaves only), and so does an
+    encoder-decoder model whose run-time KV heads tp does not divide
+    (its cross K/V would take the "ctx" layout, ``layers.CTX_QUEUE``).
+    Both: tensor-parallel shards that would cut a stored leaf unevenly
+    (``ValueError``): the ffn, the padded vocabulary, the rnn width, the
+    columns of the query and KV heads and of the xLSTM's projections,
+    or (under EP, ``ep``) the experts.  Head counts themselves are not
+    among them: a rank computes its whole heads (``Shards.heads``:
+    phi4-mini's 24 query heads, llava's 56, recurrentgemma's 10 and the
+    RG-LRU's 8 gate heads, the xLSTM's 4, at tp 16), and the byte rows
+    of packed leaves take uneven chunks
     (``distributed.sharding.qlinear_local``)."""
     kinds = {k for s in cfg.stages for k in s.pattern}
+    tp = par.tp
     if serving:
         if params is not None and _holds(params, lambda x: isinstance(
                 x, QLinearGroup) and isinstance(x.inner, QLinear)):
             raise NotImplementedError(
                 f"{cfg.name}: fused QLinearGroup leaves (wqkv, wgu) wait "
                 f"for {FUSED_QUEUE}; quantize with fuse=False")
+        if cfg.enc_dec and par.kv_heads_run(cfg.n_kv_heads,
+                                            cfg.n_heads) % tp:
+            raise NotImplementedError(
+                f"{cfg.name}: cross K/V caches whose run-time KV heads do "
+                f"not divide tp={tp} wait for {L.CTX_QUEUE}")
     elif params is not None and _holds(params, lambda x: isinstance(
             x, (QLinear, QLinearGroup))):
         raise NotImplementedError(
             f"{cfg.name}: the sharded train step takes floating-point "
             "parameters, not packed QLinear leaves")
-    tp = par.tp
-    splits = [("query (or xLSTM) heads", cfg.n_heads),
-              ("run-time KV heads",
-               par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads)),
-              ("d_ff", cfg.d_ff), ("padded vocabulary", cfg.vocab_padded)]
+    d, dh = cfg.d_model, cfg.head_dim_
+    splits = [("d_ff", cfg.d_ff), ("padded vocabulary", cfg.vocab_padded)]
+    if kinds & set(T.ATTN_KINDS):
+        splits += [("query head columns", cfg.n_heads * dh),
+                   ("KV head columns", cfg.n_kv_heads * dh)]
     if "rglru" in kinds:
-        splits += [("rnn width", cfg.rnn_width or cfg.d_model),
-                   ("RG-LRU gate heads", R.RG_HEADS)]
+        splits.append(("rnn width", cfg.rnn_width or d))
+    if "mlstm" in kinds:
+        splits += [("mLSTM key columns", d),
+                   ("mLSTM value columns", int(cfg.mlstm_proj_factor * d))]
+    if "slstm" in kinds:
+        splits.append(("sLSTM gate columns", 4 * d))
     if "moe" in kinds and ep:
         splits.append(("experts under EP", cfg.moe.n_experts))
     for what, n in splits:
         if n % tp:
             raise ValueError(f"{cfg.name}: {n} {what} do not split over "
                              f"tp={tp}")
+
+
+# the leaves whose output columns are query heads: a rank's view of a
+# packed one takes its whole heads (``Shards.heads``)
+HEAD_LEAVES = ("wq", "w_q", "w_k", "w_v", "w_gate")
+
+
+def head_count(cfg: ArchConfig, declared: Tree, path) -> Optional[int]:
+    """The heads of the output columns of the leaf at ``path`` when a
+    rank's column view must take whole heads of them (a query
+    projection of attention or of the mLSTM: its output axis "heads"
+    in the declaration ``declared``), else None (KV, ffn, rnn and the
+    sLSTM's gates keep their N / tp columns)."""
+    node = declared
+    for k in path:
+        node = node[k]
+    if path[-1] in HEAD_LEAVES and node.axes[-1] == "heads":
+        return cfg.n_heads
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -431,14 +465,17 @@ def shard_for_serving(cfg: ArchConfig, par: Parallel, params: Tree,
     return (``Shards``, this rank's tree for :func:`prefill` and
     :func:`decode_step`): local tensors, each packed leaf as its
     ``qlinear_local`` view (the row views' O(K) vectors gathered over
-    "model" once here) and each packed expert leaf as its
+    "model" once here; a query projection's columns those of the rank's
+    whole heads, ``head_count``) and each packed expert leaf as its
     ``expert_local`` one (wg / wu over ffn, wd whole, gathered once
     here whatever the storage spec).  Refuses what sharded serving does
     not run (:func:`check_shardable` with ``serving``)."""
     check_shardable(cfg, par, params, serving=True)
     shards = Shards(mesh, par, specs)
     placed = distribute_tree(params, specs, mesh)
-    return shards, local_tree(placed, specs, shards)
+    declared = declare_params(cfg, par)
+    return shards, local_tree(placed, specs, shards,
+                              lambda path: head_count(cfg, declared, path))
 
 
 def splice_prefill(cfg: ArchConfig, caches, cache1, slot: int):

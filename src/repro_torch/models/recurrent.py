@@ -71,17 +71,46 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")        # jax.nn.gelu's default
 
 
-def _rg_gates(p: Tree, x: torch.Tensor
+def _rg_gates(p: Tree, x: torch.Tensor, shards=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., R) -> input gate i_t and recurrence gate r_t (f32), each a
     block-diagonal product over the heads of ``w_inp`` / ``w_rec``
-    (RG_HEADS, or a tensor-parallel rank's part of them)."""
+    (RG_HEADS, or a tensor-parallel rank's part of them).  With
+    ``shards`` and gate heads that tp does not divide (``w_inp`` whole,
+    wider than x), x is this rank's channels, which cut through a head
+    (:func:`_rg_gates_cut`)."""
+    h, hd = p["w_inp"].shape[:2]
+    if shards is not None and h * hd != x.shape[-1]:
+        return _rg_gates_cut(p, x, shards)
     shp = x.shape[:-1]
-    xh = x.reshape(shp + (p["w_inp"].shape[0], -1)).to(torch.float32)
+    xh = x.reshape(shp + (h, -1)).to(torch.float32)
     gi = torch.einsum("...hd,hde->...he", xh, p["w_inp"].to(torch.float32))
     gr = torch.einsum("...hd,hde->...he", xh, p["w_rec"].to(torch.float32))
     return (torch.sigmoid(gi.reshape(shp + (-1,))),
             torch.sigmoid(gr.reshape(shp + (-1,))))
+
+
+def _rg_gates_cut(p: Tree, x: torch.Tensor, shards
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gates of this rank's R / tp channels (``x``, their inputs)
+    where they cut through the gate heads (recurrentgemma's 8 heads of
+    320 over tp 16: 160 channels, half a head): a channel's gate takes
+    its head's whole input, so x is gathered over "model" (backward:
+    the gradient's reduce-scatter), and each head the rank's channels
+    touch runs its input through the columns of ``w_inp[h]`` /
+    ``w_rec[h]`` of those channels (the whole leaves, replicated)."""
+    r_loc = x.shape[-1]
+    hd = p["w_inp"].shape[1]
+    lo = shards.tp_rank * r_loc
+    xf = shards.gather_model(x, x.ndim - 1).to(torch.float32)
+    gi, gr = [], []
+    for h in range(lo // hd, -(-(lo + r_loc) // hd)):
+        a = max(lo, h * hd) - h * hd
+        e = min(lo + r_loc, (h + 1) * hd) - h * hd
+        xh = xf[..., h * hd:(h + 1) * hd]
+        gi.append(xh @ p["w_inp"][h, :, a:e].to(torch.float32))
+        gr.append(xh @ p["w_rec"][h, :, a:e].to(torch.float32))
+    return torch.sigmoid(torch.cat(gi, -1)), torch.sigmoid(torch.cat(gr, -1))
 
 
 def _rg_decay(p: Tree, r_t: torch.Tensor) -> torch.Tensor:
@@ -145,7 +174,7 @@ def rglru_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     gate = _gelu(dense(x, p["w_gate"]))
     u = dense(x, p["w_x"])
     u, conv_state = _causal_conv(p, u, conv0)
-    i_t, r_t = _rg_gates(p, u)
+    i_t, r_t = _rg_gates(p, u, shards)
     a_t = _rg_decay(p, r_t)                                 # (B, S, R) f32
     b_t = _input(a_t, i_t, u)
     if h0 is not None:
@@ -160,16 +189,22 @@ def _rg_local(p: Tree, shards) -> Tree:
     """An RG-LRU block's leaves as this rank uses them: its column
     shards of ``w_x`` and ``w_gate``, the conv's and ``lam``'s channels
     (local leaves already), and its RG_HEADS / tp heads of the
-    replicated ``w_inp`` / ``w_rec`` (``Shards.part``)."""
+    replicated ``w_inp`` / ``w_rec`` (``Shards.part``); where tp does
+    not divide the gate heads, the whole of both, of which
+    :func:`_rg_gates_cut` takes the columns of this rank's channels
+    (their gradients summed over "model", ``Shards.enter``)."""
+    if p["w_inp"].shape[0] % shards.tp:
+        return dict(p, w_inp=shards.enter(p["w_inp"]),
+                    w_rec=shards.enter(p["w_rec"]))
     return dict(p, w_inp=shards.part(p["w_inp"], 0),
                 w_rec=shards.part(p["w_rec"], 0))
 
 
-def _row(x: torch.Tensor, w, shards) -> torch.Tensor:
+def _row(x: torch.Tensor, w, shards, heads=None) -> torch.Tensor:
     """The block's output projection: ``dense`` on one device, the row
-    product of ``Shards.row`` (this rank's input columns) with
-    ``shards``."""
-    return dense(x, w) if shards is None else shards.row(x, w)
+    product of ``Shards.row`` (this rank's input columns; ``heads`` (n,
+    width) where they are its whole heads) with ``shards``."""
+    return dense(x, w) if shards is None else shards.row(x, w, heads)
 
 
 def rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, h: torch.Tensor,
@@ -183,7 +218,7 @@ def rglru_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, h: torch.Tensor,
     gate = _gelu(dense(x, p["w_gate"]))
     u = dense(x, p["w_x"])
     u, conv_state = _causal_conv(p, u, conv_state)
-    i_t, r_t = _rg_gates(p, u)
+    i_t, r_t = _rg_gates(p, u, shards)
     a_t = _rg_decay(p, r_t)[:, 0]
     b_t = _input(a_t, i_t[:, 0], u[:, 0])
     h = a_t * h.to(torch.float32) + b_t
@@ -226,27 +261,39 @@ def init_mlstm(cfg: ArchConfig) -> Tree:
     }
 
 
+def _mlstm_dims(cfg: ArchConfig) -> Tuple[int, int]:
+    """The mLSTM's (dk, dv) per head."""
+    d = cfg.d_model
+    return d // cfg.n_heads, int(cfg.mlstm_proj_factor * d) // cfg.n_heads
+
+
 def _mlstm_qkvg(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None):
     """x (..., D) -> q, k (scaled by 1/sqrt(dk)), v per head in f32, the
     output gate silu(x @ w_gate) in x's dtype, and the log input and
     forget gates (..., H) in f32.  With ``shards`` the heads are this
-    rank's H / tp: the column shards of the projections and its heads'
-    columns of the replicated ``w_if`` (``Shards.part``)."""
+    rank's (``Shards.heads``: H / tp, or whole heads of an uneven split,
+    possibly none): the projections' columns of those heads
+    (``Shards.head_part``) and its heads' columns of the replicated
+    ``w_if`` (``Shards.part``)."""
     h = cfg.n_heads
+    dk, dv = _mlstm_dims(cfg)
     w_if = p["w_if"]
+    ws = [p[n] for n in ("w_q", "w_k", "w_v", "w_gate")]
     if shards is not None:
         w_if = shards.part(w_if.reshape(-1, 2, h), 2).reshape(
             w_if.shape[0], -1)
-        h //= shards.tp
-    q = dense(x, p["w_q"])
-    k = dense(x, p["w_k"])
-    v = dense(x, p["w_v"])
-    g = F.silu(dense(x, p["w_gate"]))
+        ws = [shards.head_part(w, h, 1) for w in ws]
+        lo, hi = shards.heads(h)
+        h = hi - lo
+    q = dense(x, ws[0])
+    k = dense(x, ws[1])
+    v = dense(x, ws[2])
+    g = F.silu(dense(x, ws[3]))
     shp = x.shape[:-1]
-    q = q.reshape(shp + (h, -1)).to(torch.float32)
-    k = k.reshape(shp + (h, -1)).to(torch.float32) / torch.tensor(
-        math.sqrt(q.shape[-1]), dtype=torch.float32, device=x.device)
-    v = v.reshape(shp + (h, -1)).to(torch.float32)
+    q = q.reshape(shp + (h, dk)).to(torch.float32)
+    k = k.reshape(shp + (h, dk)).to(torch.float32) / torch.tensor(
+        math.sqrt(dk), dtype=torch.float32, device=x.device)
+    v = v.reshape(shp + (h, dv)).to(torch.float32)
     gates = (x.to(torch.float32) @ w_if.to(torch.float32)).reshape(
         shp + (2, h))
     return (q, k, v, g, _log_sigmoid(gates[..., 0, :]),
@@ -259,23 +306,36 @@ def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     (out (B, S, D), {"c": (B, H, dk, dv), "n": (B, H, dk)} f32).  S must
     be a multiple of min(chunk, S).  With ``shards`` (the sharded train
     step, and sharded serving's prefill) x is replicated over "model",
-    the heads and their state are this rank's H / tp, and ``w_out`` is
-    the row product of ``Shards.row``."""
+    the heads and their state are this rank's (``Shards.heads``), and
+    ``w_out`` is the row product of ``Shards.row``."""
     b, s, _ = x.shape
     if shards is not None:
         x = shards.enter(x)
     q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x, shards)
-    h = q.shape[-2]
-    dk, dv = q.shape[-1], v.shape[-1]
+    h, dv = q.shape[-2], v.shape[-1]
+    o, state = mlstm_chunks(q, k, v, log_i, log_f, state, chunk)
+    o = o.reshape(b, s, h * dv).to(x.dtype)
+    return _row(o * g, p["w_out"], shards, (cfg.n_heads, dv)), state
+
+
+def mlstm_chunks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_i: torch.Tensor, log_f: torch.Tensor,
+                 state: Optional[Tree] = None, chunk: int = 256):
+    """The mLSTM's recurrence over a sequence, chunk by chunk, each head
+    on its own: q, k (B, S, H, dk), v (B, S, H, dv), the log gates (B,
+    S, H), all f32 -> (the read-out (B, S, H, dv) f32, the final state
+    {"c": (B, H, dk, dv), "n": (B, H, dk)} f32)."""
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
     l = min(chunk, s)
     assert s % l == 0, (s, l)
     if state is None:
-        c = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=x.device)
-        n = torch.zeros((b, h, dk), dtype=torch.float32, device=x.device)
+        c = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=q.device)
+        n = torch.zeros((b, h, dk), dtype=torch.float32, device=q.device)
     else:
         c = state["c"].to(torch.float32)
         n = state["n"].to(torch.float32)
-    above = ~torch.ones((l, l), dtype=torch.bool, device=x.device).tril()
+    above = ~torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
     outs = []
     for c0 in range(0, s, l):
         qc, kc, vc = q[:, c0:c0 + l], k[:, c0:c0 + l], v[:, c0:c0 + l]
@@ -302,8 +362,7 @@ def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         c = c * f_all[:, :, None, None] + torch.einsum(
             "blhd,blhv,blh->bhdv", kc, vc, tail)
         n = n * f_all[:, :, None] + torch.einsum("blhd,blh->bhd", kc, tail)
-    o = torch.cat(outs, dim=1).reshape(b, s, h * dv).to(x.dtype)
-    return _row(o * g, p["w_out"], shards), {"c": c, "n": n}
+    return torch.cat(outs, dim=1), {"c": c, "n": n}
 
 
 def mlstm_state_step_(c: torch.Tensor, n: torch.Tensor, q: torch.Tensor,
@@ -333,21 +392,24 @@ def mlstm_step_(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     With ``shards`` (sharded serving) the state is the whole one,
     replicated over "model" (as the reference declares it), and every
     model rank updates it alike, as the sLSTM's scan: this rank's heads
-    of the step's q, k, v and gates (one token each) are gathered over
-    "model" (``Shards.gather_rep``), and ``w_out``'s row product takes
-    this rank's heads of the read-out."""
+    (``Shards.heads``, possibly none) of the step's q, k, v and gates
+    (one token each) are gathered over "model" (``Shards.gather_heads``
+    with the backward of ``Shards.gather_rep``), and ``w_out``'s row
+    product takes this rank's heads of the read-out."""
     if shards is not None:
         x = shards.enter(x)
     q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x, shards)
+    h = cfg.n_heads
     if shards is not None:
-        q, k, v = (shards.gather_rep(t, 2) for t in (q, k, v))
-        log_i, log_f = (shards.gather_rep(t, 2) for t in (log_i, log_f))
+        q, k, v, log_i, log_f = (shards.gather_heads(t, h, 2, rep=True)
+                                 for t in (q, k, v, log_i, log_f))
     o = mlstm_state_step_(c, n, q[:, 0], k[:, 0], v[:, 0], log_i[:, 0],
                           log_f[:, 0])
     if shards is not None:
         o = shards.part(o, 1)
-    return _row(o.reshape(x.shape[0], 1, -1).to(x.dtype) * g, p["w_out"],
-                shards)
+    o = o.reshape(x.shape[0], 1, o.shape[1] * o.shape[2])
+    return _row(o.to(x.dtype) * g, p["w_out"], shards,
+                (h, _mlstm_dims(cfg)[1]))
 
 
 def mlstm_step(cfg: ArchConfig, p: Tree, x: torch.Tensor, state: Tree):

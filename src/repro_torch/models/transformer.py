@@ -294,7 +294,8 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     if kind in XLSTM_KINDS:
         x, state = _xlstm_seq(cfg, kind, p, x, shards)
         if kind == "mlstm" and shards is not None:
-            state = {k: shards.gather_model(v, 1) for k, v in state.items()}
+            state = {k: shards.gather_heads(v, cfg.n_heads, 1)
+                     for k, v in state.items()}
         return x, state
     if kind == "rglru":
         h, h_n, conv = R.rglru_seq(cfg, p["rec"],
@@ -472,7 +473,9 @@ def declare_stage_cache(cfg: ArchConfig, par, stage: Stage, batch: int,
     and :func:`stage_prefill` build), stacked on a leading ``layers``
     dim: ring caches of ``kv_heads_run`` heads, positions -1, the KV
     heads over "model" where they divide tp, else the window over
-    "ctx", else replicated; an encoder-decoder block's cross K/V beside
+    "ctx" (each rank holds every run-time KV head over its chunk of the
+    window, which ``layers.attention_full`` fills and
+    ``layers.attention_decode`` reads), else replicated; an encoder-decoder block's cross K/V beside
     them (``enc_len`` positions); a recurrent block's state."""
     per_pos = []
     for kind in stage.pattern:

@@ -8,8 +8,12 @@ because the count of host devices is fixed when JAX starts
     python tests/jax_mesh_ref.py OUT_DIR ARCH BATCH SEQ FRAMES \
         NAME:DATA:MODEL:FSDP:EP ...
 
-For each case, ``jax.value_and_grad(forward_loss)`` of the reduced
-``ARCH`` (f32 weights from ``PRNGKey(0)``, the reference's synthetic
+ARCH is an architecture, or one with config fields overridden:
+``ARCH+FIELD=INT,...`` (:func:`arch_spec`; the field ``rg_heads`` sets
+the reference's ``models.recurrent.RG_HEADS`` for the run, a module
+attribute, :func:`rg_heads`).  For each case,
+``jax.value_and_grad(forward_loss)`` of the reduced ``ARCH`` (f32
+weights from ``PRNGKey(0)``, the reference's synthetic
 batch of step 0, with the encoder's ``frames`` read from the ``.npy``
 file FRAMES unless it is ``-``) runs jitted under a (DATA, MODEL) mesh
 of ("data", "model"), the parameters placed by ``rules_for_mesh(mesh,
@@ -38,6 +42,7 @@ batch over "data".  It writes ``OUT_DIR/NAME.npz``: ``prefill`` (B, V),
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -64,13 +69,51 @@ def params_f32(cfg):
     return jax.tree.map(lambda x: np.asarray(x, np.float32), p)
 
 
+def arch_spec(arch: str, over=None) -> str:
+    """The ARCH argument of ``arch`` with the config fields ``over``
+    ({field: int}; ``rg_heads`` among them) overridden."""
+    if not over:
+        return arch
+    return arch + "+" + ",".join(f"{k}={int(v)}" for k, v in
+                                 sorted(over.items()))
+
+
+def parse_arch(spec: str):
+    """:func:`arch_spec`'s inverse: (arch, {field: int})."""
+    arch, _, rest = spec.partition("+")
+    over = {}
+    for item in filter(None, rest.split(",")):
+        k, v = item.split("=")
+        over[k] = int(v)
+    return arch, over
+
+
+@contextlib.contextmanager
+def rg_heads(spec: str):
+    """The reference's ``models.recurrent.RG_HEADS`` set to the
+    ``rg_heads`` field of the ARCH ``spec`` in the body (read at every
+    call), or left as it is."""
+    from repro.models import recurrent as RR
+    n = parse_arch(spec)[1].get("rg_heads")
+    plain = RR.RG_HEADS
+    if n is not None:
+        RR.RG_HEADS = n
+    try:
+        yield
+    finally:
+        RR.RG_HEADS = plain
+
+
 def reduced(arch: str, repeats: int = 0):
-    """The reduced ``arch``, its vocabulary at most 512, its stages'
-    repeats set to ``repeats`` unless 0."""
+    """The reduced ``arch`` (an ARCH argument: its config fields
+    overridden), its vocabulary at most 512, its stages' repeats set to
+    ``repeats`` unless 0."""
     from repro.configs import registry
     from repro.configs.base import Stage
-    cfg = registry.get(arch).reduced()
-    cfg = dataclasses.replace(cfg, vocab=min(cfg.vocab, 512))
+    name, over = parse_arch(arch)
+    over.pop("rg_heads", None)
+    cfg = registry.get(name).reduced()
+    cfg = dataclasses.replace(cfg, vocab=min(cfg.vocab, 512), **over)
     if repeats:
         cfg = dataclasses.replace(cfg, stages=tuple(
             Stage(s.pattern, repeats) for s in cfg.stages))
@@ -169,6 +212,18 @@ def read_serve(path) -> dict:
 
 
 def serve_main(argv) -> int:
+    out, inp = Path(argv[0]), np.load(argv[1])
+    kernel_route(setattr)
+    for spec in argv[2:]:
+        name, arch, repeats, dp, tp, ep, packed = spec.split(":")
+        with rg_heads(arch):
+            _serve_case(out, inp, name, arch, int(repeats), int(dp), int(tp),
+                        ep, packed)
+    return 0
+
+
+def _serve_case(out, inp, name, arch, repeats, dp, tp, ep, packed) -> None:
+    """One case of the serve mode (its spec's fields)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as PS
@@ -178,59 +233,57 @@ def serve_main(argv) -> int:
     from repro.launch.qdeclare import declare_quantized
     from repro.models import model as RM
     from repro.models.common import Parallel
-
-    out, inp = Path(argv[0]), np.load(argv[1])
     max_seq, steps, chunk = (int(inp[k]) for k in ("max_seq", "steps",
                                                    "attn_chunk"))
-    kernel_route(setattr)
-    for spec in argv[2:]:
-        name, arch, repeats, dp, tp, ep, packed = spec.split(":")
-        dp, tp = int(dp), int(tp)
-        cfg = reduced(arch, int(repeats))
-        weights = (serve_params(cfg) if packed == "1" else
-                   jax.tree.map(jnp.asarray, params_f32(cfg)))
-        names = ("tokens", "positions") + (("frames",) if cfg.enc_dec
-                                           else ())
-        if dp * tp == 1:
-            res = serve_eager(cfg, weights, {k: inp[k] for k in names},
-                              max_seq, steps, chunk)
-            np.savez(out / f"{name}.npz", **res)
-            continue
-        mesh = compat_make_mesh((dp, tp), ("data", "model"))
-        par = Parallel(tp=tp, dp=dp, sp=tp > 1, remat=False,
-                       attn_chunk=chunk)
-        rules = rules_for_mesh(mesh, ep=ep == "1")
-        pspec = (declare_quantized(cfg, par, serve_qcfg(), rules,
-                                   min_dim=SERVE_QUANT[2])[1]
-                 if packed == "1" else
-                 specs_for_tree(RM.declare_params(cfg, par), rules))
-        rows = NamedSharding(mesh, PS("data" if dp > 1 else None))
-        res = {}
-        with mesh:
-            params = jax.device_put(weights, placeable(
-                mesh, weights, named_shardings(mesh, pspec)))
-            batch = {k: jax.device_put(jnp.asarray(inp[k]), rows)
-                     for k in names}
-            prefill = jax.jit(lambda p, b: RM.prefill(cfg, par, p, b,
-                                                      max_seq))
-            step = jax.jit(lambda p, t, q, c: RM.decode_step(
-                cfg, par, p, t, q, c, max_seq))
-            logits, caches = prefill(params, batch)
-            res["prefill"] = np.asarray(logits[:, 0])
-            tok = jnp.argmax(logits[:, 0], axis=-1).astype(jnp.int32)
-            pos = jnp.asarray(inp["positions"][:, -1] + 1)
-            for i in range(steps):
-                res[f"token{i}"] = np.asarray(tok)
-                logits, caches = step(params, jax.device_put(tok, rows),
-                                      jax.device_put(pos, rows), caches)
-                res[f"step{i}"] = np.asarray(logits)
-                tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
-                pos = pos + 1
+    cfg = reduced(arch, repeats)
+    weights = (serve_params(cfg) if packed == "1" else
+               jax.tree.map(jnp.asarray, params_f32(cfg)))
+    names = ("tokens", "positions") + (("frames",) if cfg.enc_dec
+                                       else ())
+    if dp * tp == 1:
+        res = serve_eager(cfg, weights, {k: inp[k] for k in names},
+                          max_seq, steps, chunk)
         np.savez(out / f"{name}.npz", **res)
-    return 0
+        return
+    mesh = compat_make_mesh((dp, tp), ("data", "model"))
+    par = Parallel(tp=tp, dp=dp, sp=tp > 1, remat=False,
+                   attn_chunk=chunk)
+    rules = rules_for_mesh(mesh, ep=ep == "1")
+    pspec = (declare_quantized(cfg, par, serve_qcfg(), rules,
+                               min_dim=SERVE_QUANT[2])[1]
+             if packed == "1" else
+             specs_for_tree(RM.declare_params(cfg, par), rules))
+    rows = NamedSharding(mesh, PS("data" if dp > 1 else None))
+    res = {}
+    with mesh:
+        params = jax.device_put(weights, placeable(
+            mesh, weights, named_shardings(mesh, pspec)))
+        batch = {k: jax.device_put(jnp.asarray(inp[k]), rows)
+                 for k in names}
+        prefill = jax.jit(lambda p, b: RM.prefill(cfg, par, p, b,
+                                                  max_seq))
+        step = jax.jit(lambda p, t, q, c: RM.decode_step(
+            cfg, par, p, t, q, c, max_seq))
+        logits, caches = prefill(params, batch)
+        res["prefill"] = np.asarray(logits[:, 0])
+        tok = jnp.argmax(logits[:, 0], axis=-1).astype(jnp.int32)
+        pos = jnp.asarray(inp["positions"][:, -1] + 1)
+        for i in range(steps):
+            res[f"token{i}"] = np.asarray(tok)
+            logits, caches = step(params, jax.device_put(tok, rows),
+                                  jax.device_put(pos, rows), caches)
+            res[f"step{i}"] = np.asarray(logits)
+            tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+            pos = pos + 1
+    np.savez(out / f"{name}.npz", **res)
 
 
 def main(argv) -> int:
+    with rg_heads(argv[1]):
+        return _train_main(argv)
+
+
+def _train_main(argv) -> int:
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as PS

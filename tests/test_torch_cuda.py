@@ -678,3 +678,36 @@ def _no_rows(q):
         s4=q.s4[:0].contiguous(), z4=q.z4[:0].contiguous(),
         bits=q.bits[:0].contiguous(), alpha_r2=q.alpha_r2[:0].contiguous(),
         k_s=0, k=0)
+
+
+def test_head_views_launch_only_on_ranks_that_hold_heads(cuda):
+    """Column views of whole heads (``distributed.sharding.head_view``:
+    phi4-mini's 24 query heads of 128 at tp 16, 256 columns on ranks
+    0-11): each view's product matches its plain version and the whole
+    leaf's columns of those heads, f32 accumulators within 1e-5 of the
+    largest value; ranks 12-15 hold no column and launch nothing."""
+    from repro_torch.distributed.sharding import head_view
+    q = _qlinear(3072, 3072, 0.2, seed=9, device=cuda)
+    for m in (8, 256):
+        x = torch.randn(m, q.k, device=cuda).to(torch.bfloat16)
+        whole = tmm.mixed_matmul(x, q.w4, q.s4, q.z4, q.bits, q.alpha_s,
+                                 q.alpha_r1, q.alpha_r2, perm=q.perm,
+                                 out_dtype=torch.float32)
+        for r in range(16):
+            v = head_view(q, 24, r, 16)
+            assert v.n == (256 if r < 12 else 0)
+            args = (x, v.w4, v.s4, v.z4, v.bits, v.alpha_s, v.alpha_r1,
+                    v.alpha_r2)
+            before = tmm.KERNEL.launches
+            part = tmm.mixed_matmul(*args, perm=v.perm,
+                                    out_dtype=torch.float32)
+            assert tmm.KERNEL.launches - before == (1 if v.n else 0)
+            assert part.shape == (m, v.n)
+            if not v.n:
+                continue
+            want = ref.mixed_matmul_ref(*args, perm=v.perm)
+            scale = max(float(want.abs().max()), 1e-30)
+            assert float((part - want).abs().max()) <= 1e-5 * scale
+            cols = whole[:, 256 * r:256 * (r + 1)]
+            assert float((part - cols).abs().max()) <= \
+                1e-5 * float(whole.abs().max())

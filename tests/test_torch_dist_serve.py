@@ -280,9 +280,10 @@ def test_spec_perm_mutant_fails(runs):
 def test_check_shardable_refuses_what_sharded_serving_does_not_run():
     """Sharded serving admits every block kind and the encoder-decoder
     model on unfused packed leaves; it refuses fused ``QLinearGroup``
-    leaves (``NotImplementedError``, naming the roadmap item) and splits
-    that do not divide tp (``ValueError``); the train step still refuses
-    packed leaves."""
+    leaves (``NotImplementedError``, naming the roadmap item) and stored
+    splits that do not divide tp (``ValueError``: here the d_ff); head
+    counts that tp does not divide pass (each rank computes its whole
+    heads); the train step still refuses packed leaves."""
     par = Parallel(tp=2)
     qc = TQC(**QCFG)
     dense = W.serve_cfg(MODELS["qwen3"])
@@ -310,12 +311,13 @@ def test_check_shardable_refuses_what_sharded_serving_does_not_run():
     local = dataclasses.replace(dense, stages=(
         W.Stage(("dense", "local"), 1),))
     TM.check_shardable(local, par, serving=True)
-    with pytest.raises(ValueError):               # head splits stay
-        TM.check_shardable(dense, Parallel(tp=16), serving=True)
+    with pytest.raises(ValueError):               # an uneven d_ff stays
+        TM.check_shardable(dataclasses.replace(dense, d_ff=136),
+                           Parallel(tp=16), serving=True)
     for arch, tp in (("recurrentgemma-2b", 4), ("xlstm-1.3b", 16)):
-        with pytest.raises(ValueError):           # 10 and 4 heads
-            TM.check_shardable(t_registry.get(arch), Parallel(tp=tp),
-                               serving=True)
+        # 10 and 4 heads: each rank computes its whole heads
+        TM.check_shardable(t_registry.get(arch), Parallel(tp=tp),
+                           serving=True)
     assert isinstance(quantize_params_data_free(
         fp, qc, min_dim=32)["stages"][0][0][0]["attn"]["wo"], QLinear)
 

@@ -260,13 +260,15 @@ def test_checkpoint_restores_into_another_mesh(runs):
 
 def test_mesh_runs_refuse_what_they_cannot_run(runs):
     """Nothing falls back to one device or an unsharded step: a mesh
-    of the wrong size or device type, packed (QLinear) parameters,
-    heads that do not split over tp (recurrentgemma's 10 query heads at
-    tp 4, 6 heads over 2 KV heads), and a missing card raise."""
+    of the wrong size or device type, packed (QLinear) parameters, a
+    d_ff that does not split over tp, and a missing card raise.  Head
+    counts that tp does not divide (recurrentgemma's 10 query heads at
+    tp 4, 6 heads over 2 KV heads) are accepted: each rank computes its
+    whole heads (``Shards.heads``)."""
     assert runs["ranks"][0]["refusals"] == {
         "world": "ValueError", "device": "ValueError",
-        "packed": "NotImplementedError", "rg_heads": "ValueError",
-        "uneven": "ValueError",
+        "packed": "NotImplementedError", "rg_heads": None,
+        "uneven": None, "d_ff": "ValueError",
         "device_arg": ("RuntimeError" if not torch.cuda.is_available()
                        else "ValueError")}
 

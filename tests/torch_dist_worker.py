@@ -3,7 +3,8 @@ checks.
 
 Started by ``tests/test_torch_dist_train.py``,
 ``tests/test_torch_dist_kinds.py``, ``tests/test_torch_dist_serve.py``,
-``tests/test_torch_dist_serve_kinds.py`` and
+``tests/test_torch_dist_serve_kinds.py``,
+``tests/test_torch_dist_uneven.py`` and
 ``tests/test_torch_pipeline.py``,
 one process per rank, with its rank,
 the world size, a rendezvous file under the test's ``tmp_path``, the
@@ -52,6 +53,7 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import common
 from repro_torch.models import layers
 from repro_torch.models import model as M
+from repro_torch.models import recurrent
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 
 
@@ -62,19 +64,32 @@ def qwen_cfg(n_layers: int = 3, **over):
                                **over)
 
 
-def arch_cfg(arch: str):
+def arch_cfg(arch: str, **over):
     """The reduced config of ``arch``, its vocabulary at most 512 (as
-    ``train.run --reduced`` makes it)."""
+    ``train.run --reduced`` makes it), with the fields ``over``."""
     cfg = registry.get(arch).reduced()
-    return dataclasses.replace(cfg, vocab=min(cfg.vocab, 512))
+    return dataclasses.replace(cfg, vocab=min(cfg.vocab, 512), **over)
 
 
 def case_cfg(case):
-    """A case's config: the reduced ``arch``, or reduced qwen2.5-3b with
-    the case's overrides."""
+    """A case's config: the reduced ``arch`` with the case's ``over``
+    fields, or reduced qwen2.5-3b with the case's overrides."""
     if "arch" in case:
-        return arch_cfg(case["arch"])
+        return arch_cfg(case["arch"], **case.get("over", {}))
     return qwen_cfg(**case["cfg"])
+
+
+@contextlib.contextmanager
+def rg_heads(n=None):
+    """``models.recurrent.RG_HEADS`` set to ``n`` in the body (a module
+    attribute, read at every call), or left as it is."""
+    plain = recurrent.RG_HEADS
+    if n is not None:
+        recurrent.RG_HEADS = n
+    try:
+        yield
+    finally:
+        recurrent.RG_HEADS = plain
 
 
 def case_batches(cfg, case):
@@ -219,6 +234,8 @@ def refusals(case, rank):
     catch("rg_heads", lambda: train.make_shards(rg, par, mesh, rules))
     odd = qwen_cfg(n_heads=6, n_kv_heads=2)
     catch("uneven", lambda: train.make_shards(odd, par, mesh, rules))
+    ffn = qwen_cfg(d_ff=130)
+    catch("d_ff", lambda: train.make_shards(ffn, par, mesh, rules))
     catch("device_arg", lambda: train.run(train.parse_args(
         ["--reduced", "--steps", "1", "--device", "cuda"]), mesh=mesh))
     return out
@@ -297,8 +314,8 @@ def spec_perm_mutant():
     the perm of the byte rows it holds."""
     plain = sharding.qlinear_local
 
-    def mutant(q, spec, shards):
-        v = plain(q, spec, shards)
+    def mutant(q, spec, shards, heads=None):
+        v = plain(q, spec, shards, heads)
         if sharding.qlinear_role(spec) != "row" or shards.tp == 1:
             return v
         whole = collectives.gather_chunks(local(q.perm), q.k,
@@ -379,8 +396,9 @@ def serve_case(case, rank):
 
 def kind_cfg(case):
     """The reduced ``arch`` (vocabulary at most 512) with the case's
-    ``stages``, a list of (pattern, repeats), when it gives them."""
-    cfg = arch_cfg(case["arch"])
+    ``over`` fields and ``stages``, a list of (pattern, repeats), when it
+    gives them."""
+    cfg = arch_cfg(case["arch"], **case.get("over", {}))
     if "stages" in case:
         cfg = dataclasses.replace(cfg, stages=tuple(
             Stage(tuple(pat), n) for pat, n in case["stages"]))
@@ -428,6 +446,20 @@ def encoder_output(record: list, given=None):
         M.encode = plain
 
 
+def packed_widths(tree, path: str = "") -> list:
+    """(path, n, k) of every packed leaf of a rank's tree: the widths of
+    its views."""
+    if isinstance(tree, QLinear):
+        return [(path, tree.n, tree.k)]
+    if isinstance(tree, dict):
+        return [w for k, v in tree.items()
+                for w in packed_widths(v, f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [w for i, v in enumerate(tree)
+                for w in packed_widths(v, f"{path}/{i}")]
+    return []
+
+
 def serve_kinds_case(case, rank):
     """Sharded serving of the case's params (any kind) on its mesh:
     packed ones placed by ``launch.qdeclare.declare_quantized``'s specs,
@@ -437,7 +469,8 @@ def serve_kinds_case(case, rank):
     ``serve_tokens``, with its caches after the prefill and after each
     step and an encoder-decoder model's encoder output (``enc_out``);
     given the case's ``enc_out``, the same again with the decoder run
-    from it (``fixed``).  ``mutant``: :func:`whole_batch_moe`."""
+    from it (``fixed``); the widths of its packed views
+    (:func:`packed_widths`).  ``mutant``: :func:`whole_batch_moe`."""
     cfg = kind_cfg(case)
     params = unpack_tree(case["params"])
     mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
@@ -464,6 +497,7 @@ def serve_kinds_case(case, rank):
     if "enc_out" in case:
         with encoder_output([], case["enc_out"][rows]):
             out["fixed"] = serve_tokens(*args)
+    out["widths"] = packed_widths(lp)
     out["rows"] = (rows.start, rows.stop)
     out["coords"] = mesh.get_coordinate()
     return out
@@ -485,7 +519,8 @@ def main(argv) -> int:
         cases = torch.load(case_file, weights_only=True)
         results = {}
         for name, case in cases.items():
-            results[name] = TASKS[case["task"]](case, rank)
+            with rg_heads(case.get("rg_heads")):
+                results[name] = TASKS[case["task"]](case, rank)
             dist.barrier()
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
