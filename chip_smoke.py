@@ -239,9 +239,25 @@ Phases, each of which raises on failure:
    context-sharded decode combine of phi4-mini (8 slots, 16 chunks of
    2048) and of recurrentgemma's local window (16 chunks of 128), each
    against the whole on one device in f32;
-19. check that every (M, K, N) the packed matmul launched at in phases
-   5-18 was held against its plain version in phase 3, 6, 8, 9, 10, 16,
-   17 or 18, then print the ``kernels`` JSON line (six entries, one per TPU
+19. the sequence-parallel residual stream (``[dist sp]``): qwen2.5-3b's
+   sharded train step at full width and 4 of its 36 layers (2 steps of
+   4 x 512 tokens) and its sharded serving at full depth (data-free
+   unfused, prefill of 8 x 256 tokens and 16 greedy steps) as one NCCL
+   rank with ``Parallel.sp`` on and off, each bit-identical to one
+   device (the stream's entry and exit are identities at one rank;
+   their calls are counted); then the split arithmetic of tp 4 and 16
+   rank after rank on one full-width block of qwen2.5-3b and one of
+   phi4-mini-3.8b over 2 x 4096 positions (``[dist sp split ...]``):
+   each rank's chunk of the norms and residual adds bit-identical to
+   the whole's rows, the row products (plain f32 and the packed row
+   views) summed and cut to the chunks within 1e-5 of max|y| of one
+   device's, the empty chunks of a stream of 8 positions launching
+   nothing; the peak GB of the sp train step beside the saved
+   superblock inputs per rank of the tp-16 pod preset (``[dist sp
+   memory]``);
+20. check that every (M, K, N) the packed matmul launched at in phases
+   5-19 was held against its plain version in phase 3, 6, 8, 9, 10, 16,
+   17, 18 or 19, then print the ``kernels`` JSON line (six entries, one per TPU
    kernel: the five wrappers and the perm gather of ``mixed_matmul``)
    and the result line.  Each phase's wall seconds print as it ends
    (``[phase]``).
@@ -401,6 +417,25 @@ EXPERT_SPLIT_TP, EXPERT_SPLIT_ROWS = 4, (8, 640)
 UNEVEN_ARCH = "phi4-mini-3.8b"
 UNEVEN_STEPS, UNEVEN_TRAIN_DEPTH, UNEVEN_TP = 16, 4, 16
 UNEVEN_SPLIT_ROWS, UNEVEN_ATT_SHAPE, CTX_SLOTS = (8, 256), (2, 128), 8
+# The sequence-parallel stream (phase 19, ``[dist sp]``): qwen2.5-3b as
+# one NCCL rank with ``Parallel.sp`` on and off, each against one
+# device: its sharded train step at full width and SP_TRAIN_DEPTH of its
+# 36 layers (KIND_DIST_STEPS steps of KIND_DIST_ROWS x KIND_DIST_SEQ
+# tokens) and its sharded serving at full depth, quantized data-free
+# unfused (a prefill of DIST_SERVE_ROWS x DIST_SERVE_PROMPT tokens,
+# UNEVEN_STEPS greedy steps).  Then the split arithmetic of tp SP_TPS
+# rank after rank, one full-width block of qwen2.5-3b and one of
+# phi4-mini-3.8b on a stream of SP_SHAPE (rows, positions): each rank's
+# chunk of the norms and residual adds bit-identical to the whole's
+# rows, the row products (plain f32 and the packed row views' f32
+# output) summed in rank order and cut to the chunks within SPLIT_RTOL
+# of max|y| of one device's (the same partials that the replicated
+# route all-reduces: cuBLAS's f32 product of qwen2.5-3b's wo over 4
+# parts of K parted from the whole by 1.29e-6 of max|y| on an H100,
+# NVIDIA H100 80GB HBM3, 700.00 W, above the 1e-6 first aimed at), and
+# a stream of SP_EMPTY positions, whose trailing ranks hold no
+# position, launching nothing there.
+SP_TRAIN_DEPTH, SP_TPS, SP_SHAPE, SP_EMPTY = 4, (4, 16), (2, 4096), 8
 
 
 def _fail(msg: str) -> None:
@@ -4750,7 +4785,8 @@ def _split_product(torch, what: str, q, views, role: str, x, timer,
     the whole leaf's f32 accumulator within SPLIT_RTOL of max|y|, and
     after the one rounding each output within one bf16 ulp of the whole
     leaf's beyond the f32 gap.  A view of no column launches nothing.
-    The time of each distinct view shape beside its bound."""
+    The time of each distinct view shape beside its bound and
+    ``torch.matmul`` at the same local shape (bf16)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.mixed_matmul import KERNEL, mixed_matmul
 
@@ -4785,10 +4821,16 @@ def _split_product(torch, what: str, q, views, role: str, x, timer,
                           + (2 * v.k_s + v.k - v.k_s + 2 * v.n) * 4
                           + m * v.n * 4)
                 b, by = bound_ms(nbytes, 2.0 * m * v.k * v.n, peaks)
+                xl = torch.randn((m, v.k), device="cuda").to(torch.bfloat16)
+                dense = torch.randn((v.k, v.n), device="cuda").to(
+                    torch.bfloat16)
                 timed[shape] = {
                     "kernel_us": 1e3 * timer.ms(lambda: f32(v)),
                     "plain_us": 1e3 * timer.ms(lambda: plain(v)),
-                    "bound_us": 1e3 * b, "bound_by": by}
+                    "bound_us": 1e3 * b, "bound_by": by,
+                    "matmul_us": 1e3 * timer.ms(
+                        lambda: torch.matmul(xl, dense))}
+                del xl, dense
         parts.append(y)
     if role == "row":
         total = torch.zeros_like(whole)
@@ -5297,6 +5339,340 @@ def run_dist_uneven(torch, kernels, smi: str, peaks, checked) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the sequence-parallel residual stream
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _count_stream(counts: dict):
+    """Count the calls of ``Shards``' stream entry and exit methods in
+    ``counts`` (name -> calls): the route a run takes through them."""
+    from repro_torch.models.common import Shards
+    names = ("along", "stream_in", "stream_out", "stream_rep",
+             "stream_leaf", "stream_last")
+    plain = {n: getattr(Shards, n) for n in names}
+
+    def counted(n):
+        def call(self, *a, **k):
+            counts[n] = counts.get(n, 0) + 1
+            return plain[n](self, *a, **k)
+        return call
+    for n in names:
+        setattr(Shards, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, f in plain.items():
+            setattr(Shards, n, f)
+
+
+def _sp_block(torch, arch: str, qcfg):
+    """Layer 0's dense block of ``arch`` at full width, bf16 from seed
+    0 as a whole ``init_params`` would make it, and the same quantized
+    data-free unfused (``_layer0``)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.param import materialize
+    from repro_torch.configs import registry
+    cfg = registry.get(arch)
+    decl = M.declare_params(cfg)["stages"][0][0][0]
+    dense = materialize(decl, 0, "cuda", prefix=("stages", 0, 0, 0))
+    return cfg, dense, _layer0(torch, cfg, 0, qcfg)
+
+
+def check_sp_split(torch, tag, cfg, dense, packed, timer, peaks, gen,
+                   kernels) -> dict:
+    """The sequence-parallel split arithmetic of one block, rank after
+    rank at each tp of SP_TPS on a stream of SP_SHAPE: each rank's
+    chunk (``sharding.chunk_range``) of ln1, of the residual add and of
+    ln2 (``transformer._norm`` on the chunk) bit-identical to the
+    whole's rows; the row products of ``wo`` (the rank's whole heads)
+    and ``wd`` (its ffn rows), plain in f32 and packed (the row views of
+    ``sharding.local_view`` through ``_split_product``: each held
+    against its plain version), the f32 partials summed in rank order
+    and held within SPLIT_RTOL of max|y| of one device's f32 output
+    (the reduce-scatter cuts that sum into the ranks' chunks of
+    positions, which cover every row once), the plain gap printed
+    beside a reordered f32 sum's rigorous bound (2 gamma_K sum_k
+    |x_k w_k| over max|y|, as ``check_split_arithmetic`` derives it);
+    and on a stream of SP_EMPTY positions
+    the ranks whose chunk is empty run the chunk's work on no position,
+    launching nothing."""
+    from repro_torch.distributed.sharding import chunk_range, local_view
+    from repro_torch.models import transformer as T
+    b, s = SP_SHAPE
+    d = cfg.d_model
+    x = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    h = torch.randn((b, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    z1 = T._norm(cfg, dense["ln1"], x)
+    x2 = x + h
+    z2 = T._norm(cfg, dense["ln2"], x2)
+    out = {"arch": cfg.name, "stream": [b, s, d], "tps": list(SP_TPS),
+           "chunks": {}, "norm_rows_bit_identical": True, "products": []}
+    for tp in SP_TPS:
+        lens = []
+        for r in range(tp):
+            lo, hi = chunk_range(s, tp, r)
+            lens.append(hi - lo)
+            xr = x[:, lo:hi]
+            x2r = xr + h[:, lo:hi]
+            same = (_bits_equal(torch, T._norm(cfg, dense["ln1"], xr),
+                                z1[:, lo:hi])
+                    and _bits_equal(torch, x2r, x2[:, lo:hi])
+                    and _bits_equal(torch, T._norm(cfg, dense["ln2"], x2r),
+                                    z2[:, lo:hi]))
+            if not same:
+                _fail(f"[dist sp split {tag}] tp {tp} rank {r}: the chunk's "
+                      "norm or residual rows part from the whole's")
+        out["chunks"][str(tp)] = sorted(set(lens))
+    dh, hq = cfg.head_dim_, cfg.n_heads
+    for name, sub in (("wo", "attn"), ("wd", "mlp")):
+        w = dense[sub][name]
+        k = w.shape[0]
+        xin = torch.randn((b * s, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        whole = xin.float() @ w.float()
+        gamma = k * 2.0 ** -24 / (1 - k * 2.0 ** -24)
+        derived = float(2 * gamma * (xin.float().abs() @ w.float().abs())
+                        .max() / whole.abs().max())
+        for tp in SP_TPS:
+            total = torch.zeros_like(whole)
+            for r in range(tp):
+                lo, hi = (chunk_range(hq, tp, r) if name == "wo"
+                          else chunk_range(k, tp, r))
+                if name == "wo":
+                    lo, hi = lo * dh, hi * dh
+                total += xin[:, lo:hi].float() @ w[lo:hi].float()
+            gap = _held_split(total, whole, f"sp {tag} plain {name} tp={tp}")
+            out["products"].append({"leaf": name, "kind": "plain f32",
+                                    "tp": tp, "K": k, "N": w.shape[1],
+                                    "f32_rel_gap": gap,
+                                    "derived_rel_bound": derived})
+        q = packed[sub][name]
+        for tp in SP_TPS:
+            views = [local_view(q, "row", r, tp) for r in range(tp)]
+            row = _split_product(torch, f"sp {tag} {name} tp={tp}", q, views,
+                                 "row", xin, timer, peaks)
+            out["products"].append(dict(row, kind="packed row views"))
+        del xin, whole
+    # an empty chunk: the trailing ranks of a stream shorter than tp
+    xe = x[:, :SP_EMPTY]
+    empty = 0
+    for tp in SP_TPS:
+        for r in range(tp):
+            lo, hi = chunk_range(SP_EMPTY, tp, r)
+            if hi > lo:
+                continue
+            _reset(kernels)
+            xr = xe[:, lo:hi]
+            z = T._norm(cfg, dense["ln1"], xr + h[:, lo:hi])
+            launched = sum(_launches(kernels).values())
+            if launched or tuple(z.shape) != (b, 0, d):
+                _fail(f"[dist sp split {tag}] tp {tp} rank {r}: an empty "
+                      f"chunk gave {tuple(z.shape)} and launched {launched} "
+                      "kernels")
+            empty += 1
+    out["empty_chunks_checked"] = empty
+    return out
+
+
+def _saved_inputs_gb(cfg, par, rows: int, seq: int) -> dict:
+    """Bytes the superblock checkpoints of one microbatch keep on a rank
+    (one bf16 stream input a layer): the whole sequence, and the rank's
+    chunk of it with ``sp``."""
+    from repro_torch.distributed.sharding import chunk_range
+    per_pos = rows * cfg.d_model * 2 * cfg.n_layers
+    lo, hi = chunk_range(seq, par.tp, 0)
+    return {"replicated_gb": per_pos * seq / 1e9,
+            "sp_gb": per_pos * (hi - lo) / 1e9}
+
+
+def run_dist_sp(torch, kernels, smi: str, peaks, checked) -> dict:
+    """``[dist sp]``: the sequence-parallel stream.  (a) qwen2.5-3b as
+    one NCCL rank on a (1, 1) mesh: its sharded train step at full width
+    and SP_TRAIN_DEPTH layers with ``Parallel.sp`` on and off, each the
+    same bits as one device's with no launch, and its sharded serving at
+    full depth (data-free unfused, prefill and UNEVEN_STEPS greedy
+    steps) with ``sp`` on and off, each the same bits as one device's
+    with equal mixed_matmul launches and no paged launch; at one rank
+    the stream's entry and exit are identities, and their calls are
+    counted to show the route goes through them.  (b) The split
+    arithmetic of tp 4 and 16 (``check_sp_split``) on one block of
+    qwen2.5-3b and one of phi4-mini-3.8b.  (c) The peak GB of the sp
+    train step at one rank, beside the saved superblock inputs per rank
+    of the tp-16 pod preset for train_4k, replicated and with ``sp``
+    (arithmetic).  Returns the results with ``held`` (the packed-matmul
+    rows held here) and ``checked``."""
+    import types
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS, Stage
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.kernels.mixed_matmul import KERNEL
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.presets import make_preset
+    from repro_torch.launch.qdeclare import declare_quantized
+    from repro_torch.models import model as M
+    from repro_torch import pytree
+    cfg = registry.get(TRAIN_ARCH)
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    timer = Timer(torch)
+    torch.cuda.empty_cache()
+    before = dict(KERNEL.shapes)
+    out = {}
+    # (a) training: one device, then sp on and off as one NCCL rank
+    tcfg = dataclasses.replace(cfg, stages=(Stage(("dense",),
+                                                  SP_TRAIN_DEPTH),))
+    batches = _kind_batches(torch, tcfg, KIND_DIST_ROWS, KIND_DIST_SEQ,
+                            KIND_DIST_STEPS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    losses, ms, fn, state = _kind_steps(torch, train, tcfg, batches)
+    _no_launches("[dist sp train] one device", kernels)
+    t_one = {"losses": losses, "step_ms": ms,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    ref = [t.detach().clone() for t in pytree.leaves(state["params"])]
+    del fn, state
+    serve_cfg = cfg
+    qparams = quantize_params_data_free(M.init_params(serve_cfg, 0, "cuda"),
+                                        qcfg, min_dim=DIST_SERVE_MIN_DIM)
+    bs, s = DIST_SERVE_ROWS, DIST_SERVE_PROMPT
+    batch = {"tokens": torch.randint(1, cfg.vocab, (bs, s), generator=gen,
+                                     device="cuda", dtype=torch.int32),
+             "positions": torch.arange(s, dtype=torch.int32,
+                                       device="cuda").expand(bs, s)}
+    _reset(kernels)
+    one = _serve_greedy(torch, M, serve_cfg, qparams, batch,
+                        steps=UNEVEN_STEPS)
+    one_launches = _launches(kernels)
+    train_runs, serve_runs = {}, {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        for sp in (True, False):
+            tag = "sp" if sp else "replicated"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            par, rules = train.parallel_for(mesh, 1, True, 1024, fsdp=True)
+            par = dataclasses.replace(par, sp=sp)
+            tshards = train.make_shards(tcfg, par, mesh, rules)
+            _reset(kernels)
+            with _count_stream({}) as calls:
+                dlosses, dms, fn, state = _kind_steps(torch, train, tcfg,
+                                                      batches, tshards)
+            launches = _launches(kernels)
+            _no_launches(f"[dist sp train] {tag}", kernels)
+            held_t = _held(torch, f"sp train {tag}", tcfg, losses, dlosses,
+                           ref, state)
+            train_runs[tag] = {
+                "losses": dlosses, "step_ms": dms,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": launches, "stream_calls": calls, **held_t}
+            del fn, state
+            if not held_t["bit_identical"]:
+                _fail(f"[dist sp train] {tag}: the sharded step parts from "
+                      f"one device's: {held_t}")
+            if not calls.get("stream_in") or not calls.get("stream_out"):
+                _fail(f"[dist sp train] {tag}: the step did not go through "
+                      f"the stream's entry and exit: {calls}")
+        cell = next(c for c in SHAPE_CELLS if c.kind == "prefill")
+        for sp in (True, False):
+            tag = "sp" if sp else "replicated"
+            preset = make_preset(serve_cfg, cell, mesh)
+            par = dataclasses.replace(preset.par, sp=sp)
+            _, specs = declare_quantized(serve_cfg, par, qcfg, preset.rules,
+                                         min_dim=DIST_SERVE_MIN_DIM)
+            shards, lp = M.shard_for_serving(serve_cfg, par, qparams, specs,
+                                             mesh)
+            _reset(kernels)
+            with _count_stream({}) as calls:
+                sh = _serve_greedy(torch, M, serve_cfg, lp, batch, shards,
+                                   steps=UNEVEN_STEPS)
+            launches = _launches(kernels)
+            del lp, shards
+            same = all(_bits_equal(torch, a, c) for a, c in zip(
+                one["logits"], sh["logits"])) and all(
+                torch.equal(a, c) for a, c in zip(one["tokens"],
+                                                  sh["tokens"]))
+            serve_runs[tag] = {
+                "prefill_ms": sh["prefill_ms"],
+                "decode_step_ms": sum(sh["step_ms"]) / len(sh["step_ms"]),
+                "launches": launches, "stream_calls": calls,
+                "bit_identical": same}
+            if not same:
+                _fail(f"[dist sp serve] {tag}: sharded prefill and decode "
+                      "part from one device's")
+            if launches["mixed_matmul"] != one_launches["mixed_matmul"] or \
+                    launches["paged_attention"] or launches["paged_prefill"]:
+                _fail(f"[dist sp serve] {tag}: launches {launches} against "
+                      f"one device's {one_launches}")
+            if not calls.get("stream_last"):
+                _fail(f"[dist sp serve] {tag}: the prefill did not take its "
+                      f"last position through the stream: {calls}")
+    finally:
+        dist.destroy_process_group()
+    out["train"] = {"arch": cfg.name, "layers": SP_TRAIN_DEPTH,
+                    "of_layers": cfg.n_layers, "rows": KIND_DIST_ROWS,
+                    "seq": KIND_DIST_SEQ, "one_device": t_one, **train_runs}
+    out["serve"] = {"arch": cfg.name, "layers": cfg.n_layers, "rows": bs,
+                    "prompt": s, "steps": UNEVEN_STEPS,
+                    "one_device": {"prefill_ms": one["prefill_ms"],
+                                   "decode_step_ms": sum(one["step_ms"])
+                                   / len(one["step_ms"]),
+                                   "launches": one_launches}, **serve_runs}
+    print(f"[dist sp train] {smi}: " + json.dumps(out["train"]), flush=True)
+    print(f"[dist sp serve] {smi}: " + json.dumps(out["serve"]), flush=True)
+    del one, batch, ref
+    torch.cuda.empty_cache()
+    new = [sh_ for sh_, c in KERNEL.shapes.items() if c > before.get(sh_, 0)]
+    held = hold_new_shapes(torch, qparams, new, checked, timer, peaks, gen,
+                           "sp")
+    if held:
+        print_rows("dist sp mixed_matmul", "the shapes new to the phase",
+                   held, sorted({r["M"] for r in held}))
+    del qparams
+    torch.cuda.empty_cache()
+    # (b) the split arithmetic of tp 4 and 16, rank after rank
+    split = {}
+    checked = set(checked) | {(r["M"], r["K"], r["N"]) for r in held}
+    for tag, arch in (("qwen2.5", TRAIN_ARCH), ("phi4", UNEVEN_ARCH)):
+        bcfg, dense, packed = _sp_block(torch, arch, qcfg)
+        split[tag] = check_sp_split(torch, tag, bcfg, dense, packed, timer,
+                                    peaks, gen, kernels)
+        for r in split[tag]["products"]:
+            checked |= {tuple(t) for t in r.get("shapes", [])}
+        print(f"[dist sp split {tag}] {smi} (f32 gap limit {SPLIT_RTOL} "
+              f"of max|y|): " + json.dumps(split[tag]), flush=True)
+        del dense, packed
+        torch.cuda.empty_cache()
+    out["split"] = split
+    # (c) peak memory, and the pod preset's saved inputs per rank
+    cell = next(c for c in SHAPE_CELLS if c.name == "train_4k")
+    pod = types.SimpleNamespace(shape={"data": 16, "model": 16},
+                                axis_names=("data", "model"),
+                                devices=types.SimpleNamespace(size=256))
+    ppar = make_preset(cfg, cell, pod).par
+    rows = cell.global_batch // ppar.dp // ppar.microbatches
+    out["memory"] = {
+        "sp_train_peak_gb_one_rank": train_runs["sp"]["peak_mem_gb"],
+        "replicated_train_peak_gb_one_rank":
+            train_runs["replicated"]["peak_mem_gb"],
+        "pod_preset": {"cell": cell.name, "tp": ppar.tp, "dp": ppar.dp,
+                       "microbatches": ppar.microbatches,
+                       "rows_per_microbatch": rows, "seq": cell.seq_len,
+                       "layers": cfg.n_layers,
+                       **_saved_inputs_gb(cfg, ppar, rows, cell.seq_len)}}
+    print(f"[dist sp memory] {smi}: " + json.dumps(out["memory"]),
+          flush=True)
+    out["held"] = held
+    out["checked"] = checked
+    del timer
+    torch.cuda.empty_cache()
+    return out
+
+
 class Laps:
     """Wall seconds of each phase, printed as it ends (``[phase]``)."""
 
@@ -5745,7 +6121,13 @@ def main() -> int:
                                         for r in uneven["held"]}
 
     laps("18")
-    # -- 19. every packed-matmul shape of the paths was checked; the kernels
+    # -- 19. the sequence-parallel stream: qwen2.5-3b trained and served as
+    # one NCCL rank with sp on and off, the tp 4 / 16 split arithmetic ----
+    sp_run = run_dist_sp(torch, kernels, smi, peaks, checked)
+    checked = set(sp_run["checked"])
+
+    laps("19")
+    # -- 20. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
@@ -5755,8 +6137,8 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-18 was held against its plain version in phase 3, "
-          "6, 8, 9, 10, 16, 17 or 18; launches by shape: "
+          "at in phases 5-19 was held against its plain version in phase 3, "
+          "6, 8, 9, 10, 16, 17, 18 or 19; launches by shape: "
           + json.dumps(by_shape), flush=True)
     launches = {"datafree": summary["launches"],
                 "calibrated": cal_summary["launches"],
@@ -5810,7 +6192,11 @@ def main() -> int:
                     uneven["phi4 serve"]["one_device"]["launches"],
                 "dist uneven phi4": uneven["phi4 serve"]["sharded"]["launches"],
                 "dist uneven phi4 train":
-                    uneven["phi4 train"]["sharded"]["launches"]}
+                    uneven["phi4 train"]["sharded"]["launches"],
+                "dist sp train": sp_run["train"]["sp"]["launches"],
+                "dist sp serve": sp_run["serve"]["sp"]["launches"],
+                "dist sp serve replicated":
+                    sp_run["serve"]["replicated"]["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -5846,7 +6232,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("19")
+    laps("20")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,14 @@ train step needs them.
 * :func:`gather_narrow`: a gather whose backward keeps this rank's part
   of the gradient instead of summing it, for a gathered tensor that
   every rank of the group then uses in the same replicated computation.
+* :func:`gather_seq` and :func:`scatter_seq`, the sequence-parallel
+  pair over uneven chunks (rank r holding items [r·c, min((r+1)·c, n))
+  of n, c = ceil(n / size)): the whole from every rank's chunk, whose
+  backward reduce-scatters the gradient back to the chunk (or, for a
+  whole that every rank uses alike, keeps this rank's chunk of it); and
+  the sum over the group cut to this rank's chunk, whose backward
+  gathers the gradient.  Each part is padded with zeros to c and the
+  padding stripped after, so the pad changes no value.
 * :func:`all_reduce_`: an in-place reduction without gradient.
 * :func:`gather_chunks`: the whole tensor from every rank's uneven chunk
   of it (``torch.chunk``'s layout), without gradient: the O(K) vectors
@@ -59,6 +67,62 @@ def _scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
                       dtype=g.dtype, device=g.device)
     _scatter_from(out, gs, op=dist.ReduceOp.SUM, group=group)
     return out.movedim(0, dim)
+
+
+def _chunk(n: int, size: int, rank: int):
+    """[lo, hi) of rank's chunk of n items (``sharding.chunk_range``'s
+    layout) and the chunk length c."""
+    c = -(-n // size)
+    lo = min(rank * c, n)
+    return lo, min(lo + c, n), c
+
+
+def _pad(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` padded with zeros along ``dim`` to ``n`` items."""
+    if x.shape[dim] == n:
+        return x
+    shape = list(x.shape)
+    shape[dim] = n - x.shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def _gather_seq(x: torch.Tensor, dim: int, n: int, group) -> torch.Tensor:
+    c = _chunk(n, dist.get_world_size(group), 0)[2]
+    return _gather(_pad(x, dim, c), dim, group).narrow(dim, 0, n)
+
+
+def _scatter_seq(y: torch.Tensor, dim: int, group) -> torch.Tensor:
+    size, n = dist.get_world_size(group), y.shape[dim]
+    lo, hi, c = _chunk(n, size, dist.get_rank(group))
+    return _scatter(_pad(y, dim, size * c), dim, group).narrow(dim, 0, hi - lo)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, n, group, rep):
+        ctx.dim, ctx.group, ctx.rep = dim, group, rep
+        ctx.lo, ctx.hi, _ = _chunk(n, dist.get_world_size(group),
+                                   dist.get_rank(group))
+        return _gather_seq(x, dim, n, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.rep:
+            g = g.narrow(ctx.dim, ctx.lo, ctx.hi - ctx.lo)
+        else:
+            g = _scatter_seq(g, ctx.dim, ctx.group)
+        return g, None, None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, dim, group):
+        ctx.dim, ctx.n, ctx.group = dim, y.shape[dim], group
+        return _scatter_seq(y, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.dim, ctx.n, ctx.group), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -144,6 +208,24 @@ def gather_narrow(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     this rank's part, for a result that every rank uses alike (each
     holds the whole gradient already)."""
     return _GatherNarrow.apply(x, dim, group)
+
+
+def gather_seq(x: torch.Tensor, dim: int, n: int, group,
+               rep: bool = False) -> torch.Tensor:
+    """The whole ``n`` items along ``dim`` from every rank's chunk
+    ``x`` of them (rank r: [r·c, min((r+1)·c, n)), c = ceil(n / size),
+    possibly empty).  Backward: the gradient summed over the group and
+    cut to this rank's chunk (a reduce-scatter), or with ``rep`` (a
+    whole that every rank then uses alike, so each holds the whole
+    gradient) this rank's chunk of it."""
+    return _GatherSeq.apply(x, dim, n, group, rep)
+
+
+def scatter_seq(y: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of ``y`` summed over the group
+    (a reduce-scatter in :func:`gather_seq`'s layout); its backward
+    gathers the gradient."""
+    return _ScatterSeq.apply(y, dim, group)
 
 
 def grad_sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -200,7 +200,10 @@ def parallel_for(mesh, microbatches: int = 1, remat: bool = False,
                  ep: bool = False):
     """(Parallel, Rules) of a run under ``mesh``, as the reference's
     ``run`` builds them: tp the "model" dim, dp the other devices,
-    sequence parallelism on when tp > 1; ``ep`` shards the experts over
+    sequence parallelism on when tp > 1 (the residual stream between
+    blocks is then each model rank's chunk of every microbatch's
+    sequence, ``Shards.along``; the microbatches split the rows, never
+    the sequence); ``ep`` shards the experts over
     "model" (``launch.presets`` chooses it; ``run`` does not, as the
     reference's does not)."""
     names = mesh_axis_names(mesh)

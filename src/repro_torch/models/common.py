@@ -9,7 +9,9 @@ tensors (``torch.distributed.tensor.DTensor`` holds the train state;
 the model sees ``to_local()`` shards), so where the reference hints,
 the port's model code calls the collectives of :class:`Shards`
 explicitly: the FSDP gather of a block's leaves, Megatron's f and g
-around the tensor-parallel products, the vocab-parallel embedding and
+around the tensor-parallel products (on the sequence-parallel stream,
+``par.sp``, the all-gather and reduce-scatter along the sequence that
+take their place), the vocab-parallel embedding and
 cross entropy, the experts' reshard under EP and the gathers of the
 group-local MoE and the sLSTM's replicated scan, and in sharded serving
 the row-parallel packed product (:meth:`Shards.row`).  Off a mesh, or on
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
@@ -48,11 +51,17 @@ class Parallel:
 
     The full mesh/rule mapping lives in ``repro_torch.distributed.
     sharding``; the model needs the tensor-parallel degree (to replicate
-    KV heads) and, in the reference, whether to emit sequence-parallel
-    sharding hints.  The port's sharded step keeps the residual stream
-    replicated over "model" between blocks whatever ``sp`` says (the
-    sequence-parallel layout is ROADMAP queue 1); it changes where the
-    stream lives, not what is computed.
+    KV heads) and whether the residual stream is sequence-parallel.
+    With ``sp``, tp > 1 and more than one position (the sharded train
+    step, sharded prefill, the encoder), each model rank holds its
+    chunk of the stream's sequence between blocks (``Shards.along``:
+    ``sharding.chunk_range``'s layout, as GSPMD pads the reference's
+    hint), and each tensor-parallel sublayer gathers its input and
+    reduce-scatters its output; without, the stream is replicated over
+    "model" and each sublayer's output is all-reduced.  Decode (one
+    position) keeps the replicated stream either way.  ``sp`` changes
+    where the stream lives and which collectives run, not what is
+    computed.
     """
 
     tp: int = 1                 # size of the "model" mesh axis
@@ -167,7 +176,12 @@ class Shards:
     pod-major, as the reference's ``("pod", "data")`` batch spec splits
     it.  Groups of one rank skip their collective, so a one-rank mesh
     computes what one device does.
+
+    ``seq`` is the length of the sequence-parallel stream of the call
+    (:meth:`along`), None where the stream is replicated over "model".
     """
+
+    seq: Optional[int] = None
 
     def __init__(self, mesh, par: Parallel, specs: Tree):
         names = tuple(mesh.mesh_dim_names or ())
@@ -253,17 +267,99 @@ class Shards:
         sums), whose backward is the identity."""
         return x if self.tp == 1 else C.sum_over(x, self.group("model"))
 
+    # -- the residual stream: replicated, or sequence-parallel --------------
+    def splits(self, s: int) -> bool:
+        """True when a stream of ``s`` positions is sequence-parallel:
+        ``par.sp``, tp > 1 and s > 1 (the reference's ``hint_act``)."""
+        return self.par.sp and self.tp > 1 and s > 1
+
+    def along(self, s: int) -> "Shards":
+        """This rank's place for a call whose stream has ``s`` positions:
+        a copy whose ``seq`` is s where :meth:`splits`, else None.  The
+        model's entry points (``forward_loss``, ``prefill``, ``encode``)
+        take it once and pass it down, so a block recomputed in the
+        backward pass sees the same layout."""
+        view = copy.copy(self)
+        view.seq = s if self.splits(s) else None
+        return view
+
+    def chunk(self) -> Tuple[int, int]:
+        """[lo, hi) of this model rank's positions of the stream
+        (``sharding.chunk_range``: ceil(seq / tp) a rank, the trailing
+        ranks short or empty); every position when replicated."""
+        if self.seq is None:
+            raise ValueError("the stream is replicated over 'model'")
+        return chunk_range(self.seq, self.tp, self.tp_rank)
+
+    def stream_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream entering a tensor-parallel sublayer: this rank's
+        chunk gathered along the sequence (backward: the gradient's
+        reduce-scatter), or, replicated, Megatron's f (:meth:`enter`)."""
+        if self.seq is None:
+            return self.enter(x)
+        return C.gather_seq(x, 1, self.seq, self.group("model"))
+
+    def stream_rep(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream's whole rows for a computation every model rank
+        runs alike (the MoE's routing and its aux loss): this rank's
+        chunk gathered along the sequence, its backward keeping this
+        rank's chunk of the gradient; replicated, ``x``."""
+        if self.seq is None:
+            return x
+        return C.gather_seq(x, 1, self.seq, self.group("model"), rep=True)
+
+    def stream_out(self, y: torch.Tensor) -> torch.Tensor:
+        """A sublayer's partial sums leaving into the stream: summed over
+        "model" and cut to this rank's chunk (a reduce-scatter; backward:
+        the gradient's all-gather), or, replicated, all-reduced
+        (:meth:`leave`)."""
+        if self.seq is None:
+            return self.leave(y)
+        return C.scatter_seq(y, 1, self.group("model"))
+
+    def stream_part(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of a (B, S, ...) tensor every model rank
+        holds whole (the encoder's frames, a packed MoE's output); the
+        whole when replicated."""
+        if self.seq is None:
+            return x
+        lo, hi = self.chunk()
+        return x.narrow(1, lo, hi - lo)
+
+    def stream_leaf(self, tree: Tree) -> Tree:
+        """A replicated leaf (a norm's scale and bias) applied to the
+        stream: on the sequence-parallel stream each rank's gradient
+        covers its chunk alone, so it is summed over "model"
+        (:meth:`enter`); replicated, the tree as it is."""
+        if self.seq is None:
+            return tree
+        return map_tree(tree, lambda path, t: self.enter(t))
+
+    def stream_last(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1, D): the stream's last position on every model rank,
+        from the rank whose chunk holds it (each rank's last row, or
+        zeros from an empty chunk, gathered over "model")."""
+        if self.seq is None:
+            return x[:, -1:]
+        last = x[:, -1:] if x.shape[1] else x.new_zeros(
+            (x.shape[0], 1) + tuple(x.shape[2:]))
+        c = -(-self.seq // self.tp)
+        return C.all_gather(last, 1, self.group("model")).narrow(
+            1, (self.seq - 1) // c, 1)
+
     def row(self, x: torch.Tensor, w, heads: Optional[Tuple[int, int]] = None
             ) -> torch.Tensor:
         """A row-parallel product (``wo``, ``wd``) of this rank's input
-        columns ``x`` (its heads or ffn columns).  A plain leaf: the
-        local product's partial sums summed over "model" (g).  A packed
-        row view (``qlinear_local``): x gathered over "model" whole, the
-        view's perm gathers its channels from it, the packed matmul
-        returns its f32 accumulator, the partials are summed over
-        "model" in f32 and rounded to bf16 once, as one device's kernel
-        rounds its accumulator once (a bf16 sum of rounded partials
-        would add up to tp/2 ulps).
+        columns ``x`` (its heads or ffn columns) over the whole sequence,
+        leaving into the stream (:meth:`stream_out`).  A plain leaf: the
+        local product's partial sums summed over "model" (g), or
+        reduce-scattered to this rank's chunk of the sequence-parallel
+        stream.  A packed row view (``qlinear_local``): x gathered over
+        "model" whole, the view's perm gathers its channels from it, the
+        packed matmul returns its f32 accumulator, the partials are
+        summed (or reduce-scattered) over "model" in f32 and rounded to
+        bf16 once, as one device's kernel rounds its accumulator once (a
+        bf16 sum of rounded partials would add up to tp/2 ulps).
 
         ``heads`` (n, width): x holds this rank's whole heads
         (:meth:`heads` of n) of ``width`` columns each; a plain leaf
@@ -273,7 +369,7 @@ class Shards:
         if not isinstance(w, QLinear):
             if heads is not None:
                 w = self.head_part(w, heads[0], 0)
-            return self.leave(dense(x, w))
+            return self.stream_out(dense(x, w))
         if heads is None:
             xw = self.gather_model(x, x.ndim - 1)
         else:
@@ -282,7 +378,9 @@ class Shards:
             xw = self.gather_heads(xh, n, xh.ndim - 2).reshape(
                 x.shape[:-1] + (n * width,))
         y = ops.mixed_matmul(xw, w, out_dtype=torch.float32)
-        if self.tp > 1:
+        if self.seq is not None:
+            y = C.scatter_seq(y, 1, self.group("model"))
+        elif self.tp > 1:
             y = C.all_reduce_(y.contiguous(), self.group("model"))
         return y.to(torch.bfloat16).to(x.dtype)
 

@@ -320,14 +320,18 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     ``cache_window``, also returns the decode ring cache built from the
     K/V computed here; with ``return_kv``, those K/V themselves (the
     cross-attention's decode cache).  With ``shards`` (the sharded
-    train step, and sharded serving): x and ``xkv`` are replicated over
-    "model", the heads are this rank's (the ring cache holds this
-    rank's run-time KV heads), and ``wo``'s row shard gives partial
-    sums that are summed over "model" (Megatron's f and g;
-    ``Shards.row``, which also runs a packed ``wo``'s row view)."""
+    train step, and sharded serving): x is the stream (this rank's
+    chunk of it on the sequence-parallel stream, ``Shards.along``),
+    which enters whole (``Shards.stream_in``); ``xkv`` is the encoder's
+    output, whole on every model rank (entered here unless the encoder
+    ran sequence-parallel and gathered it once, ``model.encode``); the
+    heads are this rank's (the ring cache holds this rank's run-time KV
+    heads), and ``wo``'s row shard gives partial sums that leave into
+    the stream (``Shards.row``: all-reduced, or reduce-scattered to the
+    chunk; it also runs a packed ``wo``'s row view)."""
     if shards is not None:
-        x = shards.enter(x)
-        if xkv is not None:
+        x = shards.stream_in(x)
+        if xkv is not None and not shards.splits(xkv.shape[1]):
             xkv = shards.enter(xkv)
     if xkv is None:
         xkv, kv_positions = x, positions
@@ -710,11 +714,13 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
 def apply_mlp(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
               ) -> torch.Tensor:
     """The gated MLP; with ``shards``, over this rank's ffn columns of
-    wg / wu and rows of wd, the partial sums summed over "model"
-    (``Shards.row``: a packed wd's row view sums f32 partials and rounds
-    once)."""
+    wg / wu and rows of wd: the stream enters whole
+    (``Shards.stream_in``) and the partial sums leave into it
+    (``Shards.row``: all-reduced, or reduce-scattered to this rank's
+    chunk of the sequence-parallel stream; a packed wd's row view sums
+    f32 partials and rounds once)."""
     if shards is not None:
-        x = shards.enter(x)
+        x = shards.stream_in(x)
     if "wgu" in p:
         gu = p["wgu"]
         g, u = gu.split_out(dense(x, gu))
@@ -801,15 +807,20 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
 
     With ``shards`` (the sharded train step, and sharded serving) the
     MoE is the reference's group-local one (``_apply_moe_shard_map``):
-    x holds this data rank's rows, which it routes alone with the
-    capacity of their token count, the same on every model rank.  Float
+    x holds this data rank's whole rows, every position, on every model
+    rank (the caller gathers the sequence-parallel stream first,
+    ``Shards.stream_rep``, as the reference's shard_map takes its input
+    whole over "model"), which it routes alone with the capacity of
+    their token count, the same on every model rank; the output is the
+    stream (this rank's chunk of the sequence-parallel one).  Float
     experts run over this rank's ffn part (an EP leaf is resharded to
-    it, ``Shards.experts``) and the combine's partial sums are summed
-    over "model"; packed experts (sharded serving) take the reference's
-    quantized layout: ``wg`` / ``wu`` over this rank's ffn columns of
-    every expert, g·u gathered over "model", ``wd`` whole at full K, no
-    partial sums (``distributed.sharding.expert_local`` lays them out
-    at placement).  Where the reference keeps the whole-batch function
+    it, ``Shards.experts``) and the combine's partial sums leave into
+    the stream (``Shards.stream_out``); packed experts (sharded
+    serving) take the reference's quantized layout: ``wg`` / ``wu``
+    over this rank's ffn columns of every expert, g·u gathered over
+    "model", ``wd`` whole at full K, no partial sums, the output cut to
+    the rank's chunk (``distributed.sharding.expert_local`` lays them
+    out at placement).  Where the reference keeps the whole-batch function
     under a mesh, so does the port: with rows of one token every data
     rank routes the whole batch and keeps its rows, and with the batch
     not split over data (``par.shard_batch`` off) every data rank holds
@@ -864,7 +875,9 @@ def _moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     for j in range(m.top_k):
         out = out + contrib[:, j]
     out = out.reshape(b, s, d)
-    return out if shards is None or packed else shards.leave(out)
+    if shards is None:
+        return out
+    return shards.stream_part(out) if packed else shards.stream_out(out)
 
 
 def moe_aux_loss(cfg: ArchConfig, x: torch.Tensor, router: torch.Tensor,
@@ -872,7 +885,8 @@ def moe_aux_loss(cfg: ArchConfig, x: torch.Tensor, router: torch.Tensor,
     """Switch-style load-balancing auxiliary loss: E · Σ_e (share of
     tokens whose top-1 is e) · (mean router probability of e).
 
-    With ``shards`` x holds this data rank's rows and the loss is over
+    With ``shards`` x holds this data rank's whole rows (every position,
+    as :func:`apply_moe` takes them) and the loss is over
     the global batch, as the reference leaves it to GSPMD: the top-1
     counts and the token count are summed over the data ranks, and the
     result is this rank's share (its probabilities' sum over the global

@@ -96,7 +96,8 @@ def _embed_sharded(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
                    shards) -> torch.Tensor:
     """The vocab-parallel lookup: this rank's rows of the embedding
     (gathered over data) give the tokens they hold, zeros elsewhere,
-    summed over "model"."""
+    summed over "model" into the stream (``Shards.stream_out``: this
+    rank's chunk of the sequence-parallel one)."""
     e = shards.gather(params["embed"], shards.specs["embed"])
     if shards.tp == 1:
         return e[tokens.long()]
@@ -106,7 +107,7 @@ def _embed_sharded(cfg: ArchConfig, params: Tree, tokens: torch.Tensor,
     x = e[idx.clamp(0, rows - 1)]
     x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                       device=x.device))
-    return shards.leave(x)
+    return shards.stream_out(x)
 
 
 def _head_sharded(cfg: ArchConfig, params: Tree, shards):
@@ -138,16 +139,20 @@ def softmax_xent_chunked(cfg: ArchConfig, params: Tree, x: torch.Tensor,
     columns its vocabulary shard: the log-sum-exp takes its max and its
     sum over "model", the target's logit comes from the rank that holds
     it, and the mean divides by the masked count of every data rank, so
-    the data ranks' losses sum to the global mean."""
-    b, s, _ = x.shape
+    the data ranks' losses sum to the global mean.  On the
+    sequence-parallel stream (``shards.seq``) x is this rank's chunk:
+    the final norm runs on it and the normed stream enters whole
+    (``Shards.stream_in``) before the head."""
     norm = params["final_norm"]
     if shards is None:
         x = L.apply_norm(cfg, norm, x)
         w, off = _head_weight(cfg, params), 0
     else:
-        norm = shards.gather_tree(norm, shards.specs["final_norm"])
-        x = shards.enter(L.apply_norm(cfg, norm, x))
+        norm = shards.stream_leaf(shards.gather_tree(
+            norm, shards.specs["final_norm"]))
+        x = shards.stream_in(L.apply_norm(cfg, norm, x))
         w, off = _head_sharded(cfg, params, shards)
+    b, s, _ = x.shape
     parallel = shards is not None and shards.tp > 1
     chunk = min(chunk, s)
     if s % chunk:
@@ -186,13 +191,19 @@ def _backbone_inputs(cfg: ArchConfig, params: Tree,
                      batch: Dict[str, torch.Tensor], shards=None):
     """Token embeddings, the first F of them replaced by the batch's
     ``vision_embeds`` (B, F, D) in a vision model, and positions
-    (default 0..S-1 per row)."""
+    (default 0..S-1 per row).  On the sequence-parallel stream
+    (``shards.seq``) the embeddings are this rank's chunk of positions
+    [lo, hi), and the vision embeddings of those positions take their
+    place (the splice of the whole, cut to the chunk); positions stay
+    whole."""
     tokens = batch["tokens"]
     x = (embed_tokens(cfg, params, tokens) if shards is None
          else _embed_sharded(cfg, params, tokens, shards))
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         ve = batch["vision_embeds"]
-        x = torch.cat([ve.to(x.dtype), x[:, ve.shape[1]:]], dim=1)
+        lo = 0 if shards is None or shards.seq is None else shards.chunk()[0]
+        k = max(0, min(ve.shape[1] - lo, x.shape[1]))
+        x = torch.cat([ve[:, lo:lo + k].to(x.dtype), x[:, k:]], dim=1)
     positions = batch.get("positions")
     if positions is None:
         b, s = tokens.shape
@@ -208,22 +219,33 @@ def encode(cfg: ArchConfig, params: Tree, frames: torch.Tensor,
     (B, S_enc) = 0..S_enc-1), non-causal, then the encoder's final
     norm.  With ``shards``, ``frames`` are this data rank's rows and the
     encoder's leaves its shards, gathered over data a superblock at a
-    time (not rematerialized, as in the reference)."""
+    time (not rematerialized, as in the reference).  Its stream is
+    sequence-parallel where ``Shards.splits`` S_enc (the reference
+    hints the frames so): each rank runs its chunk of the frames, and
+    the normed output is gathered over "model" once here for every
+    decoder block's cross K/V (its backward reduce-scatters their
+    gradients, which ``layers.attention_full`` then leaves alone)."""
     b, s, _ = frames.shape
     pos = torch.arange(s, dtype=torch.int32,
                        device=frames.device).expand(b, s)
     x = frames
     enc = params["enc"]
-    espec = None if shards is None else shards.specs["enc"]
+    espec = None
+    if shards is not None:
+        shards = shards.along(s)
+        espec = shards.specs["enc"]
+        x = shards.stream_part(frames)
     for si, sp in enumerate(enc["stages"]):
         x, _ = T.stage_full(cfg, _enc_stage(cfg), sp, x, pos, causal=False,
                             attn_chunk=attn_chunk, shards=shards,
                             sspec=None if espec is None
                             else espec["stages"][si])
     norm = enc["final_norm"]
-    if shards is not None:
-        norm = shards.gather_tree(norm, espec["final_norm"])
-    return L.apply_norm(cfg, norm, x), pos
+    if shards is None:
+        return L.apply_norm(cfg, norm, x), pos
+    norm = shards.stream_leaf(shards.gather_tree(norm, espec["final_norm"]))
+    x = L.apply_norm(cfg, norm, x)
+    return (x if shards.seq is None else shards.stream_in(x)), pos
 
 
 def _encoded(cfg: ArchConfig, params: Tree, batch, attn_chunk: int,
@@ -256,7 +278,11 @@ def forward_loss(cfg: ArchConfig, params: Tree,
     global loss over the data ranks), and the gradients reach each
     local shard reduced over the ranks.  Under a mesh with more than
     one data rank the MoE is the reference's group-local function
-    (``layers.apply_moe``)."""
+    (``layers.apply_moe``), and with ``par.sp`` the residual stream
+    between blocks is this rank's chunk of the sequence
+    (``Shards.along``)."""
+    if shards is not None:
+        shards = shards.along(batch["tokens"].shape[1])
     x, positions = _backbone_inputs(cfg, params, batch, shards)
     enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk, shards)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -402,7 +428,12 @@ def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
     over "model", so every rank returns the whole vocabulary of its
     rows.  The caches are this rank's, in the layout of
     :func:`declare_caches`: its rows, its run-time KV heads (self and
-    cross), its RG-LRU channels, the xLSTM state whole."""
+    cross), its RG-LRU channels, the xLSTM state whole.  With
+    ``par.sp`` the stream between blocks is this rank's chunk of the
+    prompt (``Shards.along``), and the last position comes from the
+    rank that holds it (``Shards.stream_last``)."""
+    if shards is not None:
+        shards = shards.along(batch["tokens"].shape[1])
     x, positions = _backbone_inputs(cfg, params, batch, shards)
     enc_out, enc_pos = _encoded(cfg, params, batch, attn_chunk, shards)
     caches = []
@@ -413,7 +444,8 @@ def prefill(cfg: ArchConfig, params: Tree, batch: Dict[str, torch.Tensor],
             None if shards is None else shards.specs["stages"][si])
         caches.append(c)
     if shards is not None:
-        return _logits_sharded(cfg, params, x[:, -1:], shards), tuple(caches)
+        return (_logits_sharded(cfg, params, shards.stream_last(x), shards),
+                tuple(caches))
     return logits_fn(cfg, params, x[:, -1:]), tuple(caches)
 
 

@@ -166,11 +166,14 @@ def rglru_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     ``h0`` folds into the first step: b_1 += a_1 * h0.
 
     With ``shards`` (the sharded train step, and sharded serving) x is
-    replicated over "model" and this rank holds R / tp channels
+    the stream, which enters whole (``Shards.stream_in``: gathered from
+    this rank's chunk of the sequence-parallel one), so the conv and
+    the scan see every position; this rank holds R / tp channels
     (``_rg_local``), their state too; the scan is elementwise per
-    channel, and ``w_out`` is the row product of ``Shards.row``."""
+    channel, and ``w_out`` is the row product of ``Shards.row``, which
+    leaves into the stream."""
     if shards is not None:
-        x, p = shards.enter(x), _rg_local(p, shards)
+        x, p = shards.stream_in(x), _rg_local(p, shards)
     gate = _gelu(dense(x, p["w_gate"]))
     u = dense(x, p["w_x"])
     u, conv_state = _causal_conv(p, u, conv0)
@@ -305,12 +308,13 @@ def mlstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     """The block over a whole sequence, chunk by chunk: x (B, S, D) ->
     (out (B, S, D), {"c": (B, H, dk, dv), "n": (B, H, dk)} f32).  S must
     be a multiple of min(chunk, S).  With ``shards`` (the sharded train
-    step, and sharded serving's prefill) x is replicated over "model",
-    the heads and their state are this rank's (``Shards.heads``), and
-    ``w_out`` is the row product of ``Shards.row``."""
-    b, s, _ = x.shape
+    step, and sharded serving's prefill) x is the stream, which enters
+    whole (``Shards.stream_in``), the heads and their state are this
+    rank's (``Shards.heads``), and ``w_out`` is the row product of
+    ``Shards.row``, which leaves into the stream."""
     if shards is not None:
-        x = shards.enter(x)
+        x = shards.stream_in(x)
+    b, s, _ = x.shape
     q, k, v, g, log_i, log_f = _mlstm_qkvg(cfg, p, x, shards)
     h, dv = q.shape[-2], v.shape[-1]
     o, state = mlstm_chunks(q, k, v, log_i, log_f, state, chunk)
@@ -629,14 +633,15 @@ def slstm_seq(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     = m = 0, n = 1e-6.
 
     With ``shards`` (the sharded train step; the reference's shard_map)
-    ``w_gates`` is column-parallel and ``zx`` is gathered over "model"
+    x enters whole (``Shards.stream_in``), ``w_gates`` is
+    column-parallel and ``zx`` is gathered over "model"
     (``Shards.gather_rep``: its gradient is not summed), the scan runs
     alike on every model rank over this data rank's rows with the
     replicated ``r_gates`` and ``b_gates``, and the FFN is
-    tensor-parallel."""
+    tensor-parallel, its output leaving into the stream."""
     b, _, d = x.shape
     if shards is not None:
-        x = shards.enter(x)
+        x = shards.stream_in(x)
     zx = dense(x, p["w_gates"])                             # (B, S, 4D)
     if shards is not None:
         zx = shards.gather_rep(zx, 2)

@@ -77,14 +77,31 @@ def _init_block(cfg: ArchConfig, kind: str) -> Tree:
             "mlp": L.init_moe(cfg) if kind == "moe" else L.init_mlp(cfg)}
 
 
+def _norm(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
+          ) -> torch.Tensor:
+    """A block's norm of the stream (this rank's chunk of it on the
+    sequence-parallel stream, whose scale's gradient is then summed
+    over "model", ``Shards.stream_leaf``)."""
+    return L.apply_norm(cfg, p if shards is None else shards.stream_leaf(p),
+                        x)
+
+
 def _ffn(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
-         shards=None) -> torch.Tensor:
+         shards=None, aux: Optional[List[torch.Tensor]] = None
+         ) -> torch.Tensor:
     """The block's feed-forward on its normed input: the gated MLP, or
     the mixture of experts over every token of the call (with
-    ``shards``, the group-local MoE of this data rank's rows)."""
-    if kind == "moe":
-        return L.apply_moe(cfg, p, x, shards)
-    return L.apply_mlp(cfg, p, x, shards)
+    ``shards``, the group-local MoE of this data rank's whole rows,
+    gathered from the sequence-parallel stream once for the routing and
+    the load-balancing loss, ``Shards.stream_rep``).  With ``aux``, a
+    moe block appends its router's load-balancing loss to it."""
+    if kind != "moe":
+        return L.apply_mlp(cfg, p, x, shards)
+    if shards is not None:
+        x = shards.stream_rep(x)
+    if aux is not None:
+        aux.append(L.moe_aux_loss(cfg, x, p["router"], shards))
+    return L.apply_moe(cfg, p, x, shards)
 
 
 def init_stage(cfg: ArchConfig, stage: Stage, cross: bool = False
@@ -184,7 +201,7 @@ def _cross(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     ``enc_out`` the keys come from the block's own normed stream, as in
     the reference (its ``quantize_model_baseline`` calibrates a block
     so).  With ``shards``, over this rank's heads."""
-    return L.attention_full(cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x),
+    return L.attention_full(cfg, p["xattn"], _norm(cfg, p["ln_x"], x, shards),
                             positions, causal=False, attn_chunk=attn_chunk,
                             use_rope=False, xkv=enc_out,
                             kv_positions=enc_pos, return_kv=return_kv,
@@ -206,18 +223,20 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     a moe block appends its router's load-balancing loss to it.  With
     ``shards`` (the sharded train step, any kind), ``p`` holds this
     rank's tensor-parallel shards, gathered over data, and x this data
-    rank's rows, replicated over "model"; a moe block's aux is this
-    data rank's share of the global batch's."""
+    rank's rows: replicated over "model", or this rank's chunk of the
+    sequence (positions whole) where ``shards.seq`` is set
+    (``Shards.along``), on which the norms and the residual adds run; a
+    moe block's aux is this data rank's share of the global batch's."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
         return _xlstm_seq(cfg, kind, p, x, shards)[0]
     if kind == "rglru":
-        h, _, _ = R.rglru_seq(cfg, p["rec"], L.apply_norm(cfg, p["ln1"], x),
+        h, _, _ = R.rglru_seq(cfg, p["rec"], _norm(cfg, p["ln1"], x, shards),
                               shards=shards)
         x = x + h
-        return x + L.apply_mlp(cfg, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
+        return x + L.apply_mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], x, shards),
                                shards)
-    h = L.attention_full(cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x),
+    h = L.attention_full(cfg, p["attn"], _norm(cfg, p["ln1"], x, shards),
                          positions, causal=causal,
                          window=_kind_window(cfg, kind),
                          attn_chunk=attn_chunk, shards=shards)
@@ -225,10 +244,8 @@ def block_full(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     if "xattn" in p:
         x = x + _cross(cfg, p, x, positions, enc_out, enc_pos, attn_chunk,
                        shards=shards)
-    z = L.apply_norm(cfg, p["ln2"], x)
-    if kind == "moe" and aux is not None:
-        aux.append(L.moe_aux_loss(cfg, z, p["mlp"]["router"], shards))
-    return x + _ffn(cfg, kind, p["mlp"], z, shards)
+    return x + _ffn(cfg, kind, p["mlp"], _norm(cfg, p["ln2"], x, shards),
+                    shards, aux)
 
 
 def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
@@ -244,7 +261,9 @@ def stage_full(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
     body in ``jax.checkpoint``.  With ``shards``, ``sparams`` are this
     rank's shards and ``sspec`` their specs: each superblock gathers
     its leaves over data first, inside the checkpoint, so that remat
-    gathers them again in the recomputation."""
+    gathers them again in the recomputation; on the sequence-parallel
+    stream (``shards.seq``) x is this rank's chunk, and so is what a
+    checkpoint keeps."""
     def superblock(x, aux, lp, li):
         if shards is not None:
             lp = shards.gather_tree(lp, sspec[li])
@@ -289,7 +308,10 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     K/V) of this rank's run-time KV heads, an rglru block's state of its
     R / tp channels, the xLSTM state whole on every model rank (the
     mLSTM's heads gathered over "model" here, the sLSTM's scan
-    replicated); row-parallel products go through ``Shards.row``."""
+    replicated); row-parallel products go through ``Shards.row``.  On
+    the sequence-parallel stream (``shards.seq``) x is this rank's
+    chunk, as in :func:`block_full`; the caches come from the gathered
+    input and are the same."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
         x, state = _xlstm_seq(cfg, kind, p, x, shards)
@@ -299,14 +321,14 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
         return x, state
     if kind == "rglru":
         h, h_n, conv = R.rglru_seq(cfg, p["rec"],
-                                   L.apply_norm(cfg, p["ln1"], x),
+                                   _norm(cfg, p["ln1"], x, shards),
                                    shards=shards)
         x = x + h
         return x + L.apply_mlp(cfg, p["mlp"],
-                               L.apply_norm(cfg, p["ln2"], x), shards), \
+                               _norm(cfg, p["ln2"], x, shards), shards), \
             {"h": h_n, "conv": conv}
     h, cache = L.attention_full(
-        cfg, p["attn"], L.apply_norm(cfg, p["ln1"], x), positions,
+        cfg, p["attn"], _norm(cfg, p["ln1"], x, shards), positions,
         causal=True, window=_kind_window(cfg, kind),
         attn_chunk=attn_chunk,
         cache_window=_cache_window(cfg, kind, max_seq), shards=shards)
@@ -316,7 +338,7 @@ def block_prefill(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                            attn_chunk, return_kv=True, shards=shards)
         x = x + h
         cache = {"self": cache, "xk": xk, "xv": xv}
-    return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
+    return x + _ffn(cfg, kind, p["mlp"], _norm(cfg, p["ln2"], x, shards),
                     shards), cache
 
 
@@ -326,7 +348,7 @@ def _xlstm_seq(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     its final state; the mLSTM's of this rank's heads under
     ``shards``)."""
     seq = R.mlstm_seq if kind == "mlstm" else R.slstm_seq
-    h, state = seq(cfg, p["cell"], L.apply_norm(cfg, p["ln1"], x),
+    h, state = seq(cfg, p["cell"], _norm(cfg, p["ln1"], x, shards),
                    shards=shards)
     return x + h, state
 
@@ -348,7 +370,8 @@ def stage_prefill(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
     (sharded serving) ``sparams`` are this rank's local leaves and
     packed views and ``sspec`` their specs (each layer's leaves over
     data gathered first), and the caches hold this rank's rows and
-    run-time KV heads."""
+    run-time KV heads; x is this rank's chunk of the sequence-parallel
+    stream where ``shards.seq`` is set."""
     per_pos: List[List[Tree]] = [[] for _ in stage.pattern]
     for li, lp in enumerate(sparams):
         if shards is not None:

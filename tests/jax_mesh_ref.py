@@ -6,7 +6,7 @@ because the count of host devices is fixed when JAX starts
 (``XLA_FLAGS=--xla_force_host_platform_device_count``).
 
     python tests/jax_mesh_ref.py OUT_DIR ARCH BATCH SEQ FRAMES \
-        NAME:DATA:MODEL:FSDP:EP ...
+        NAME:DATA:MODEL:FSDP:EP[:SEQ] ...
 
 ARCH is an architecture, or one with config fields overridden:
 ``ARCH+FIELD=INT,...`` (:func:`arch_spec`; the field ``rg_heads`` sets
@@ -14,8 +14,9 @@ the reference's ``models.recurrent.RG_HEADS`` for the run, a module
 attribute, :func:`rg_heads`).  For each case,
 ``jax.value_and_grad(forward_loss)`` of the reduced ``ARCH`` (f32
 weights from ``PRNGKey(0)``, the reference's synthetic
-batch of step 0, with the encoder's ``frames`` read from the ``.npy``
-file FRAMES unless it is ``-``) runs jitted under a (DATA, MODEL) mesh
+batch of step 0 (of the case's own SEQ where it gives one), with the
+``.npy`` file FRAMES unless it is ``-`` as the encoder's ``frames``,
+or a vision model's ``vision_embeds``) runs jitted under a (DATA, MODEL) mesh
 of ("data", "model"), the parameters placed by ``rules_for_mesh(mesh,
 fsdp, ep)`` and the batch over "data", as the reference's ``run``
 places them.  It writes ``OUT_DIR/NAME.npz``: ``loss`` and the
@@ -28,7 +29,8 @@ the parameters.
 For each case, the reference's ``M.prefill`` of the prompts of the
 ``.npz`` file INPUTS (``tokens``, ``positions``, ``frames`` for an
 encoder-decoder ARCH; ``max_seq``, ``steps``, ``attn_chunk``), then
-``steps`` greedy ``M.decode_step``s, on the reduced ``ARCH`` (its
+``steps`` greedy ``M.decode_step``s (the prefill given INPUTS'
+``vision_embeds`` too, for a vision ARCH), on the reduced ``ARCH`` (its
 stages' repeats set to REPEATS unless 0): its packed weights of
 :func:`serve_params` with PACKED (the packed products on the
 reference's kernel route, its Pallas kernel in interpret mode at every
@@ -56,8 +58,9 @@ N_DEVICES = 4
 
 
 def _case(spec: str):
-    name, data, model, fsdp, ep = spec.split(":")
-    return name, int(data), int(model), fsdp == "1", ep == "1"
+    name, data, model, fsdp, ep, *seq = spec.split(":")
+    return (name, int(data), int(model), fsdp == "1", ep == "1",
+            int(seq[0]) if seq else None)
 
 
 def params_f32(cfg):
@@ -239,7 +242,9 @@ def _serve_case(out, inp, name, arch, repeats, dp, tp, ep, packed) -> None:
     weights = (serve_params(cfg) if packed == "1" else
                jax.tree.map(jnp.asarray, params_f32(cfg)))
     names = ("tokens", "positions") + (("frames",) if cfg.enc_dec
-                                       else ())
+                                       else ()) + tuple(
+        k for k in ("vision_embeds",)
+        if k in inp.files and cfg.frontend == "vision")
     if dp * tp == 1:
         res = serve_eager(cfg, weights, {k: inp[k] for k in names},
                           max_seq, steps, chunk)
@@ -297,13 +302,17 @@ def _train_main(argv) -> int:
     out, arch, batch, seq = Path(argv[0]), argv[1], int(argv[2]), int(argv[3])
     cfg = reduced(arch)
     params = params_f32(cfg)
-    corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
-    tok, tgt = next(corpus.batches(batch, seq, 1, host=0, n_hosts=1 << 30))
-    data = {"tokens": jnp.asarray(tok), "targets": jnp.asarray(tgt)}
+    extra = {}
     if argv[4] != "-":
-        data["frames"] = jnp.asarray(np.load(argv[4]))
+        key = "vision_embeds" if cfg.frontend == "vision" else "frames"
+        extra[key] = jnp.asarray(np.load(argv[4]))
     for spec in argv[5:]:
-        name, dp, tp, fsdp, ep = _case(spec)
+        name, dp, tp, fsdp, ep, case_seq = _case(spec)
+        corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
+        tok, tgt = next(corpus.batches(batch, case_seq or seq, 1, host=0,
+                                       n_hosts=1 << 30))
+        data = {"tokens": jnp.asarray(tok), "targets": jnp.asarray(tgt),
+                **extra}
         mesh = compat_make_mesh((dp, tp), ("data", "model"))
         par = Parallel(tp=tp, dp=dp, fsdp=fsdp, remat=True, sp=tp > 1)
         rules = rules_for_mesh(mesh, fsdp=fsdp, ep=ep)
@@ -354,11 +363,13 @@ def start_serve(out_dir: Path, tag: str, inputs: dict, cases) -> tuple:
 
 def start(out_dir: Path, arch: str, batch: int, seq: int, cases,
           frames=None) -> tuple:
-    """Start the script on ``cases`` ((name, data, model, fsdp, ep), ...)
-    of ``arch`` in a process of its own with four host devices, the
-    batch carrying ``frames`` (a numpy array (batch, S_enc, D)) when
-    given; returns (process, log path) for :func:`finish`."""
-    specs = [f"{n}:{d}:{m}:{int(f)}:{int(e)}" for n, d, m, f, e in cases]
+    """Start the script on ``cases`` ((name, data, model, fsdp, ep[,
+    seq]), ...) of ``arch`` in a process of its own with four host
+    devices, the batch carrying ``frames`` (a numpy array (batch, S_enc,
+    D); a vision model's ``vision_embeds`` (batch, F, D)) when given;
+    returns (process, log path) for :func:`finish`."""
+    specs = [":".join([n] + [str(int(v)) for v in rest])
+             for n, *rest in cases]
     frames_arg = "-"
     if frames is not None:
         frames_arg = str(Path(out_dir) / f"{arch}.frames.npy")

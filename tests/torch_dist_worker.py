@@ -4,8 +4,8 @@ checks.
 Started by ``tests/test_torch_dist_train.py``,
 ``tests/test_torch_dist_kinds.py``, ``tests/test_torch_dist_serve.py``,
 ``tests/test_torch_dist_serve_kinds.py``,
-``tests/test_torch_dist_uneven.py`` and
-``tests/test_torch_pipeline.py``,
+``tests/test_torch_dist_uneven.py``, ``tests/test_torch_dist_sp.py``
+and ``tests/test_torch_pipeline.py``,
 one process per rank, with its rank,
 the world size, a rendezvous file under the test's ``tmp_path``, the
 case file the parent wrote and an output directory.  It imports torch
@@ -54,6 +54,7 @@ from repro_torch.models import common
 from repro_torch.models import layers
 from repro_torch.models import model as M
 from repro_torch.models import recurrent
+from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 
 
@@ -94,12 +95,82 @@ def rg_heads(n=None):
 
 def case_batches(cfg, case):
     """The case's batches, each with its step's ``frames`` when the case
-    carries them (an encoder-decoder model)."""
+    carries them: an encoder-decoder model's, or a vision model's
+    ``vision_embeds``."""
     data = batches(cfg.vocab, case["batch"], case["seq"], case["steps"] or 1)
     frames = case.get("frames")
     if frames is None:
         return data
-    return [dict(b, frames=f) for b, f in zip(data, frames)]
+    key = "vision_embeds" if cfg.frontend == "vision" else "frames"
+    return [dict(b, **{key: f}) for b, f in zip(data, frames)]
+
+
+@contextlib.contextmanager
+def stream_log(record: dict):
+    """In the body: the shape of the stream entering each block
+    (``record["blocks"]``: ``transformer.block_full`` and
+    ``block_prefill``, the remat recomputation included), and per
+    superblock checkpoint the shapes of the tensors it saves for the
+    backward pass (``record["saved"]``, through
+    ``torch.autograd.graph.saved_tensors_hooks`` around the
+    checkpoint: its inputs; what runs inside it saves to the
+    checkpoint's own hooks)."""
+    plain = {n: getattr(T, n) for n in ("block_full", "block_prefill",
+                                        "checkpoint")}
+    record.update(blocks=[], saved=[])
+
+    def block(name):
+        def run(cfg, kind, p, x, *a, **k):
+            record["blocks"].append(tuple(x.shape))
+            return plain[name](cfg, kind, p, x, *a, **k)
+        return run
+
+    def checkpoint(fn, *args, **kw):
+        saved = []
+
+        def pack(t):
+            saved.append(tuple(t.shape))
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = plain["checkpoint"](fn, *args, **kw)
+        record["saved"].append(saved)
+        return out
+    T.block_full, T.block_prefill = block("block_full"), block("block_prefill")
+    T.checkpoint = checkpoint
+    try:
+        yield record
+    finally:
+        for n, f in plain.items():
+            setattr(T, n, f)
+
+
+@contextlib.contextmanager
+def collective_log(record: list):
+    """Append (op, shape) of every all-gather, reduce-scatter and
+    all-reduce in the body to ``record``: the gathered output and the
+    reduce-scattered input (each laid out with the gathered dim first,
+    as ``distributed.collectives`` moves it), the all-reduced tensor."""
+    plain = (collectives._gather_into, collectives._scatter_from,
+             dist.all_reduce)
+
+    def gather(out, inp, *a, **k):
+        record.append(("all_gather", tuple(out.shape)))
+        return plain[0](out, inp, *a, **k)
+
+    def scatter(out, inp, *a, **k):
+        record.append(("reduce_scatter", tuple(inp.shape)))
+        return plain[1](out, inp, *a, **k)
+
+    def all_reduce(t, *a, **k):
+        record.append(("all_reduce", tuple(t.shape)))
+        return plain[2](t, *a, **k)
+    collectives._gather_into, collectives._scatter_from = gather, scatter
+    dist.all_reduce = all_reduce
+    try:
+        yield record
+    finally:
+        collectives._gather_into, collectives._scatter_from = plain[:2]
+        dist.all_reduce = plain[2]
 
 
 @contextlib.contextmanager
@@ -152,11 +223,17 @@ def train_case(case, rank):
     case's ``ep``): per-step losses (``steps`` of them, possibly none),
     the gathered final params, every rank's local parts, the gathered
     and local gradients of the first step, and the MoE routing of its
-    forward (``routes``)."""
+    forward (``routes``).  ``sp`` (when the case gives it) sets
+    ``Parallel.sp``; with ``record`` the first step's stream and
+    checkpoint shapes (:func:`stream_log`) and the collectives of one
+    forward without gradient (:func:`collective_log`) come back under
+    ``layout``."""
     cfg = case_cfg(case)
     mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
     par, rules = train.parallel_for(mesh, case["mb"], True, 1024,
                                     case["fsdp"], case.get("ep", False))
+    if "sp" in case:
+        par = dataclasses.replace(par, sp=case["sp"])
     shards = train.make_shards(cfg, par, mesh, rules)
     ccfg = CompressionConfig(kind=case["kind"])
     opt = optimizer(max(case["steps"], 1), case["lr"])
@@ -164,16 +241,22 @@ def train_case(case, rank):
     lp = pytree.tree_map(local, params)
     data = case_batches(cfg, case)
     rows = shards.rows(case["batch"])
-    record = []
-    with routes(record):
-        loss0, grads = train._loss_and_grads(
-            cfg, lp, {k: v[rows] for k, v in data[0].items()}, 1024, True,
-            shards)
+    record, layout = [], {}
+    first = {k: v[rows] for k, v in data[0].items()}
+    with routes(record), (stream_log(layout) if case.get("record")
+                          else contextlib.nullcontext()):
+        loss0, grads = train._loss_and_grads(cfg, lp, first, 1024, True,
+                                             shards)
+    if case.get("record"):
+        with torch.no_grad(), collective_log([]) as ops:
+            M.forward_loss(cfg, lp, first, 1024, True, shards)
+        layout["collectives"] = ops
     grads = pytree.tree_map(like, params, grads)
     out = {"loss0_share": float(loss0),
            "loss0": float(shards.data_sum(loss0)),
            "grads": pytree.tree_map(lambda t: full(t).clone(), grads),
-           "grad_locals": _locals(grads), "routes": record}
+           "grad_locals": _locals(grads), "routes": record,
+           "layout": layout}
     step = train.make_train_step(cfg, opt, ccfg, case["mb"], True, 1024,
                                  shards)
     state = _state(params, opt, ccfg)
@@ -470,12 +553,17 @@ def serve_kinds_case(case, rank):
     step and an encoder-decoder model's encoder output (``enc_out``);
     given the case's ``enc_out``, the same again with the decoder run
     from it (``fixed``); the widths of its packed views
-    (:func:`packed_widths`).  ``mutant``: :func:`whole_batch_moe`."""
+    (:func:`packed_widths`).  ``mutant``: :func:`whole_batch_moe`.
+    ``sp`` (when the case gives it) sets ``Parallel.sp``; with
+    ``record`` the shapes of the stream entering each block of the
+    prefill come back under ``layout`` (:func:`stream_log`); the
+    batch carries the case's ``frames`` or ``vision_embeds``."""
     cfg = kind_cfg(case)
     params = unpack_tree(case["params"])
     mesh = make_mesh(case["mesh"], ("data", "model"), "cpu")
     par, _ = train.parallel_for(mesh)
-    par = dataclasses.replace(par, shard_batch=case["shard_batch"])
+    par = dataclasses.replace(par, shard_batch=case["shard_batch"],
+                              sp=case.get("sp", par.sp))
     rules = sharding.rules_for_mesh(mesh, ep=case["ep"])
     if case.get("packed", True):
         _, specs = qdeclare.declare_quantized(
@@ -485,13 +573,17 @@ def serve_kinds_case(case, rank):
         specs = sharding.specs_for_tree(M.declare_params(cfg, par), rules)
     shards, lp = M.shard_for_serving(cfg, par, params, specs, mesh)
     rows = shards.rows(case["tokens"].shape[0])
-    batch = {k: case[k][rows] for k in ("tokens", "positions", "frames")
-             if k in case}
+    batch = {k: case[k][rows] for k in ("tokens", "positions", "frames",
+                                        "vision_embeds") if k in case}
     args = (cfg, lp, batch, case["max_seq"], case["steps"],
             case["attn_chunk"], shards)
+    layout = {}
     with (whole_batch_moe() if case.get("mutant")
-          else contextlib.nullcontext()), encoder_output([]) as enc:
+          else contextlib.nullcontext()), encoder_output([]) as enc, \
+            (stream_log(layout) if case.get("record")
+             else contextlib.nullcontext()):
         out = serve_tokens(*args, keep_caches=True)
+    out["layout"] = layout
     if enc:
         out["enc_out"] = enc[0]
     if "enc_out" in case:
