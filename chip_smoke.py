@@ -255,8 +255,19 @@ Phases, each of which raises on failure:
    nothing; the peak GB of the sp train step beside the saved
    superblock inputs per rank of the tp-16 pod preset (``[dist sp
    memory]``);
-20. check that every (M, K, N) the packed matmul launched at in phases
-   5-19 was held against its plain version in phase 3, 6, 8, 9, 10, 16,
+20. the dry-run (``[dryrun]``, ``launch/dryrun.py``) in processes of
+   its own: qwen3-4b's decode_32k as rank 0 of the 256-rank pod at full
+   width and depth on fake cuda tensors (FLOPs, eager bytes,
+   collectives, peak GB against 80, roofline bound and dominant term,
+   trace seconds); then its prediction of three steps on a (1, 1) mesh
+   held against the same steps run here as one NCCL rank: qwen3-4b
+   served at full depth (prefill of 8 x 256, one decode step) and
+   qwen2.5-3b's train step at 4 of 36 layers (4 x 512): FLOPs
+   (``FlopCounterMode`` plus 2·M·K·N per packed launch) and packed
+   launches by shape equal, the card's peak within 15% of the
+   predicted, the step's wall ms beside the roofline bound;
+21. check that every (M, K, N) the packed matmul launched at in phases
+   5-20 was held against its plain version in phase 3, 6, 8, 9, 10, 16,
    17, 18 or 19, then print the ``kernels`` JSON line (six entries, one per TPU
    kernel: the five wrappers and the perm gather of ``mixed_matmul``)
    and the result line.  Each phase's wall seconds print as it ends
@@ -5673,6 +5684,317 @@ def run_dist_sp(torch, kernels, smi: str, peaks, checked) -> dict:
     return out
 
 
+# phase 20: the dry-run's cells beside the card's runs of them
+DRYRUN_CELL = ("qwen3-4b", "decode_32k", "pod")
+DRYRUN_MEM_RTOL = 0.15
+DRYRUN_PREDICT = r"""
+import dataclasses, json, sys
+from repro_torch.configs import registry
+from repro_torch.configs.base import ShapeCell, Stage
+from repro_torch.core.qlinear import QuantConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.dryrun import cell_record
+kind = sys.argv[2]
+mesh = ((1, 1), ("data", "model"))
+if kind == "cpu":
+    from repro_torch.configs.base import cell_by_name
+    from repro_torch.launch.mesh import production_shape
+    arch, cell, mesh_kind = json.loads(sys.argv[3])
+    dryrun.trace_device = lambda: "cpu"
+    rec = cell_record(registry.get(arch), cell_by_name(cell),
+                      *production_shape(multi_pod=mesh_kind == "multipod"))
+    with open(sys.argv[1], "w") as f:
+        json.dump(rec, f)
+    sys.exit(0)
+serve, rows, prompt, min_dim, train, depth, t_rows, t_seq = json.loads(
+    sys.argv[3])
+if kind == "train":
+    cfg = dataclasses.replace(registry.get(train),
+                              stages=(Stage(("dense",), depth),))
+    rec = cell_record(cfg, ShapeCell(kind, t_seq, t_rows, kind), *mesh)
+else:
+    rec = cell_record(registry.get(serve), ShapeCell(kind, prompt, rows, kind),
+                      *mesh, qcfg=QuantConfig(ratio=0.2, multiple=16),
+                      min_dim=min_dim)
+with open(sys.argv[1], "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def _dryrun_env() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def _packed_flops(shapes: dict) -> int:
+    """2·M·K·N summed over packed-matmul launches {(M, K, N): count}."""
+    return sum(2 * m * k * n * c for (m, k, n), c in shapes.items())
+
+
+def _scratch_bytes() -> int:
+    """Bytes of the packed matmul's workspaces (split-K partials, the
+    gathered x), kept per device and stream and grown at a shape's first
+    launch."""
+    from repro_torch.kernels import mixed_matmul
+    return sum(t.numel() * t.element_size()
+               for pair in mixed_matmul._SCRATCH.values() for t in pair
+               if t is not None)
+
+
+def _dryrun_counts(rec: dict) -> dict:
+    """A dry-run record's counts: FLOPs, eager bytes, transcendentals,
+    collectives, memory and packed calls."""
+    coll, mem = rec["collectives"], rec["memory"]
+    return {"flops_per_device": rec["flops_per_device"],
+            "bytes_accessed_per_device": rec["bytes_accessed_per_device"],
+            "transcendentals": rec["transcendentals"],
+            "packed_calls": rec["packed_calls"],
+            **{k: coll[k] for k in ("operand_bytes", "wire_bytes",
+                                    "n_collectives")},
+            **{k: mem[k] for k in ("argument_bytes", "output_bytes",
+                                   "peak_bytes", "alias_bytes")}}
+
+
+def _launched_since(before: dict, now: dict) -> dict:
+    return {sh: c - before.get(sh, 0) for sh, c in now.items()
+            if c > before.get(sh, 0)}
+
+
+def run_dryrun(torch, kernels, smi: str) -> dict:
+    """``[dryrun]``: the port's dry-run (``launch/dryrun.py``) on the
+    card's machine, in processes of its own (this one holds NCCL
+    groups; the dry-run starts a "fake" one).  (a) ``python -m
+    repro_torch.launch.dryrun --arch qwen3-4b --cell decode_32k --mesh
+    pod``: rank 0 of the 256-rank pod at full width and depth on fake
+    cuda tensors; its FLOPs, eager bytes, collectives, peak GB against
+    80, roofline bound and ``trace_s``; the same cell traced on fake
+    "cpu" tensors in another process (the route of the CPU sweep in
+    PERF.md) must count the same to the digit.  (b) The dry-run's
+    ``cell_record``
+    of three cells on a (1, 1) fake mesh beside the same steps run on
+    the card as one NCCL rank, with the same presets: qwen3-4b at full
+    depth served data-free unfused (ratio 0.2, multiple 16), a prefill
+    of DIST_SERVE_ROWS x DIST_SERVE_PROMPT tokens then one decode step
+    over its caches, and qwen2.5-3b's train step at SP_TRAIN_DEPTH of
+    its layers on KIND_DIST_ROWS x KIND_DIST_SEQ tokens.  On each real
+    step: ``FlopCounterMode`` plus 2·M·K·N per packed launch must equal
+    the dry-run's FLOPs exactly, the packed launches by (M, K, N) the
+    dry-run's packed calls, and the peak of ``max_memory_allocated``
+    above what the device held before the phase (peak stats reset at
+    each step) lie within DRYRUN_MEM_RTOL of the predicted peak.  The
+    step's wall ms (card synchronized, a second run outside the
+    counters) prints beside the roofline bound, without a check."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeCell, Stage
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.distributed.compression import CompressionConfig
+    from repro_torch.kernels.mixed_matmul import KERNEL
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.presets import make_preset
+    from repro_torch.launch.qdeclare import declare_quantized
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamW
+    tmp = tempfile.TemporaryDirectory()
+    arch, cell_name, mesh_kind = DRYRUN_CELL
+    procs = {"cli": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--cell", cell_name, "--mesh", mesh_kind, "--out", tmp.name],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=_dryrun_env(), cwd=str(ROOT))}
+    sizes = json.dumps([DIST_SERVE_ARCH, DIST_SERVE_ROWS, DIST_SERVE_PROMPT,
+                        DIST_SERVE_MIN_DIM, TRAIN_ARCH, SP_TRAIN_DEPTH,
+                        KIND_DIST_ROWS, KIND_DIST_SEQ])
+    for kind in ("prefill", "decode", "train", "cpu"):
+        procs[kind] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_PREDICT,
+             str(Path(tmp.name) / f"{kind}.json"), kind,
+             json.dumps(DRYRUN_CELL) if kind == "cpu" else sizes],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=_dryrun_env(), cwd=str(ROOT))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    scratch0 = _scratch_bytes()
+    real = {}
+    t0 = time.perf_counter()
+    spent = {}
+
+    def counted(tag, fn):
+        """One call of ``fn`` under FlopCounterMode, recording its
+        FLOPs, launches by shape and peak above ``base`` under ``tag``."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(KERNEL.shapes)
+        _reset(kernels)
+        with FlopCounterMode(display=False) as fc:
+            out = fn()
+        torch.cuda.synchronize()
+        shapes = _launched_since(before, dict(KERNEL.shapes))
+        real[tag] = {"aten_flops": int(fc.get_total_flops()),
+                     "packed": shapes, "launches": _launches(kernels),
+                     "flops": int(fc.get_total_flops())
+                     + _packed_flops(shapes),
+                     "max_allocated": torch.cuda.max_memory_allocated(),
+                     "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        return out
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        cfg = registry.get(DIST_SERVE_ARCH)
+        qcfg = QuantConfig(ratio=0.2, multiple=16)
+        rows, prompt = DIST_SERVE_ROWS, DIST_SERVE_PROMPT
+        pcell = ShapeCell("prefill", prompt, rows, "prefill")
+        preset = make_preset(cfg, pcell, mesh)
+        _, specs = declare_quantized(cfg, preset.par, qcfg, preset.rules,
+                                     min_dim=DIST_SERVE_MIN_DIM)
+        qparams = quantize_params_data_free(M.init_params(cfg, 0, "cuda"),
+                                            qcfg, min_dim=DIST_SERVE_MIN_DIM)
+        shards, lp = M.shard_for_serving(cfg, preset.par, qparams, specs,
+                                         mesh)
+        del qparams
+        spent["quantize_place_s"] = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        batch = {"tokens": torch.randint(1, cfg.vocab, (rows, prompt),
+                                         generator=gen, device="cuda",
+                                         dtype=torch.int32)}
+        with torch.no_grad():
+            # one untimed call first: a shape's first launch grows the
+            # packed matmul's workspaces, which the dry-run does not hold
+            M.prefill(cfg, lp, batch, prompt, preset.par.attn_chunk,
+                      shards=shards)
+            logits, caches = counted("prefill", lambda: M.prefill(
+                cfg, lp, batch, prompt, preset.par.attn_chunk,
+                shards=shards))
+            real["prefill"]["ms"] = _synced(torch, lambda: M.prefill(
+                cfg, lp, batch, prompt, preset.par.attn_chunk,
+                shards=shards))[1]
+            tok = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+            pos = torch.full((rows,), prompt, dtype=torch.int32,
+                             device="cuda")
+            del logits
+            counted("decode", lambda: M.decode_step(
+                cfg, lp, tok, pos, caches, prompt, shards=shards))
+            real["decode"]["ms"] = _synced(torch, lambda: M.decode_step(
+                cfg, lp, tok, pos, caches, prompt, shards=shards))[1]
+        del lp, shards, caches, batch, tok, pos
+        torch.cuda.empty_cache()
+        spent["serve_s"] = (time.perf_counter() - t0
+                            - spent["quantize_place_s"])
+        tcfg = dataclasses.replace(registry.get(TRAIN_ARCH), stages=(
+            Stage(("dense",), SP_TRAIN_DEPTH),))
+        tcell = ShapeCell("train", KIND_DIST_SEQ, KIND_DIST_ROWS, "train")
+        tpre = make_preset(tcfg, tcell, mesh)
+        tshards = train.make_shards(tcfg, tpre.par, mesh, tpre.rules)
+        opt, ccfg = AdamW(lr=1e-4), CompressionConfig()
+        state = train.init_sharded_state(tcfg, opt, ccfg, tshards, seed=0)
+        step = train.make_train_step(tcfg, opt, ccfg, tpre.par.microbatches,
+                                     tpre.par.remat, tpre.par.attn_chunk,
+                                     tshards)
+        tb = {k: torch.randint(1, tcfg.vocab, (KIND_DIST_ROWS, KIND_DIST_SEQ),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+              for k in ("tokens", "targets")}
+        state, _ = counted("train", lambda: step(state, tb))
+        (state, _), real["train"]["ms"] = _synced(torch,
+                                                  lambda: step(state, tb))
+        del state, step, tshards, tb
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    spent["real_s"] = time.perf_counter() - t0
+    scratch = _scratch_bytes() - scratch0
+    logs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+    spent["wait_s"] = time.perf_counter() - t0 - spent["real_s"]
+    for k, p in procs.items():
+        if p.returncode:
+            _fail(f"[dryrun] the {k} process exited {p.returncode}:\n"
+                  + logs[k][-3000:])
+    rec = json.loads((Path(tmp.name) / mesh_kind /
+                      f"{arch}__{cell_name}.json").read_text())
+    pred = {kind: json.loads((Path(tmp.name) / f"{kind}.json").read_text())
+            for kind in ("prefill", "decode", "train", "cpu")}
+    tmp.cleanup()
+    if rec["status"] != "ok":
+        _fail(f"[dryrun] {arch} {cell_name}: {rec.get('error')}")
+    # the CPU sweep of PERF.md traces fake "cpu" tensors (a CPU-only
+    # torch holds no fake cuda one): the same cell on fake "cpu" here
+    # must count what the CLI counted on fake "cuda", to the digit
+    on_cpu = pred.pop("cpu")
+    same = {k: (_dryrun_counts(rec)[k], _dryrun_counts(on_cpu)[k])
+            for k in _dryrun_counts(rec)}
+    print(f"[dryrun {arch} {cell_name} {mesh_kind} cuda vs cpu] "
+          + json.dumps(same), flush=True)
+    if (rec["device_type"], on_cpu["device_type"]) != ("cuda", "cpu"):
+        _fail(f"[dryrun] traced on {rec['device_type']} and "
+              f"{on_cpu['device_type']}, not cuda and cpu")
+    for k, (cuda, cpu) in same.items():
+        if cuda != cpu:
+            _fail(f"[dryrun] {arch} {cell_name}: {k} is {cuda} on fake "
+                  f"cuda tensors and {cpu} on fake cpu ones")
+    roof = rec["roofline"]
+    cli = {"arch": arch, "cell": cell_name, "mesh": mesh_kind,
+           "device_type": rec["device_type"], "preset": rec["preset"],
+           "flops_per_device": rec["flops_per_device"],
+           "eager_bytes_per_device": rec["bytes_accessed_per_device"],
+           "collectives": {k: rec["collectives"][k] for k in
+                           ("per_kind", "wire_bytes", "n_collectives")},
+           "peak_gb": rec["memory"]["peak_bytes"] / 1e9, "of_gb": 80,
+           "bound_ms": roof["step_time_lower_bound_s"] * 1e3,
+           "dominant": roof["dominant"], "trace_s": rec["trace_s"],
+           "place_s": rec["place_s"],
+           "arithmetic": "H100 SXM5 data-sheet rates, not measured"}
+    print(f"[dryrun timing] {json.dumps(spent)}; the packed matmul's "
+          f"workspaces grew by {scratch / 1e9:.3f} GB in the phase "
+          "(held in every step's peak below, not in the dry-run's)",
+          flush=True)
+    print(f"[dryrun {arch} {cell_name} {mesh_kind}] " + json.dumps(cli),
+          flush=True)
+    out = {"cli": cli, "cuda_vs_cpu": same, "timing": spent,
+           "workspace_growth_gb": scratch / 1e9}
+    for tag in ("prefill", "decode", "train"):
+        p, r = pred[tag], real[tag]
+        want_packed = {tuple(int(v) for v in k.split("x")): c
+                       for k, c in p.get("packed_calls", {}).items()}
+        row = {"flops_dryrun": p["flops_per_device"],
+               "flops_card": r["flops"], "aten_flops_card": r["aten_flops"],
+               "packed_card": {f"{m}x{k}x{n}": c for (m, k, n), c in
+                               sorted(r["packed"].items())},
+               "packed_dryrun": p.get("packed_calls", {}),
+               "peak_gb_predicted": p["memory"]["peak_bytes"] / 1e9,
+               "peak_gb_card": r["peak_bytes"] / 1e9,
+               "max_memory_allocated_gb": r["max_allocated"] / 1e9,
+               "held_before_gb": base / 1e9,
+               "peak_ratio": r["peak_bytes"] / p["memory"]["peak_bytes"],
+               "argument_gb_predicted": p["memory"]["argument_bytes"] / 1e9,
+               "step_ms_card": r["ms"],
+               "bound_ms": p["roofline"]["step_time_lower_bound_s"] * 1e3,
+               "dominant": p["roofline"]["dominant"],
+               "trace_s": p["trace_s"], "launches": r["launches"]}
+        out[tag] = row
+        print(f"[dryrun {tag} one rank] {smi}: " + json.dumps(row),
+              flush=True)
+        if r["flops"] != int(p["flops_per_device"]):
+            _fail(f"[dryrun] {tag}: the card's FLOPs {r['flops']} are not "
+                  f"the dry-run's {p['flops_per_device']}")
+        if r["packed"] != want_packed:
+            _fail(f"[dryrun] {tag}: packed launches {r['packed']} against "
+                  f"the dry-run's {want_packed}")
+        if abs(row["peak_ratio"] - 1) > DRYRUN_MEM_RTOL:
+            _fail(f"[dryrun] {tag}: peak {row['peak_gb_card']:.3f} GB on "
+                  f"the card against {row['peak_gb_predicted']:.3f} GB "
+                  "predicted")
+    if not real["prefill"]["packed"] or not real["decode"]["packed"]:
+        _fail("[dryrun] the served steps launched no packed matmul")
+    return out
+
+
 class Laps:
     """Wall seconds of each phase, printed as it ends (``[phase]``)."""
 
@@ -6127,7 +6449,12 @@ def main() -> int:
     checked = set(sp_run["checked"])
 
     laps("19")
-    # -- 20. every packed-matmul shape of the paths was checked; the kernels
+    # -- 20. the dry-run: rank 0 of the pod on fake tensors, and its
+    # prediction of three steps run here as one NCCL rank ----------------
+    dryrun = run_dryrun(torch, kernels, smi)
+
+    laps("20")
+    # -- 21. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
@@ -6137,7 +6464,7 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-19 was held against its plain version in phase 3, "
+          "at in phases 5-20 was held against its plain version in phase 3, "
           "6, 8, 9, 10, 16, 17, 18 or 19; launches by shape: "
           + json.dumps(by_shape), flush=True)
     launches = {"datafree": summary["launches"],
@@ -6196,7 +6523,10 @@ def main() -> int:
                 "dist sp train": sp_run["train"]["sp"]["launches"],
                 "dist sp serve": sp_run["serve"]["sp"]["launches"],
                 "dist sp serve replicated":
-                    sp_run["serve"]["replicated"]["launches"]}
+                    sp_run["serve"]["replicated"]["launches"],
+                "dryrun prefill": dryrun["prefill"]["launches"],
+                "dryrun decode": dryrun["decode"]["launches"],
+                "dryrun train": dryrun["train"]["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -6232,7 +6562,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("20")
+    laps("21")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,14 @@ host side is kept short: the launch plan (``index.packed_matmul_plan``)
 is computed once per shape, and the workspaces (split-K partial sums,
 gathered x) once per device and stream, grown when a larger shape needs
 more.
+
+A tensor that holds no data (a ``FakeTensor``, or one on the "meta"
+device: the dry-run, ``launch/dryrun.py``) takes the shape route, the
+op ``repro_torch::packed_matmul`` (:func:`packed_matmul`): it returns
+the (M, N) output in the dtype asked for, its FLOP formula is
+2·M·K·N, and a byte counter that sums an op's operands sees the packed
+bytes the kernel reads.  It builds and launches nothing.  Real tensors
+never take it.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import struct
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import CudaKernel
@@ -67,6 +77,9 @@ def mixed_matmul(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
     if out_dtype not in OUT_DTYPES:
         raise ValueError(f"mixed_matmul: out_dtype must be bf16 or f32, "
                          f"got {out_dtype}")
+    if holds_no_data(x):
+        return packed_matmul(x, perm, w4, s4, z4, bits, alpha_s, alpha_r1,
+                             alpha_r2, out_dtype)
     if x.device.type == "cpu":
         return ref.mixed_matmul_ref(x, w4, s4, z4, bits, alpha_s, alpha_r1,
                                     alpha_r2, perm).to(out_dtype)
@@ -86,6 +99,46 @@ def mixed_matmul(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
     return launch_packed(KERNEL, x, perm, w4, s4, z4, bits, alpha_s,
                          alpha_r1, alpha_r2, n, k_s, k=k,
                          out_f32=out_dtype == torch.float32)
+
+
+def holds_no_data(t: torch.Tensor) -> bool:
+    """True for a tensor without storage behind it: a ``FakeTensor`` or
+    a tensor on the "meta" device."""
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+@torch.library.custom_op("repro_torch::packed_matmul", mutates_args=())
+def packed_matmul(x: torch.Tensor, perm: Optional[torch.Tensor],
+                  w4: torch.Tensor, s4: torch.Tensor, z4: torch.Tensor,
+                  bits: torch.Tensor, alpha_s: torch.Tensor,
+                  alpha_r1: torch.Tensor, alpha_r2: torch.Tensor,
+                  out_dtype: torch.dtype) -> torch.Tensor:
+    """The shape route of :func:`mixed_matmul` for tensors that hold no
+    data: x (M, K_x) and the eight packed fields -> (M, N) in
+    ``out_dtype``.  Only its fake implementation runs."""
+    raise RuntimeError("repro_torch::packed_matmul computes shapes only: "
+                       "it takes tensors that hold no data (FakeTensor or "
+                       "meta); real tensors go through mixed_matmul")
+
+
+@packed_matmul.register_fake
+def _(x, perm, w4, s4, z4, bits, alpha_s, alpha_r1, alpha_r2, out_dtype):
+    return x.new_empty((x.shape[0], bits.shape[1]), dtype=out_dtype)
+
+
+def packed_shape(x_shape, w4_shape, bits_shape) -> Tuple[int, int, int]:
+    """(M, K, N) of a packed product of x (M, K_x): K = k_s + k_b the
+    weight's (two int4 rows a byte of ``w4``, eight signs a byte of
+    ``bits``), N its columns."""
+    return (int(x_shape[0]), int(w4_shape[0]) * 2 + int(bits_shape[0]) * 8,
+            int(bits_shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.packed_matmul)
+def _packed_flops(x_shape, perm_shape, w4_shape, s4_shape, z4_shape,
+                  bits_shape, *args, **kwargs) -> int:
+    m, k, n = packed_shape(x_shape, w4_shape, bits_shape)
+    return 2 * m * k * n
 
 
 def check_packed(name: str, x: torch.Tensor, k: int, n: int,

@@ -4,7 +4,8 @@
 Functions, never module-level meshes: importing this module touches no
 process group.  A mesh needs an initialized process group whose world
 size is the mesh's device count and whose backend serves the mesh's
-device type (NCCL for "cuda", gloo for "cpu"); anything else raises.
+device type (NCCL for "cuda", gloo for "cpu"), or the "fake" backend
+of :func:`fake_group` for either; anything else raises.
 
 Single pod: (data=16, model=16) = 256 ranks.  Multi-pod: (pod=2,
 data=16, model=16) = 512 ranks; "pod" is an outer data-parallel dim.
@@ -17,6 +18,7 @@ from typing import Sequence
 import torch.distributed as dist
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+FAKE = "fake"
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
@@ -35,11 +37,35 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         raise ValueError(f"a {shape} mesh needs {need} ranks; the process "
                          f"group has {world}")
     backend = str(dist.get_backend()).lower()
-    if device_type not in _BACKEND or _BACKEND[device_type] not in backend:
+    if device_type not in _BACKEND or (_BACKEND[device_type] not in backend
+                                       and backend != FAKE):
         raise ValueError(f"a {device_type!r} mesh needs the "
-                         f"{_BACKEND.get(device_type, '?')} backend; the "
-                         f"process group runs {backend}")
+                         f"{_BACKEND.get(device_type, '?')} or {FAKE} "
+                         f"backend; the process group runs {backend}")
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def fake_group(world: int, rank: int = 0) -> None:
+    """Start a process group of ``world`` ranks on the "fake" backend of
+    ``torch.testing._internal.distributed.fake_pg``, this process as
+    ``rank``: every collective returns at once and moves nothing, so
+    one process runs one rank's code of a mesh of any size (the
+    dry-run's 256 and 512 ranks, on tensors that hold no data).
+    Refuses to start inside a process that already holds a process
+    group: run it in a process of its own, and end it with
+    ``torch.distributed.destroy_process_group``."""
+    if not dist.is_available():
+        raise RuntimeError("torch.distributed is not available")
+    if dist.is_initialized():
+        raise RuntimeError(
+            f"a fake process group cannot start here: this process already "
+            f"holds a {dist.get_backend()} group of "
+            f"{dist.get_world_size()} ranks; run it in a process of its own")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not one of {world}")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group(FAKE, store=FakeStore(), rank=rank,
+                            world_size=world)
 
 
 def production_shape(multi_pod: bool = False):

@@ -134,23 +134,35 @@ def _uneven(cfg: ArchConfig, shards) -> bool:
 
 
 def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards,
-                   narrow: bool = True):
+                   narrow: bool = True, chunk: bool = False):
     """K and V (B, Sk, hkv_run / tp * dh) of this rank's run-time KV
     heads when a shard of wk / wv cuts through a head, or the heads are
-    replicated to the TP degree: the small KV leaves are gathered over
+    replicated to the TP degree: every true head is projected, repeated
+    ``kv_heads_run / hkv`` times consecutively as the reference repeats
+    them, and this rank's heads are kept.  Without ``narrow``
+    (:func:`_uneven`): every true head, (B, Sk, hkv * dh).  No rank
+    projects what another projects, as the reference's GSPMD partitions
+    the product: with ``chunk`` (``xkv`` this rank's chunk of the
+    sequence-parallel stream) the small KV leaves are gathered over
     "model" (their gradients reduce-scattered back; a packed leaf's
     column view along N, ``Shards.gather_model``), every true head is
-    projected, repeated ``kv_heads_run / hkv`` times consecutively as
-    the reference repeats them, and this rank's heads are kept.  Without
-    ``narrow`` (:func:`_uneven`): every true head, (B, Sk, hkv * dh)."""
+    projected on the chunk and the result gathered along the sequence
+    (``Shards.stream_in``, whose backward reduce-scatters the gradient
+    back to the chunk); on a replicated ``xkv`` each rank projects its
+    own columns of wk / wv and the columns are gathered over "model"
+    (backward: the reduce-scatter of their gradient)."""
     dh, hkv = cfg.head_dim_, cfg.n_kv_heads
     run = shards.par.kv_heads_run(hkv, cfg.n_heads)
     per = run // shards.tp
     out = []
     for w, b in (("wk", "bk"), ("wv", "bv")):
         bias = p.get(b)
-        y = dense(xkv, shards.gather_model(p[w], 1),
-                  None if bias is None else shards.gather_model(bias, 0))
+        if chunk:
+            y = shards.stream_in(dense(
+                xkv, shards.gather_model(p[w], 1),
+                None if bias is None else shards.gather_model(bias, 0)))
+        else:
+            y = shards.gather_model(dense(xkv, p[w], bias), xkv.ndim - 1)
         if not narrow:
             out.append(y)
             continue
@@ -164,7 +176,8 @@ def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards,
 def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
                  positions: torch.Tensor, xkv: Optional[torch.Tensor] = None,
                  kv_positions: Optional[torch.Tensor] = None,
-                 use_rope: bool = True, shards=None):
+                 use_rope: bool = True, shards=None,
+                 chunk: Optional[torch.Tensor] = None):
     """x (B, S, D) -> q (B, S, hq, dh) and, from ``xkv`` (B, Sk, D; x by
     default), k/v (B, Sk, hkv, dh); roped at ``positions`` and
     ``kv_positions`` unless ``use_rope`` is off (cross-attention).  The
@@ -174,10 +187,14 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     tp query heads and ``kv_heads_run`` / tp KV heads; where those do
     not divide tp (:func:`_uneven`), the query heads of
     ``Shards.heads`` (``wq`` and ``bq`` cut to them by
-    ``Shards.head_part``) and every true KV head."""
+    ``Shards.head_part``) and every true KV head.  ``chunk``: this
+    rank's chunk of the sequence-parallel stream that x was gathered
+    from; replicated KV heads are projected on it
+    (:func:`_kv_replicated`)."""
     dh = cfg.head_dim_
     if xkv is None:
         xkv, kv_positions = x, positions
+    kv_in = xkv if chunk is None else chunk
     if "wqkv" in p and xkv is x:
         g = p["wqkv"]
         q, k, v = g.split_out(dense(x, g))
@@ -190,14 +207,16 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         q = dense(x, shards.head_part(p["wq"], cfg.n_heads, 1),
                   None if bq is None else shards.head_part(bq, cfg.n_heads,
                                                            0))
-        k, v = _kv_replicated(cfg, p, xkv, shards, narrow=False)
+        k, v = _kv_replicated(cfg, p, kv_in, shards, narrow=False,
+                              chunk=chunk is not None)
     else:
         q = dense(x, p["wq"], p.get("bq"))
         if shards is None or _kv_heads_local(cfg, shards):
             k = dense(xkv, p["wk"], p.get("bk"))
             v = dense(xkv, p["wv"], p.get("bv"))
         else:
-            k, v = _kv_replicated(cfg, p, xkv, shards)
+            k, v = _kv_replicated(cfg, p, kv_in, shards,
+                                  chunk=chunk is not None)
     q = q.reshape(q.shape[:-1] + (q.shape[-1] // dh, dh))
     k = k.reshape(k.shape[:-1] + (k.shape[-1] // dh, dh))
     v = v.reshape(v.shape[:-1] + (v.shape[-1] // dh, dh))
@@ -329,14 +348,17 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     heads), and ``wo``'s row shard gives partial sums that leave into
     the stream (``Shards.row``: all-reduced, or reduce-scattered to the
     chunk; it also runs a packed ``wo``'s row view)."""
+    chunk = None
     if shards is not None:
+        if xkv is None and shards.seq is not None:
+            chunk = x
         x = shards.stream_in(x)
         if xkv is not None and not shards.splits(xkv.shape[1]):
             xkv = shards.enter(xkv)
-    if xkv is None:
-        xkv, kv_positions = x, positions
     q, k, v = _project_qkv(cfg, p, x, positions, xkv, kv_positions,
-                           use_rope, shards)
+                           use_rope, shards, chunk)
+    if xkv is None:
+        kv_positions = positions
     ka, va = k, v
     if _uneven(cfg, shards):
         if return_kv:
@@ -383,8 +405,11 @@ def _ctx_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
     if window % shards.tp == 0:
         wc = window // shards.tp
         for name in ("k", "v"):
+            # a copy, never a view: with one row a rank's slots are a
+            # contiguous block of the whole ring, and a view would keep
+            # the whole ring's storage alive in the cache
             ring[name] = ring[name].narrow(1, shards.tp_rank * wc,
-                                           wc).contiguous()
+                                           wc).clone()
     return ring
 
 

@@ -41,6 +41,19 @@ eagerly as the one-device tests run them; else each jitted under a
 ``launch.qdeclare.declare_quantized``'s specs (EP with EP) and the
 batch over "data".  It writes ``OUT_DIR/NAME.npz``: ``prefill`` (B, V),
 ``step<i>`` (B, V) and ``token<i>`` (B,).
+
+    python tests/jax_mesh_ref.py dryrun OUT_DIR \
+        NAME:ARCH:KIND:BATCH:SEQ:DATA:MODEL ...
+
+For each case, the reference's dry-run (``repro.launch.dryrun``,
+imported first, so that its 512 host devices exist) of the reduced
+``ARCH`` (vocabulary at most 512) on a ``ShapeCell`` of KIND ("train",
+"prefill" or "decode"), BATCH rows and SEQ positions, under a (DATA,
+MODEL) mesh of ("data", "model") over its first DATA x MODEL devices,
+with the preset ``make_preset`` gives it: ``lower_cell`` (the serving
+cells on packed weights of ``DRYRUN_QUANT``, declared with its
+``min_dim``), the compile, and ``analyze``.  It writes
+``OUT_DIR/NAME.json``: the record of ``analyze`` beside the preset.
 """
 from __future__ import annotations
 
@@ -283,6 +296,53 @@ def _serve_case(out, inp, name, arch, repeats, dp, tp, ep, packed) -> None:
     np.savez(out / f"{name}.npz", **res)
 
 
+# packed weights of the dry-run's serving cells: ratio, multiple, min_dim
+DRYRUN_QUANT = (0.2, 32, 32)
+
+
+def dryrun_main(argv) -> int:
+    import functools
+    import json
+    from repro.launch import dryrun as RD   # first: its XLA_FLAGS
+    import jax
+    from jax.sharding import Mesh
+    from repro.configs.base import ShapeCell
+    from repro.core.qlinear import QuantConfig
+    from repro.launch.presets import make_preset
+    out = Path(argv[0])
+    ratio, multiple, min_dim = DRYRUN_QUANT
+    RD.declare_quantized = functools.partial(RD.declare_quantized,
+                                             min_dim=min_dim)
+    for spec in argv[1:]:
+        name, arch, kind, batch, seq, dp, tp = spec.split(":")
+        cfg = reduced(arch)
+        cell = ShapeCell(name, int(seq), int(batch), kind)
+        n = int(dp) * int(tp)
+        mesh = Mesh(np.array(jax.devices()[:n]).reshape(int(dp), int(tp)),
+                    ("data", "model"))
+        preset = make_preset(cfg, cell, mesh)
+        compiled = RD.lower_cell(
+            cfg, cell, mesh, preset,
+            qcfg=QuantConfig(ratio=ratio, multiple=multiple)).compile()
+        rec = RD.analyze(compiled, mesh, cfg, cell)
+        par = preset.par
+        rec["preset"] = {"tp": par.tp, "dp": par.dp, "fsdp": par.fsdp,
+                         "sp": par.sp, "microbatches": par.microbatches,
+                         "remat": par.remat, "shard_batch": par.shard_batch,
+                         "ep": preset.rules.ep}
+        (out / f"{name}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def start_dryrun(out_dir: Path, tag: str, cases) -> tuple:
+    """Start the ``dryrun`` mode on ``cases`` ((name, arch, kind, batch,
+    seq, data, model), ...) in a process of its own; returns (process,
+    log path) for :func:`finish`."""
+    return _spawn(["dryrun", str(out_dir)]
+                  + [":".join(str(v) for v in c) for c in cases],
+                  Path(out_dir) / f"jax_mesh_ref.dryrun.{tag}.log")
+
+
 def main(argv) -> int:
     with rg_heads(argv[1]):
         return _train_main(argv)
@@ -399,5 +459,6 @@ def finish(handle, deadline_s: float) -> None:
 
 
 if __name__ == "__main__":
-    sys.exit(serve_main(sys.argv[2:]) if sys.argv[1:2] == ["serve"]
-             else main(sys.argv[1:]))
+    MODES = {"serve": serve_main, "dryrun": dryrun_main}
+    mode = MODES.get(sys.argv[1] if len(sys.argv) > 1 else "")
+    sys.exit(mode(sys.argv[2:]) if mode else main(sys.argv[1:]))
