@@ -2,6 +2,7 @@
 """Run the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py            # what the check runs: needs one card
+    python3 chip_smoke.py --tp4      # sharded serving over four cards
 
 Phases, each of which raises on failure:
 
@@ -395,6 +396,21 @@ DIST_SERVE_MIN_DIM = 256      # launch.qdeclare's default
 QWEN3_ROWS = (8, 2048)
 SPLIT_TPS, SPLIT_ROWS, SPLIT_LEAVES = (4, 16), (8, 256), ("wq", "wo", "wd")
 SPLIT_RTOL = 1e-5
+# Fused QLinearGroup leaves in sharded serving (``[dist serve fused]``,
+# in phase 16): the same qwen3-4b bf16 weights quantized data-free with
+# fuse=True (wqkv, wgu), a prefill of DIST_SERVE_ROWS x DIST_SERVE_PROMPT
+# and FUSED_STEPS greedy steps on one device and through
+# ``shard_for_serving`` as one NCCL rank: the same bits and launches,
+# fewer packed products a layer than the unfused run's 7.  Then the
+# split arithmetic of the fused views (``sharding.group_view``) of layer
+# 0's wqkv and wgu at SPLIT_TPS and SPLIT_ROWS, and phi4-mini-3.8b's
+# fused wqkv at tp UNEVEN_TP (whole query heads, none on ranks 12-15);
+# and the context-sharded cross K/V: seamless-m4t-medium's layer-0
+# cross-attention decode of DIST_SERVE_ROWS rows over
+# SERVE_KIND_FRAMES stub frames cut into CTX_CROSS_CHUNKS chunks
+# (``layers._cross_ctx``), combined as the all-reduces over "model" do,
+# against the whole (f32, within SPLIT_RTOL of its largest value).
+FUSED_STEPS, CTX_CROSS_CHUNKS = 16, 16
 # Sharded serving of the other kinds (phase 17, ``[dist serve kinds]``):
 # granite-moe-1b-a400m at full width and depth, then recurrentgemma-2b,
 # xlstm-1.3b and seamless-m4t-medium (SERVE_KIND_FRAMES stub frames a
@@ -4376,7 +4392,7 @@ def check_split_arithmetic(torch, layer, timer, peaks, gen) -> list:
     return out
 
 
-def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
+def run_dist_serve(torch, kernels, smi: str, peaks, checked) -> dict:
     """``[dist serve]``: sharded serving of packed weights as one NCCL
     rank.  qwen3-4b at full width (DIST_SERVE_DEPTH layers) from seed 0,
     quantized data-free unfused (ratio 0.2, multiple 16); its packed
@@ -4388,7 +4404,16 @@ def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
     its ``qlinear_local`` view) with ``shards``: the logits and tokens
     must be the same bits, and both runs must launch mixed_matmul the
     same number of times (more than 0) and no paged attention kernel.
-    Then ``check_split_arithmetic`` on layer 0's leaves."""
+    ``[dist serve fused]``: the same bf16 weights quantized with
+    ``fuse=True`` and served the same way (FUSED_STEPS steps; each fused
+    group placed by its members' declared specs,
+    ``sharding.group_local``): the same bits and launches on both sides,
+    fewer packed products a layer than the unfused run's; the packed
+    shapes it launched that ``checked`` lacks are held against their
+    plain version.  Then ``check_split_arithmetic`` on layer 0's leaves,
+    ``check_fused_split`` on its fused groups (and phi4-mini's fused
+    wqkv) and ``check_ctx_cross``.  Returns the results, with
+    ``fused.held`` the rows held here."""
     import torch.distributed as dist
     from repro_torch.configs import registry
     from repro_torch.configs.base import SHAPE_CELLS, Stage
@@ -4401,11 +4426,13 @@ def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
     cfg = registry.get(DIST_SERVE_ARCH)
     cfg = dataclasses.replace(cfg, stages=(Stage(("dense",),
                                                  DIST_SERVE_DEPTH),))
+    from repro_torch.kernels.mixed_matmul import KERNEL
     qcfg = QuantConfig(ratio=0.2, multiple=16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    weights, init_ms = _synced(torch, lambda: M.init_params(cfg, 0, "cuda"))
     (qparams, quant_ms) = _synced(torch, lambda: quantize_params_data_free(
-        M.init_params(cfg, 0, "cuda"), qcfg, min_dim=DIST_SERVE_MIN_DIM))
+        weights, qcfg, min_dim=DIST_SERVE_MIN_DIM))
     bits = check_bits(qparams, "dist serve")
     gen = torch.Generator(device="cuda").manual_seed(31)
     b, s = DIST_SERVE_ROWS, DIST_SERVE_PROMPT
@@ -4417,7 +4444,7 @@ def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
            "of_layers": registry.get(DIST_SERVE_ARCH).n_layers,
            "rows": b, "prompt": s, "max_seq": DIST_SERVE_MAX_SEQ,
            "steps": DIST_SERVE_STEPS, "bits_per_weight": bits,
-           "quantize_s": quant_ms / 1e3}
+           "init_s": init_ms / 1e3, "quantize_s": quant_ms / 1e3}
     _reset(kernels)
     one = _serve_greedy(torch, M, cfg, qparams, batch)
     one_launches = _launches(kernels)
@@ -4440,6 +4467,23 @@ def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
         sh_launches = _launches(kernels)
         sh_peak = torch.cuda.max_memory_allocated() / 1e9
         del lp, shards
+        fused, fq_ms = _synced(torch, lambda: quantize_params_data_free(
+            weights, qcfg, min_dim=DIST_SERVE_MIN_DIM, fuse=True))
+        del weights
+        before = dict(KERNEL.shapes)
+        _reset(kernels)
+        fone = _serve_greedy(torch, M, cfg, fused, batch, steps=FUSED_STEPS)
+        fone_launches = _launches(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        (fshards, flp), fplace_ms = _synced(
+            torch, lambda: M.shard_for_serving(cfg, preset.par, fused, specs,
+                                               mesh))
+        _reset(kernels)
+        fsh = _serve_greedy(torch, M, cfg, flp, batch, fshards,
+                            steps=FUSED_STEPS)
+        fsh_launches = _launches(kernels)
+        fsh_peak = torch.cuda.max_memory_allocated() / 1e9
+        del flp, fshards
     finally:
         dist.destroy_process_group()
     same = all(_bits_equal(torch, a, c) for a, c in zip(one["logits"],
@@ -4477,7 +4521,58 @@ def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
         _fail(f"[dist serve] mixed_matmul launched {sh_launches} times "
               f"sharded against {one_launches} on one device")
     del one, sh
+    # forward calls of a run: the untimed and the timed prefill, the steps
+    calls = {"unfused": 2 + DIST_SERVE_STEPS, "fused": 2 + FUSED_STEPS}
+    per_layer = {
+        "unfused": sh_launches["mixed_matmul"]
+        / (calls["unfused"] * DIST_SERVE_DEPTH),
+        "fused": fsh_launches["mixed_matmul"]
+        / (calls["fused"] * DIST_SERVE_DEPTH)}
+    fsame = all(_bits_equal(torch, a, c) for a, c in zip(
+        fone["logits"], fsh["logits"])) and all(
+        torch.equal(a, c) for a, c in zip(fone["tokens"], fsh["tokens"]))
+    fgap = max(float((a.float() - c.float()).abs().max())
+               for a, c in zip(fone["logits"], fsh["logits"]))
+    ftoks = b * FUSED_STEPS
+
+    def fside(r, launches, peak=None):
+        return {"prefill_ms": r["prefill_ms"],
+                "decode_step_ms": sum(r["step_ms"]) / len(r["step_ms"]),
+                "decode_tokens_per_s": ftoks * 1e3 / sum(r["step_ms"]),
+                "peak_mem_gb": peak, "launches": launches}
+
+    fout = {"steps": FUSED_STEPS, "quantize_s": fq_ms / 1e3,
+            "one_device": fside(fone, fone_launches),
+            "sharded": dict(fside(fsh, fsh_launches, fsh_peak), mesh=[1, 1],
+                            place_ms=fplace_ms),
+            "unfused_sharded_launches": sh_launches["mixed_matmul"],
+            "forward_calls": calls,
+            "products_per_layer": per_layer,
+            "bit_identical": fsame, "max_logit_gap": fgap}
+    print(f"[dist serve fused] {smi}: " + json.dumps(fout), flush=True)
+    if not fsame:
+        _fail(f"[dist serve fused] the sharded prefill and decode part from "
+              f"one device's (largest logit gap {fgap})")
+    if fone_launches["mixed_matmul"] != fsh_launches["mixed_matmul"]:
+        _fail(f"[dist serve fused] mixed_matmul launched {fsh_launches} "
+              f"times sharded against {fone_launches} on one device")
+    if not 0 < per_layer["fused"] < per_layer["unfused"]:
+        _fail(f"[dist serve fused] {per_layer} packed products a layer, "
+              "fused against unfused")
+    if fsh_launches["paged_attention"] or fsh_launches["paged_prefill"]:
+        _fail("[dist serve fused] a paged attention kernel launched on the "
+              "contiguous path")
+    del fone, fsh
     timer = Timer(torch)
+    new = [shape for shape, c in KERNEL.shapes.items()
+           if c > before.get(shape, 0)]
+    held = hold_new_shapes(torch, fused, new, checked, timer, peaks, gen,
+                           "fused")
+    if held:
+        print_rows("dist serve fused mixed_matmul",
+                   "the fused shapes new to the run", held,
+                   sorted({r["M"] for r in held}))
+    fout["held"] = held
     split = check_split_arithmetic(torch, qparams["stages"][0][0][0], timer,
                                    peaks, gen)
     for row in split:
@@ -4485,8 +4580,165 @@ def run_dist_serve(torch, kernels, smi: str, peaks) -> dict:
               f"(f32 gap limit {SPLIT_RTOL} of max|y|) " + json.dumps(row),
               flush=True)
     out["split"] = split
-    del qparams, timer
+    del qparams
+    fout["split"] = check_fused_split(torch, fused["stages"][0][0][0], timer,
+                                      peaks, gen)
+    for row in fout["split"]:
+        print(f"[dist serve fused split {row['leaf']} M={row['M']} "
+              f"tp={row['tp']}] (f32 gap limit {SPLIT_RTOL} of max|y|) "
+              + json.dumps(row), flush=True)
+    del fused
+    fout["ctx_cross"] = check_ctx_cross(torch, gen)
+    print(f"[dist serve ctx cross] (f32 gap limit {SPLIT_RTOL} of max|o|) "
+          + json.dumps(fout["ctx_cross"]), flush=True)
+    out["fused"] = fout
+    del timer
     torch.cuda.empty_cache()
+    return out
+
+
+def _group_columns(torch, g, r: int, tp: int, heads=()):
+    """The columns of the whole fused group ``g`` that rank ``r`` of
+    ``tp`` holds in its view (``sharding.group_view``), in the view's
+    order: per member, its N / tp columns, or those of the rank's whole
+    heads of ``heads[i]`` heads that tp does not divide."""
+    from repro_torch.distributed.sharding import chunk_range
+    heads = tuple(heads) + (None,) * (len(g.splits) - len(heads))
+    cols, off = [], 0
+    for n, h in zip(g.splits, heads):
+        if h is not None and h % tp:
+            lo, hi = chunk_range(h, tp, r)
+            lo, hi = lo * (n // h), hi * (n // h)
+        else:
+            lo, hi = chunk_range(n, tp, r)
+        cols.append(torch.arange(off + lo, off + hi))
+        off += n
+    return torch.cat(cols)
+
+
+def check_fused_split(torch, layer, timer, peaks, gen) -> list:
+    """``[dist serve fused split]``: every rank's view of a fused group
+    (``sharding.group_view``, what ``group_local`` makes on that rank),
+    launched rank after rank with the f32 output, each held against its
+    plain version and, joined, against the same columns of the whole
+    fused leaf's f32 product (``_split_product`` over the whole leaf's
+    columns in the ranks' order) within SPLIT_RTOL of max|y|: layer 0's
+    ``wqkv`` and ``wgu`` of qwen3-4b at SPLIT_TPS and SPLIT_ROWS, and
+    phi4-mini-3.8b's layer-0 ``wqkv`` (its bf16 weights from seed 0,
+    fused and quantized data-free) at UNEVEN_TP, whose query member
+    holds the rank's whole heads of 24: 2 on ranks 0-11, none on
+    12-15.  Each ``wqkv`` view's query member (``members()``, the
+    product a rank runs alone where it projects KV on its chunk of the
+    sequence-parallel stream) is held the same way against the whole
+    query member."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.core.qlinear import QuantConfig, quantize_linear_group
+    from repro_torch.distributed.sharding import chunk_range, group_view
+    from repro_torch.models import layers as L
+    from repro_torch.models.param import materialize
+    groups = [("qwen3-4b " + name, layer["attn" if name == "wqkv" else "mlp"]
+               [name], SPLIT_TPS, (registry.get(DIST_SERVE_ARCH).n_heads,)
+               if name == "wqkv" else ()) for name in ("wqkv", "wgu")]
+    pcfg = registry.get(UNEVEN_ARCH)
+    attn = materialize(L.init_attention(pcfg), 0, "cuda")
+    groups.append(("phi4-mini wqkv", quantize_linear_group(
+        [attn[k] for k in ("wq", "wk", "wv")], None,
+        QuantConfig(ratio=0.2, multiple=16)), (UNEVEN_TP,),
+        (pcfg.n_heads,)))
+    del attn
+    rows = []
+    for what, g, tps, heads in groups:
+        q = g.inner
+        for tp in tps:
+            views = [group_view(g, r, tp, heads) for r in range(tp)]
+            order = torch.cat([_group_columns(torch, g, r, tp, heads)
+                               for r in range(tp)]).to(q.w4.device)
+            cut = lambda t: t.index_select(-1, order).contiguous()  # noqa
+            ordered = dataclasses.replace(
+                q, w4=cut(q.w4), bits=cut(q.bits), alpha_s=cut(q.alpha_s),
+                alpha_r1=cut(q.alpha_r1))
+            for m in SPLIT_ROWS:
+                x = torch.randn((m, q.k), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                row = _split_product(torch, f"{what} tp={tp}", ordered,
+                                     [v.inner for v in views], "column", x,
+                                     timer, peaks)
+                row.update(leaf=what, splits=[list(v.splits) for v in views])
+                rows.append(row)
+                if heads:
+                    # the query member alone, as a rank runs it where
+                    # its KV is projected on the sequence-parallel chunk
+                    row = _split_product(
+                        torch, f"{what} query member tp={tp}",
+                        g.members()[0], [v.members()[0] for v in views],
+                        "column", x, timer, peaks)
+                    row.update(leaf=f"{what} query member",
+                               splits=[[v.splits[0]] for v in views])
+                    rows.append(row)
+    # phi4-mini's ranks of no head (12-15 of 16) hold no query column
+    headless = [r for r in range(UNEVEN_TP)
+                if len(range(*chunk_range(pcfg.n_heads, UNEVEN_TP, r))) == 0]
+    for row in rows:
+        if row["leaf"] == "phi4-mini wqkv" and headless != [
+                r for r, sp in enumerate(row["splits"]) if sp[0] == 0]:
+            _fail(f"[dist serve fused split] phi4-mini's query columns by "
+                  f"rank {row['splits']}, ranks {headless} hold no head")
+    return rows
+
+
+def check_ctx_cross(torch, gen) -> dict:
+    """``[dist serve ctx cross]``: the context-sharded cross K/V of a
+    decode step.  seamless-m4t-medium's layer-0 cross-attention (its
+    bf16 weights from seed 0, wq / wk / wv quantized data-free): K/V
+    over DIST_SERVE_ROWS x SERVE_KIND_FRAMES stub frames, the query of
+    one decode row each, cast to f32 (with bf16 K/V the weights round
+    to bf16 after the division by the sum, and a sum in another order
+    flips some of them by an ulp: 1.30e-5 of max|o| on the card); each
+    of CTX_CROSS_CHUNKS ranks' cache is
+    ``layers._cross_ctx``'s chunk of the positions, attended for every
+    head (``layers.attend_split``) and combined as the all-reduces over
+    "model" combine them (``layers.drive_split``).  Every part must end
+    with the same output, within SPLIT_RTOL of the largest value of one
+    device's attention over every position (``layers._attend``, f32)."""
+    from repro_torch.configs import registry
+    from repro_torch.core.qlinear import QuantConfig, quantize_linear
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import Parallel
+    from repro_torch.models.linear import dense
+    from repro_torch.models.param import materialize
+    cfg = registry.get(S2T_ARCH)
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    p = materialize(L.init_attention(cfg, cross=True), 0, "cuda")
+    w = {k: quantize_linear(p[k], None, qcfg) for k in ("wq", "wk", "wv")}
+    del p
+    b, s, tp, dh = DIST_SERVE_ROWS, SERVE_KIND_FRAMES, CTX_CROSS_CHUNKS, \
+        cfg.head_dim_
+    frames = torch.randn((b, s, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    # in f32: the softmax weights then round to no narrower type, and the
+    # parts' sums differ from the whole's in their order alone
+    q = dense(x, w["wq"]).reshape(b, 1, -1, dh).float()
+    k = dense(frames, w["wk"]).reshape(b, s, -1, dh).float()
+    v = dense(frames, w["wv"]).reshape(b, s, -1, dh).float()
+    mask = torch.ones((b, 1, s), dtype=torch.bool, device="cuda")
+    whole = L._attend(q, k, v, mask, cfg.logit_softcap)
+    par = Parallel(tp=tp)
+    chunks = [L._cross_ctx(cfg, k, v, _rank_shards(par, r))
+              for r in range(tp)]
+    parts = L.drive_split([L.attend_split(
+        q, kc, vc, mask[..., :kc.shape[1]], cfg.logit_softcap)
+        for kc, vc in chunks])
+    same = all(torch.equal(o, parts[0]) for o in parts)
+    gap = float((parts[0] - whole).abs().max() / whole.abs().max())
+    out = {"rows": b, "frames": s, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads, "chunks": tp,
+           "chunk_positions": [kc.shape[1] for kc, _ in chunks],
+           "parts_equal": same, "f32_rel_gap": gap}
+    if not same or not gap <= SPLIT_RTOL:
+        _fail(f"[dist serve ctx cross] {out}")
     return out
 
 
@@ -4503,13 +4755,15 @@ def _serve_kind_cases(registry):
 
 
 def _leaf_of(qparams, k: int, n: int):
-    """A packed 2-D leaf of ``qparams`` of input K and output N, or
-    None."""
-    from repro_torch.core.qlinear import QLinear
+    """A packed 2-D leaf of ``qparams`` (a fused group's whole leaf
+    among them) of input K and output N, or None."""
+    from repro_torch.core.qlinear import QLinear, QLinearGroup
     found = []
 
     def walk(t):
-        if isinstance(t, QLinear):
+        if isinstance(t, QLinearGroup):
+            walk(t.inner)
+        elif isinstance(t, QLinear):
             if t.w4.ndim == 2 and (t.k, t.n) == (k, n) and not found:
                 found.append(t)
         elif isinstance(t, dict):
@@ -5995,6 +6249,214 @@ def run_dryrun(torch, kernels, smi: str) -> dict:
     return out
 
 
+# --tp4: sharded serving over four cards, a run of its own (chip_smoke
+# with no arguments needs one card).  Each case at full width, cut to
+# TP4_DEPTH layers: qwen3-4b (GQA 32 / 8: every rank's KV heads its
+# own, tp 4 dividing them) and phi4-mini-3.8b with 2 KV heads (tp 4
+# does not divide them: a rank's KV columns are gathered over "model",
+# and the sequence-parallel prefill projects them on the rank's chunk)
+TP4_WORLD = 4
+TP4_CASES = (("qwen3-4b", {}), ("phi4-mini-3.8b", {"n_kv_heads": 2}))
+TP4_DEPTH = 4
+TP4_STEPS = 8
+TP4_RTOL = 2e-2     # logit gap to one device, of its largest |logit|
+
+
+def _broadcast_tree(torch, dist, tree) -> None:
+    """Every tensor of ``tree`` (packed leaves' fields too) set to rank
+    0's, in place."""
+    from repro_torch.core.qlinear import FIELDS, QLinear, QLinearGroup
+    if isinstance(tree, QLinearGroup):
+        _broadcast_tree(torch, dist, tree.inner)
+    elif isinstance(tree, QLinear):
+        for f in FIELDS:
+            dist.broadcast(getattr(tree, f), 0)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _broadcast_tree(torch, dist, v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _broadcast_tree(torch, dist, v)
+    elif isinstance(tree, torch.Tensor):
+        dist.broadcast(tree, 0)
+
+
+def _held_greedy(torch, got, want, rtol: float, vocab: int) -> dict:
+    """The largest logit gap of ``got`` to ``want`` (``_serve_greedy``
+    runs) over the rows whose greedy tokens still agree, against
+    ``rtol`` of want's largest |logit|, both over the ``vocab`` true
+    entries (the padded ones hold the f32 minimum); where a row's
+    tokens part, the step and want's top-2 gap there, which must lie
+    within the same bound (a near tie)."""
+    scale = max(float(w[:, :vocab].float().abs().max())
+                for w in want["logits"])
+    live = torch.ones(want["logits"][0].shape[0], dtype=torch.bool,
+                      device=want["logits"][0].device)
+    gap, ties = 0.0, []
+    for i, (g, w) in enumerate(zip(got["logits"], want["logits"])):
+        g, w = g[:, :vocab], w[:, :vocab]
+        d = (g.float() - w.float()).abs().amax(dim=-1)
+        if live.any():
+            gap = max(gap, float(d[live].max()))
+        if i < len(want["tokens"]):
+            parted = live & (got["tokens"][i] != want["tokens"][i])
+            for row in parted.nonzero().flatten().tolist():
+                top = torch.topk(w[row].float(), 2).values
+                ties.append((i, row, float(top[0] - top[1])))
+            live &= ~parted
+    return {"max_logit_gap": gap, "scale": scale,
+            "limit": rtol * scale, "ties": ties,
+            "held": gap <= rtol * scale and all(
+                t <= rtol * scale for _, _, t in ties)}
+
+
+def tp4_rank(rank: int, world: int, port: int, out_path: str) -> int:
+    """One rank of ``--tp4``: each case of TP4_CASES quantized data-free
+    (ratio 0.2, multiple 16) unfused and with ``fuse=True`` (rank 0's
+    bytes on every rank), placed by ``launch.qdeclare``'s specs under
+    the prefill cell's preset of the (1, world) mesh (sequence-parallel
+    at tp > 1) through ``model.shard_for_serving``, and served: a prefill
+    of DIST_SERVE_ROWS x DIST_SERVE_PROMPT tokens and TP4_STEPS greedy
+    steps.  Rank 0 also serves the same tree on its card alone and
+    holds the sharded run against it (``_held_greedy``, TP4_RTOL).  Each
+    rank's mixed_matmul launches of the sharded run; rank 0 writes the
+    results to ``out_path``."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import SHAPE_CELLS, Stage
+    from repro_torch.core.pipeline import quantize_params_data_free
+    from repro_torch.core.qlinear import QuantConfig
+    from repro_torch.kernels import mixed_matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.presets import make_preset
+    from repro_torch.launch.qdeclare import declare_quantized
+    from repro_torch.models import model as M
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    kernel = mixed_matmul.KERNEL
+    qcfg = QuantConfig(ratio=0.2, multiple=16)
+    cell = next(c for c in SHAPE_CELLS if c.kind == "prefill")
+    rows = []
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), "cuda")
+        b, s = DIST_SERVE_ROWS, DIST_SERVE_PROMPT
+        for arch, over in TP4_CASES:
+            cfg = dataclasses.replace(
+                registry.get(arch), stages=(Stage(("dense",), TP4_DEPTH),),
+                **over)
+            preset = make_preset(cfg, cell, mesh)
+            weights = M.init_params(cfg, 0, "cuda")
+            gen = torch.Generator(device="cuda").manual_seed(43)
+            batch = {"tokens": torch.randint(
+                1, cfg.vocab, (b, s), generator=gen, device="cuda",
+                dtype=torch.int32), "positions": torch.arange(
+                s, dtype=torch.int32, device="cuda").expand(b, s)}
+            dist.broadcast(batch["tokens"], 0)
+            for fuse in (False, True):
+                q = quantize_params_data_free(weights, qcfg,
+                                              min_dim=DIST_SERVE_MIN_DIM,
+                                              fuse=fuse)
+                _broadcast_tree(torch, dist, q)
+                _, specs = declare_quantized(cfg, preset.par, qcfg,
+                                             preset.rules,
+                                             min_dim=DIST_SERVE_MIN_DIM)
+                shards, lp = M.shard_for_serving(cfg, preset.par, q, specs,
+                                                 mesh)
+                before = kernel.launches
+                sh = _serve_greedy(torch, M, cfg, lp, batch, shards,
+                                   steps=TP4_STEPS)
+                launched = torch.tensor([kernel.launches - before],
+                                        device="cuda")
+                per_rank = [torch.zeros_like(launched) for _ in range(world)]
+                dist.all_gather(per_rank, launched)
+                del lp, shards
+                row = {"arch": arch, "over": over, "fused": fuse,
+                       "tp": world, "sp": preset.par.sp,
+                       "layers": TP4_DEPTH, "rows": b, "prompt": s,
+                       "steps": TP4_STEPS,
+                       "sharded_launches": [int(t) for t in per_rank],
+                       "sharded_prefill_ms": sh["prefill_ms"],
+                       "sharded_decode_step_ms":
+                           sum(sh["step_ms"]) / len(sh["step_ms"])}
+                if rank == 0:
+                    before = kernel.launches
+                    one = _serve_greedy(torch, M, cfg, q, batch,
+                                        steps=TP4_STEPS)
+                    row.update(one_device_launches=kernel.launches - before,
+                               one_device_prefill_ms=one["prefill_ms"],
+                               one_device_decode_step_ms=sum(
+                                   one["step_ms"]) / len(one["step_ms"]),
+                               **_held_greedy(torch, sh, one, TP4_RTOL,
+                                              cfg.vocab))
+                    del one
+                rows.append(row)
+                del q, sh
+                torch.cuda.empty_cache()
+            del weights
+        dist.barrier(device_ids=[rank])
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(rows, f)
+    return 0
+
+
+def main_tp4() -> int:
+    """``python3 chip_smoke.py --tp4``: build the kernels, then
+    TP4_WORLD ranks of :func:`tp4_rank` over NCCL, one card each;
+    prints ``[tp4 ...]`` lines and fails unless every run was held and
+    every rank launched the packed matmul."""
+    import tempfile
+    import torch
+    if torch.cuda.device_count() < TP4_WORLD:
+        print(f"chip_smoke --tp4: needs {TP4_WORLD} cards, has "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    print(f"[tp4 build] {time.perf_counter() - t0:.1f}s", flush=True)
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as d:
+        out = Path(d) / "tp4.json"
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__)),
+                                   "--tp4-rank", str(r), str(TP4_WORLD),
+                                   str(port), str(out)])
+                 for r in range(TP4_WORLD)]
+        try:
+            codes = [p.wait(timeout=1500) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes):
+            _fail(f"[tp4] ranks exited with {codes}")
+        rows = json.loads(out.read_text())
+    for row in rows:
+        print(f"[tp4 {row['arch']} {'fused' if row['fused'] else 'unfused'}]"
+              f" {smi}: " + json.dumps(row), flush=True)
+        if not row["held"]:
+            _fail(f"[tp4] {row['arch']} fused={row['fused']}: the sharded "
+                  f"run parts from one device: {row}")
+        if min(row["sharded_launches"]) <= 0:
+            _fail(f"[tp4] a rank launched no packed matmul: {row}")
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "tp4": len(rows), "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 class Laps:
     """Wall seconds of each phase, printed as it ends (``[phase]``)."""
 
@@ -6039,6 +6501,10 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp4-rank"]:
+        return tp4_rank(*(int(a) for a in sys.argv[2:5]), sys.argv[5])
+    if sys.argv[1:] == ["--tp4"]:
+        return main_tp4()
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6420,17 +6886,20 @@ def main() -> int:
           flush=True)
 
     laps("15")
-    # -- 16. sharded serving of packed weights on one NCCL rank -----------
-    dist_serve = run_dist_serve(torch, kernels, smi, peaks)
-
-    laps("16")
+    # -- 16. sharded serving of packed weights on one NCCL rank, unfused
+    # and fused ------------------------------------------------------------
     checked = {(r["M"], r["K"], r["N"]) for r in
                mm + mm_rows + cal_summary["layer0_mixed_matmul"] + moe_mm
                + moe_cal["layer0_mixed_matmul"] + rg_mm
                + rg_cal["layer0_mixed_matmul"] + xl_mm
                + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm + q3_mm}
+    dist_serve = run_dist_serve(torch, kernels, smi, peaks, checked)
+
+    laps("16")
     checked |= {(m, k, n) for r in dist_serve["split"]
+                + dist_serve["fused"]["split"]
                 for (m, k, n) in r["shapes"] + [(r["M"], r["K"], r["N"])]}
+    checked |= {(r["M"], r["K"], r["N"]) for r in dist_serve["fused"]["held"]}
     # -- 17. sharded serving of the other kinds on one NCCL rank ----------
     serve_kinds = run_dist_serve_kinds(torch, kernels, smi, peaks, checked)
     checked |= {(r["M"], r["K"], r["N"]) for r in serve_kinds["held"]}
@@ -6509,6 +6978,9 @@ def main() -> int:
                 "dist serve one device":
                     dist_serve["one_device"]["launches"],
                 "dist serve": dist_serve["sharded"]["launches"],
+                "dist serve fused one device":
+                    dist_serve["fused"]["one_device"]["launches"],
+                "dist serve fused": dist_serve["fused"]["sharded"]["launches"],
                 **{f"dist serve kinds {tag} one device":
                    serve_kinds[tag]["one_device"]["launches"]
                    for tag in ("moe", "rg", "xl", "s2t")},

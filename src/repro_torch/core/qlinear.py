@@ -261,19 +261,41 @@ class QLinearGroup:
 
     def members(self) -> Tuple[Any, ...]:
         """Per-member unfused views over the same (fp or packed) data;
-        stacked inners split along N alike."""
+        stacked inners split along N alike.  A 2-D packed member's
+        fields are contiguous copies instead: the packed matmul takes
+        contiguous operands only, and a column view of a row-major
+        (rows, N) field is strided (a stacked member is dequantized per
+        call and stays a view)."""
         if not isinstance(self.inner, QLinear):
             return tuple(pack.split_cols(self.inner, self.splits))
         q = self.inner
+        cut = ((lambda t: pack.split_cols(t, self.splits)) if q.w4.ndim == 3
+               else (lambda t: [c.contiguous()
+                                for c in pack.split_cols(t, self.splits)]))
         return tuple(
             QLinear(q.perm, w4, q.s4, q.z4, bits, a_s, a_r1, q.alpha_r2,
                     k_s=q.k_s, k=q.k, n=ni)
             for w4, bits, a_s, a_r1, ni in zip(
-                pack.split_cols(q.w4, self.splits),
-                pack.split_cols(q.bits, self.splits),
-                pack.split_cols(q.alpha_s, self.splits),
-                pack.split_cols(q.alpha_r1, self.splits),
+                cut(q.w4), cut(q.bits), cut(q.alpha_s), cut(q.alpha_r1),
                 self.splits))
+
+    @classmethod
+    def fuse(cls, members: Sequence[Any]) -> "QLinearGroup":
+        """The inverse of :meth:`members`: same-input weights that share
+        one ``perm``, ``s4``, ``z4`` and ``alpha_r2`` (the first
+        member's are kept) concatenated along N, or plain tensors so
+        concatenated.  Pack order keeps N contiguous, so the group's
+        bytes are the members' own."""
+        first = members[0]
+        splits = tuple(int(m.shape[-1] if isinstance(m, torch.Tensor)
+                           else m.n) for m in members)
+        if isinstance(first, torch.Tensor):
+            return cls(torch.cat(list(members), dim=-1), splits)
+        cat = lambda f: torch.cat([getattr(m, f) for m in members],  # noqa: E731
+                                  dim=-1)
+        return cls(dataclasses.replace(
+            first, w4=cat("w4"), bits=cat("bits"), alpha_s=cat("alpha_s"),
+            alpha_r1=cat("alpha_r1"), n=sum(splits)), splits)
 
 
 def quantize_linear_group(ws: Sequence[torch.Tensor],

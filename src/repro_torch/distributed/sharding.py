@@ -38,6 +38,13 @@ that belong to them.  A stacked expert leaf
 takes the reference's quantized MoE layout instead, whatever its
 storage spec (:func:`expert_local`): ``wg`` / ``wu`` over ffn, ``wd``
 whole.
+
+A fused ``QLinearGroup`` leaf (``wqkv``, ``wgu``) has no spec of its
+own: each of its members (``QLinearGroup.members``) is placed by the
+spec of the unfused leaf of its name beside it (``GROUP_MEMBERS``; a
+cut of the fused N into even chunks would give rank 0 all of wq), and a
+rank's view of the group (:func:`group_local`) is its members' views
+concatenated along N.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.qlinear import FIELDS, QLinear
+from repro_torch.core.qlinear import FIELDS, QLinear, QLinearGroup
 from repro_torch.core.select import map_tree
 from repro_torch.distributed import collectives as C
 from repro_torch.models.param import P
@@ -127,16 +134,44 @@ def rules_for_mesh(mesh, *, fsdp: bool = False, ep: bool = False) -> Rules:
 def specs_for_tree(declared: Tree, rules: Rules, params: Tree = None) -> Tree:
     """P declaration tree -> Spec tree (same structure).  Given the
     ``params`` the declaration describes, a leaf that is a packed
-    ``QLinear`` there gets the QLinear of Specs of :func:`qlinear_specs`
-    (as ``launch.qdeclare.declare_quantized`` gives it)."""
+    ``QLinear`` there, or a packed member of a fused group there
+    (:func:`group_member`), gets the QLinear of Specs of
+    :func:`qlinear_specs` (as ``launch.qdeclare.declare_quantized``
+    gives it)."""
     def leaf(path, p):
         if not isinstance(p, P):
             raise TypeError(f"specs_for_tree expects P leaves, got {type(p)}")
         q = _find(params, path)
+        if q is None and params is not None:
+            q = group_member(params, path)
         if isinstance(q, QLinear):
             return qlinear_specs(p.axes, q.k_s, q.k, q.n, rules)
         return rules.spec(p.axes)
     return map_tree(declared, leaf)
+
+
+# a fused group's name -> the unfused leaves it holds, in its N order
+# (``models.transformer.fuse_block_params``)
+GROUP_MEMBERS = {"wqkv": ("wq", "wk", "wv"), "wgu": ("wg", "wu")}
+
+
+def group_member(params: Tree, path: Tuple):
+    """The member of a fused group of ``params`` that stands for the
+    unfused leaf at ``path`` (``("attn", "wk")`` of a block that holds
+    ``("attn", "wqkv")``), or None."""
+    parent = _find(params, path[:-1])
+    if not isinstance(parent, dict):
+        return None
+    for name, members in GROUP_MEMBERS.items():
+        if path[-1] in members and isinstance(parent.get(name), QLinearGroup):
+            return parent[name].members()[members.index(path[-1])]
+    return None
+
+
+def member_paths(path: Tuple) -> Tuple[Tuple, ...]:
+    """The paths of the unfused leaves that the fused group at ``path``
+    holds (their specs place its members)."""
+    return tuple(path[:-1] + (m,) for m in GROUP_MEMBERS[path[-1]])
 
 
 def _find(tree: Tree, path: Tuple):
@@ -286,12 +321,29 @@ def at(tree: Tree, path: Tuple) -> Any:
     return tree
 
 
+@dataclass
+class PlacedGroup:
+    """A fused ``QLinearGroup`` leaf on the mesh: its members
+    (``QLinearGroup.members``), each placed by the spec of the unfused
+    leaf of its name (:func:`distribute_tree`); :func:`group_local`
+    turns it into this rank's view."""
+
+    members: Tuple[Any, ...]
+    splits: Tuple[int, ...]
+
+
 def distribute_tree(tree: Tree, spec_tree: Tree, mesh) -> Tree:
     """The counterpart of ``named_shardings`` plus the device put: every
     tensor of ``tree`` distributed by its Spec in ``spec_tree``, every
-    packed ``QLinear`` field by its QLinear of Specs."""
-    return map_tree(tree, lambda path, t: distribute(t, at(spec_tree, path),
-                                                     mesh))
+    packed ``QLinear`` field by its QLinear of Specs, every fused group
+    as a :class:`PlacedGroup` of its members so placed."""
+    def leaf(path, t):
+        if isinstance(t, QLinearGroup):
+            return PlacedGroup(tuple(
+                distribute(m, at(spec_tree, mp), mesh)
+                for m, mp in zip(t.members(), member_paths(path))), t.splits)
+        return distribute(t, at(spec_tree, path), mesh)
+    return map_tree(tree, leaf)
 
 
 def full(t: torch.Tensor) -> torch.Tensor:
@@ -481,12 +533,82 @@ def expert_local(q: QLinear, spec: QLinear, shards, column: bool
     return local_view(lq, "column", shards.tp_rank, shards.tp)
 
 
+def group_view(g: QLinearGroup, rank: int, tp: int,
+               heads: Tuple[Optional[int], ...] = ()) -> QLinearGroup:
+    """Rank ``rank``'s view of the whole packed fused group ``g`` over
+    ``tp`` ranks, as :func:`group_local` builds it from the placed
+    group: each member's column view (:func:`local_view`; a member whose
+    N holds ``heads[i]`` heads that tp does not divide, the columns of
+    the rank's whole heads, :func:`head_view`) side by side along N."""
+    heads = tuple(heads) + (None,) * (len(g.splits) - len(heads))
+    return QLinearGroup.fuse([
+        head_view(m, h, rank, tp) if h is not None and h % tp
+        else local_view(m, "column", rank, tp)
+        for m, h in zip(g.members(), heads)])
+
+
+def _tensor_local(t: torch.Tensor, spec, shards,
+                  heads: Optional[int]) -> torch.Tensor:
+    """This rank's part of a placed floating-point member of a fused
+    group: its local columns, or where its N holds ``heads`` heads that
+    tp does not divide, the columns of the rank's whole heads (the
+    leaf gathered once here, as ``Shards.head_part`` cuts an unfused
+    one at every call).  A member sharded over data is refused."""
+    if any(n != "model" for e in spec for n in _names(e)):
+        raise NotImplementedError(
+            "a fused group's member sharded over data: serving keeps "
+            "fused leaves replicated over data")
+    if heads is None or heads % shards.tp == 0:
+        return local(t)
+    w = full(t)
+    width = w.shape[-1] // heads
+    lo, hi = chunk_range(heads, shards.tp, shards.tp_rank)
+    return w[..., lo * width:hi * width].contiguous()
+
+
+def group_local(g: PlacedGroup, specs, shards, heads=None,
+                names: Tuple[str, ...] = ()) -> QLinearGroup:
+    """This rank's view of a placed fused group (:class:`PlacedGroup`,
+    its members placed by ``specs``, one per member): each member's
+    view, concatenated along N (``QLinearGroup.fuse``).  A packed
+    member's is its :func:`qlinear_local` column view (given ``heads``,
+    one per member: the query member's whole heads, :func:`head_view`),
+    or, stacked, its :func:`expert_local` one (``names`` the members'
+    leaf names); so the view's ``w4``, ``bits``, ``alpha_s`` and
+    ``alpha_r1`` are the members' columns side by side, its ``perm``,
+    ``s4``, ``z4`` and ``alpha_r2`` the shared vectors whole, and its
+    splits the local widths.  Members split over their input dim (a
+    row view) or over data are refused."""
+    heads = heads or (None,) * len(g.members)
+    views = []
+    for i, (m, spec, h) in enumerate(zip(g.members, specs, heads)):
+        if isinstance(m, QLinear) and m.w4.ndim == 3:
+            views.append(expert_local(m, spec, shards,
+                                      names[i] in EXPERT_COLUMNS))
+        elif isinstance(m, QLinear):
+            if qlinear_role(spec) == "row" and shards.tp > 1:
+                raise ValueError("a fused group's member splits over its "
+                                 "input dim")
+            views.append(qlinear_local(m, spec, shards, h))
+        else:
+            views.append(_tensor_local(m, spec, shards, h))
+    return QLinearGroup.fuse(views)
+
+
 def local_tree(tree: Tree, spec_tree: Tree, shards, heads=None) -> Tree:
     """A placed tree (:func:`distribute_tree`) -> this rank's local
     tensors, each packed leaf as its :func:`qlinear_local` view (given
     ``heads(path)``, the heads of a query projection's columns, or
-    None), each packed expert leaf as its :func:`expert_local` one."""
+    None), each packed expert leaf as its :func:`expert_local` one, each
+    fused group as its :func:`group_local` one (its members' specs and
+    heads those of the unfused leaves of their names)."""
     def leaf(path, t):
+        if isinstance(t, PlacedGroup):
+            paths = member_paths(path)
+            return group_local(
+                t, [at(spec_tree, mp) for mp in paths], shards,
+                [None if heads is None else heads(mp) for mp in paths],
+                tuple(mp[-1] for mp in paths))
         if isinstance(t, QLinear) and t.w4.ndim == 3:
             return expert_local(t, at(spec_tree, path), shards,
                                 path[-1] in EXPERT_COLUMNS)

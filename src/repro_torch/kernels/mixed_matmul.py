@@ -3,7 +3,8 @@
 Twin of ``repro.kernels.mixed_matmul`` (the Pallas TPU kernel and its
 in-kernel-gather variant).  On a CUDA tensor :func:`mixed_matmul`
 launches the hand-written kernel; on a CPU tensor it runs
-``ref.mixed_matmul_ref``.  Hopper needs no feasibility gate: the kernel
+``ref.mixed_matmul_ref``, after the weights' layout check the kernel
+makes (:func:`check_weights`).  Hopper needs no feasibility gate: the kernel
 takes every shape the packing allows (k_s even, k_b a multiple of 8),
 and a CUDA call it cannot take raises.
 
@@ -80,16 +81,18 @@ def mixed_matmul(x: torch.Tensor, w4: torch.Tensor, s4: torch.Tensor,
     if holds_no_data(x):
         return packed_matmul(x, perm, w4, s4, z4, bits, alpha_s, alpha_r1,
                              alpha_r2, out_dtype)
-    if x.device.type == "cpu":
-        return ref.mixed_matmul_ref(x, w4, s4, z4, bits, alpha_s, alpha_r1,
-                                    alpha_r2, perm).to(out_dtype)
     k_s, n = w4.shape[0] * 2, bits.shape[1]
     k_b = bits.shape[0] * 8
     k = k_s + k_b
+    packed = (w4, bits) if k_s else (bits,)
+    vectors = ((s4, k_s), (z4, k_s), (alpha_s, n), (alpha_r1, n),
+               (alpha_r2, k_b))
+    if x.device.type == "cpu":
+        check_weights("mixed_matmul", x, n, packed, vectors)
+        return ref.mixed_matmul_ref(x, w4, s4, z4, bits, alpha_s, alpha_r1,
+                                    alpha_r2, perm).to(out_dtype)
     check_packed("mixed_matmul", x, k if perm is None else x.shape[-1], n,
-                 (w4, bits) if k_s else (bits,),
-                 ((s4, k_s), (z4, k_s), (alpha_s, n), (alpha_r1, n),
-                  (alpha_r2, k_b)))
+                 packed, vectors)
     if perm is not None and (
             perm.dtype != torch.int32 or perm.shape != (k,)
             or not perm.is_contiguous()
@@ -145,15 +148,25 @@ def check_packed(name: str, x: torch.Tensor, k: int, n: int,
                  packed: Sequence[torch.Tensor],
                  vectors: Sequence[Tuple[torch.Tensor, int]]) -> None:
     """Raise ``ValueError`` unless x is a contiguous bf16 (M, k) CUDA
-    tensor, every ``packed`` tensor a contiguous uint8 (rows, n) matrix
-    and every ``vectors`` entry ``(tensor, size)`` a contiguous f32
-    vector of that size, all on x's card."""
+    tensor and the weights are laid out as :func:`check_weights` asks,
+    all on x's card."""
     if not x.is_cuda:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if (x.dtype != torch.bfloat16 or x.ndim != 2 or x.shape[1] != k
             or not x.is_contiguous()):
         raise ValueError(f"{name}: x must be contiguous bf16 (M, {k}), got "
                          f"{x.dtype} {tuple(x.shape)}")
+    check_weights(name, x, n, packed, vectors)
+
+
+def check_weights(name: str, x: torch.Tensor, n: int,
+                  packed: Sequence[torch.Tensor],
+                  vectors: Sequence[Tuple[torch.Tensor, int]]) -> None:
+    """Raise ``ValueError`` unless every ``packed`` tensor is a
+    contiguous uint8 (rows, n) matrix and every ``vectors`` entry
+    ``(tensor, size)`` a contiguous f32 vector of that size, all on x's
+    device.  The plain route checks it too, so that a layout the kernel
+    refuses (a strided column view, say) fails on the CPU as well."""
     dev = x.get_device()
     for t in packed:
         if (t.dtype != torch.uint8 or t.ndim != 2 or t.shape[1] != n

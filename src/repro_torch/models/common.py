@@ -32,7 +32,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.qlinear import QLinear
+from repro_torch.core.qlinear import QLinear, QLinearGroup
 from repro_torch.core.select import map_tree
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (at, chunk_range, is_dtensor,
@@ -218,8 +218,10 @@ class Shards:
         dim over data gets its gradient summed over the data ranks
         instead.  Dims over "model" stay local.  A packed ``QLinear``
         (a serving view of ``distributed.sharding.qlinear_local``, which
-        holds nothing over data) is returned as it is."""
-        if isinstance(t, QLinear):
+        holds nothing over data) is returned as it is, and so is a fused
+        group's view (``sharding.group_local``, which has no spec of its
+        own: ``spec`` None)."""
+        if isinstance(t, (QLinear, QLinearGroup)):
             return t
         over_data = False
         for i, entry in enumerate(spec):
@@ -237,20 +239,22 @@ class Shards:
     def gather_tree(self, tree: Tree, spec_tree: Tree) -> Tree:
         """:meth:`gather` of every leaf of ``tree`` by its Spec."""
         return map_tree(tree, lambda path, t: self.gather(
-            t, at(spec_tree, path)))
+            t, None if isinstance(t, QLinearGroup) else at(spec_tree, path)))
 
     def gather_model(self, t, dim: int):
         """``t`` gathered over "model" along ``dim`` (backward: the
         reduce-scatter of the gradient).  A column-parallel packed view
         (its N over "model") is gathered along N: ``w4``, ``bits``,
         ``alpha_s`` and ``alpha_r1`` along their last dim, beside the
-        vectors it holds whole."""
+        vectors it holds whole; the gathered fields are made contiguous,
+        as the packed matmul takes them (a gather along the last dim
+        is a strided view)."""
         if self.tp == 1:
             return t
         group = self.group("model")
         if isinstance(t, QLinear):
             cols = {f: C.all_gather(getattr(t, f), getattr(t, f).ndim - 1,
-                                    group)
+                                    group).contiguous()
                     for f in ("w4", "bits", "alpha_s", "alpha_r1")}
             return dataclasses.replace(t, **cols, n=t.n * self.tp)
         return C.all_gather(t, dim, group)

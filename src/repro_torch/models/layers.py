@@ -32,8 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.qlinear import QLinear
+from repro_torch.core.qlinear import QLinear, QLinearGroup
 from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import chunk_range
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.kernels.paged_prefill import paged_prefill
 from repro_torch.models.linear import dense, expert_dense
@@ -41,8 +42,6 @@ from repro_torch.models.param import P
 
 Tree = Any
 NEG_INF = -1e30
-CTX_QUEUE = ("ROADMAP.md queue 1, item 2 (the cross K/V's context-sharded "
-             "layout)")
 
 
 # ---------------------------------------------------------------------------
@@ -151,9 +150,6 @@ def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards,
     back to the chunk); on a replicated ``xkv`` each rank projects its
     own columns of wk / wv and the columns are gathered over "model"
     (backward: the reduce-scatter of their gradient)."""
-    dh, hkv = cfg.head_dim_, cfg.n_kv_heads
-    run = shards.par.kv_heads_run(hkv, cfg.n_heads)
-    per = run // shards.tp
     out = []
     for w, b in (("wk", "bk"), ("wv", "bv")):
         bias = p.get(b)
@@ -163,14 +159,68 @@ def _kv_replicated(cfg: ArchConfig, p: Tree, xkv: torch.Tensor, shards,
                 None if bias is None else shards.gather_model(bias, 0)))
         else:
             y = shards.gather_model(dense(xkv, p[w], bias), xkv.ndim - 1)
-        if not narrow:
-            out.append(y)
-            continue
-        y = y.reshape(y.shape[:-1] + (hkv, dh))
-        y = torch.repeat_interleave(y, run // hkv, dim=-2)
-        y = y.narrow(-2, shards.tp_rank * per, per)
-        out.append(y.reshape(y.shape[:-2] + (per * dh,)))
+        out.append(_kv_keep(cfg, y, shards, narrow))
     return out
+
+
+def _kv_keep(cfg: ArchConfig, y: torch.Tensor, shards, narrow: bool
+             ) -> torch.Tensor:
+    """Every true KV head of K or V (B, Sk, hkv * dh) -> this rank's
+    run-time heads (the true ones repeated ``kv_heads_run / hkv`` times
+    consecutively, narrowed to the rank's), or with ``narrow`` off every
+    true head as it is."""
+    if not narrow:
+        return y
+    dh, hkv = cfg.head_dim_, cfg.n_kv_heads
+    run = shards.par.kv_heads_run(hkv, cfg.n_heads)
+    per = run // shards.tp
+    y = y.reshape(y.shape[:-1] + (hkv, dh))
+    y = torch.repeat_interleave(y, run // hkv, dim=-2)
+    y = y.narrow(-2, shards.tp_rank * per, per)
+    return y.reshape(y.shape[:-2] + (per * dh,))
+
+
+def _project_fused(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards,
+                   chunk: Optional[torch.Tensor]):
+    """q, k, v (B, S, width) of the fused ``wqkv`` group: one product
+    (one activation gather) for all three projections.  With
+    ``shards`` the group is this rank's view
+    (``distributed.sharding.group_local``): the query member's columns
+    (its whole heads, :func:`_uneven`), then its column chunks of wk
+    and wv; the rank gets exactly the q, k and v of the unfused
+    branches of :func:`_project_qkv`.  Where its KV columns are not
+    whole KV heads of its own (not :func:`_kv_heads_local`), the K/V
+    chunks are gathered over "model" and kept as :func:`_kv_replicated`
+    keeps them.  Where the KV members' input differs from the query's,
+    KV projected on ``chunk`` (this rank's chunk of the
+    sequence-parallel stream that x was gathered from), the rank runs
+    the members' views as two products: the query member's on x, and
+    the KV members', gathered over "model" and fused, on the chunk.
+    Nowhere else does the group run unfused."""
+    g = p["wqkv"]
+    bq = p.get("bq")
+    if bq is not None and shards is not None:
+        bq = shards.head_part(bq, cfg.n_heads, 0)
+    own = shards is None or _kv_heads_local(cfg, shards)
+    narrow = not _uneven(cfg, shards)
+    if own or chunk is None:
+        q, k, v = g.split_out(dense(x, g))
+        if bq is not None:
+            q = q + bq.to(q.dtype)
+            k = k + p["bk"].to(k.dtype)
+            v = v + p["bv"].to(v.dtype)
+        if own:
+            return q, k, v
+        return (q,) + tuple(_kv_keep(cfg, shards.gather_model(y, y.ndim - 1),
+                                     shards, narrow) for y in (k, v))
+    wq, wk, wv = g.members()          # contiguous, as the kernel takes
+    kv = QLinearGroup.fuse([shards.gather_model(w, 1) for w in (wk, wv)])
+    k, v = kv.split_out(dense(chunk, kv))
+    if bq is not None:
+        k = k + shards.gather_model(p["bk"], 0).to(k.dtype)
+        v = v + shards.gather_model(p["bv"], 0).to(v.dtype)
+    return (dense(x, wq, bq),) + tuple(
+        _kv_keep(cfg, shards.stream_in(y), shards, narrow) for y in (k, v))
 
 
 def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
@@ -182,10 +232,11 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     default), k/v (B, Sk, hkv, dh); roped at ``positions`` and
     ``kv_positions`` unless ``use_rope`` is off (cross-attention).  The
     fused ``wqkv`` group runs one matmul (one activation gather) for all
-    three projections.  With ``shards`` (``models.common.Shards``) the
-    weights are this rank's column shards and the heads its own: hq /
-    tp query heads and ``kv_heads_run`` / tp KV heads; where those do
-    not divide tp (:func:`_uneven`), the query heads of
+    three projections (:func:`_project_fused`).  With ``shards``
+    (``models.common.Shards``) the weights are this rank's column
+    shards and the heads its own: hq / tp query heads and
+    ``kv_heads_run`` / tp KV heads; where those do not divide tp
+    (:func:`_uneven`), the query heads of
     ``Shards.heads`` (``wq`` and ``bq`` cut to them by
     ``Shards.head_part``) and every true KV head.  ``chunk``: this
     rank's chunk of the sequence-parallel stream that x was gathered
@@ -196,12 +247,7 @@ def _project_qkv(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         xkv, kv_positions = x, positions
     kv_in = xkv if chunk is None else chunk
     if "wqkv" in p and xkv is x:
-        g = p["wqkv"]
-        q, k, v = g.split_out(dense(x, g))
-        if "bq" in p:
-            q = q + p["bq"].to(q.dtype)
-            k = k + p["bk"].to(k.dtype)
-            v = v + p["bv"].to(v.dtype)
+        q, k, v = _project_fused(cfg, p, x, shards, chunk)
     elif _uneven(cfg, shards):
         bq = p.get("bq")
         q = dense(x, shards.head_part(p["wq"], cfg.n_heads, 1),
@@ -338,7 +384,8 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     longer than ``attn_chunk`` that it divides stream over key chunks.  With
     ``cache_window``, also returns the decode ring cache built from the
     K/V computed here; with ``return_kv``, those K/V themselves (the
-    cross-attention's decode cache).  With ``shards`` (the sharded
+    cross-attention's decode cache; under :func:`_uneven`, this rank's
+    part of them, :func:`_cross_ctx`).  With ``shards`` (the sharded
     train step, and sharded serving): x is the stream (this rank's
     chunk of it on the sequence-parallel stream, ``Shards.along``),
     which enters whole (``Shards.stream_in``); ``xkv`` is the encoder's
@@ -361,10 +408,6 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
         kv_positions = positions
     ka, va = k, v
     if _uneven(cfg, shards):
-        if return_kv:
-            raise NotImplementedError(
-                f"{cfg.name}: cross K/V caches whose run-time KV heads do "
-                f"not divide tp={shards.tp} wait for {CTX_QUEUE}")
         ka, va = _per_head_kv(cfg, k, v, shards)
     sk = k.shape[1]
     if sk > attn_chunk and sk % attn_chunk == 0:
@@ -381,6 +424,8 @@ def attention_full(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     out = (dense(o, p["wo"]) if shards is None else
            shards.row(o, p["wo"], (cfg.n_heads, cfg.head_dim_)))
     if return_kv:
+        if _uneven(cfg, shards):
+            return (out,) + _cross_ctx(cfg, k, v, shards)
         return out, k, v
     if cache_window is None:
         return out
@@ -411,6 +456,25 @@ def _ctx_cache(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
             ring[name] = ring[name].narrow(1, shards.tp_rank * wc,
                                            wc).clone()
     return ring
+
+
+def _cross_ctx(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor, shards):
+    """The cross K/V cache of a rank whose run-time KV heads do not
+    divide tp (``transformer.declare_stage_cache``, the reference's
+    ``init_stage_cache`` rule): every run-time KV head (the true heads
+    of k / v (B, S_enc, hkv, dh) repeated as the reference repeats
+    them) over this rank's chunk of the encoder positions
+    (``sharding.chunk_range``) where tp divides S_enc (the "ctx"
+    layout), else over every position on every rank."""
+    rep = shards.par.kv_heads_run(cfg.n_kv_heads, cfg.n_heads) // k.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    s = k.shape[1]
+    if s % shards.tp:
+        return k, v
+    lo, hi = chunk_range(s, shards.tp, shards.tp_rank)
+    # copies: a view would keep every position's storage in the cache
+    return k[:, lo:hi].clone(), v[:, lo:hi].clone()
 
 
 def ring_cache_from_kv(k: torch.Tensor, v: torch.Tensor,
@@ -534,8 +598,7 @@ def _attention_decode_ctx(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     rank its position (``"p"`` is whole on each).  The query heads are
     gathered over "model"; each rank attends its slots for every head
     in f32, and with the "ctx" layout the partials combine over "model"
-    (an all-reduce of the maxima, then of the sums and accumulators:
-    :func:`attend_split`).  This rank's heads of the output go through
+    (:func:`_attend_parts`).  This rank's heads of the output go through
     ``wo``'s row product."""
     b = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x, pos[:, None], shards=shards)
@@ -557,9 +620,25 @@ def _attention_decode_ctx(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     mask = (kp <= qp) & (kp >= 0)
     if window is not None:
         mask = mask & (qp - kp < window)
+    return _attend_parts(cfg, p, q, ck[layer], cv[layer], mask, wc < w,
+                         shards, x.dtype)
+
+
+def _attend_parts(cfg: ArchConfig, p: Tree, q: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                  split: bool, shards, dtype) -> torch.Tensor:
+    """A decode step's attention on a rank that holds every KV head over
+    a part of the keys (``split``: its chunk, the "ctx" layout) or over
+    all of them: this rank's query heads q (B, 1, h, dh) gathered over
+    "model", every head attended over its keys in f32
+    (:func:`attend_split`), the parts combined over "model" with
+    ``split`` (an all-reduce of the maxima, then of the sums and of the
+    accumulators); then this rank's heads of the output through
+    ``wo``'s row product."""
+    b = q.shape[0]
     q = shards.gather_heads(q, cfg.n_heads, 2)
-    part = attend_split(q, ck[layer], cv[layer], mask, cfg.logit_softcap)
-    group = shards.group("model") if wc < w and shards.tp > 1 else None
+    part = attend_split(q, k, v, mask, cfg.logit_softcap)
+    group = shards.group("model") if split and shards.tp > 1 else None
     msg = next(part)
     try:
         while True:
@@ -570,27 +649,44 @@ def _attention_decode_ctx(cfg: ArchConfig, p: Tree, x: torch.Tensor,
     except StopIteration as done:
         o = done.value
     hlo, hhi = shards.heads(cfg.n_heads)
-    o = o[:, :, hlo:hhi].to(x.dtype).reshape(b, 1, (hhi - hlo) * o.shape[3])
+    o = o[:, :, hlo:hhi].to(dtype).reshape(b, 1, (hhi - hlo) * o.shape[3])
     return shards.row(o, p["wo"], (cfg.n_heads, cfg.head_dim_))
 
 
 def attention_cross_decode(cfg: ArchConfig, p: Tree, x: torch.Tensor,
-                           xk: torch.Tensor, xv: torch.Tensor, shards=None
-                           ) -> torch.Tensor:
+                           xk: torch.Tensor, xv: torch.Tensor, shards=None,
+                           enc_len: Optional[int] = None) -> torch.Tensor:
     """One decode step of cross-attention: x (B, 1, D) projected to the
     query alone (no RoPE), attending every position of the cached
     encoder K/V (B, S_enc, hkv, dh), then ``wo``.  With ``shards``
     (sharded serving) the query heads are this rank's (``wq``'s column
     view), the cached K/V its run-time KV heads, and ``wo`` the row
-    product of ``Shards.row``.  Run-time KV heads that do not divide tp
-    (a context-sharded cross cache) raise ``NotImplementedError``."""
+    product of ``Shards.row``.  Where the run-time KV heads do not
+    divide tp (:func:`_uneven`) the cache holds every run-time KV head
+    over this rank's chunk of the ``enc_len`` encoder positions where
+    tp divides them (the "ctx" layout of :func:`_cross_ctx`), whose
+    parts combine over "model" (:func:`_attend_parts`), else over every
+    position.  The rank's cache alone cannot say which: L positions
+    that tp does not divide are the whole or a chunk of L·tp.  So the
+    caller names ``enc_len``, the length the prefill cut the cache by,
+    and a cache of another length raises ``ValueError``."""
     b = x.shape[0]
-    if _uneven(cfg, shards):
-        raise NotImplementedError(
-            f"{cfg.name}: cross K/V caches whose run-time KV heads do not "
-            f"divide tp={shards.tp} wait for {CTX_QUEUE}")
     if shards is not None:
         x = shards.enter(x)
+    if _uneven(cfg, shards):
+        held, tp = xk.shape[1], shards.tp
+        if enc_len is None:
+            raise ValueError(f"{cfg.name}: a cross K/V whose run-time KV "
+                             f"heads do not divide tp={tp} needs enc_len")
+        split = enc_len % tp == 0
+        if held != (enc_len // tp if split else enc_len):
+            raise ValueError(f"{cfg.name}: a cross K/V of {held} positions "
+                             f"is not a rank's of {enc_len}")
+        q = dense(x, shards.head_part(p["wq"], cfg.n_heads, 1))
+        q = q.reshape(b, 1, -1, cfg.head_dim_)
+        mask = torch.ones((b, 1, held), dtype=torch.bool, device=x.device)
+        return _attend_parts(cfg, p, q, xk, xv, mask, split, shards,
+                             x.dtype)
     q = dense(x, p["wq"]).reshape(b, 1, -1, cfg.head_dim_)
     mask = torch.ones((b, 1, xk.shape[1]), dtype=torch.bool,
                       device=x.device)
@@ -845,7 +941,9 @@ def apply_moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     over this rank's ffn columns of every expert, g·u gathered over
     "model", ``wd`` whole at full K, no partial sums, the output cut to
     the rank's chunk (``distributed.sharding.expert_local`` lays them
-    out at placement).  Where the reference keeps the whole-batch function
+    out at placement); a fused ``wgu`` runs as its members, as the
+    reference's shard-map path runs it.  Where the reference keeps the
+    whole-batch function
     under a mesh, so does the port: with rows of one token every data
     rank routes the whole batch and keeps its rows, and with the batch
     not split over data (``par.shard_batch`` off) every data rank holds
@@ -874,6 +972,10 @@ def _moe(cfg: ArchConfig, p: Tree, x: torch.Tensor, shards=None
     gate_w = r["gate_w"]
     packed = isinstance(p.get("wd"), QLinear)
     if shards is not None:
+        if "wgu" in p:
+            # the reference's shard-map path runs a fused group's members
+            p = dict(p)
+            p["wg"], p["wu"] = p.pop("wgu").members()
         buf, gate_w = shards.enter(buf), shards.enter(gate_w)
         if not packed:
             p = {"wg": shards.experts(p["wg"], m.n_experts, 2),

@@ -309,48 +309,35 @@ def _holds(tree: Tree, pred) -> bool:
     return False
 
 
-FUSED_QUEUE = ("ROADMAP.md queue 1, item 5 (fused QLinearGroup leaves "
-               "under a mesh)")
-
-
 def check_shardable(cfg: ArchConfig, par: Parallel,
                     params: Optional[Tree] = None, ep: bool = False,
                     serving: bool = False) -> None:
     """Refuse what the sharded step does not run.
 
-    Training (the default): packed (``QLinear``) leaves in ``params``
-    (``NotImplementedError``: the train step takes floating-point
-    parameters).  Serving (``serving``: ``prefill`` and ``decode_step``
-    with ``shards``): every block kind and the encoder-decoder model,
-    packed leaves unfused; fused ``QLinearGroup`` leaves raise
-    ``NotImplementedError`` naming ``FUSED_QUEUE`` (the reference's
-    sharded serving declares unfused leaves only), and so does an
-    encoder-decoder model whose run-time KV heads tp does not divide
-    (its cross K/V would take the "ctx" layout, ``layers.CTX_QUEUE``).
-    Both: tensor-parallel shards that would cut a stored leaf unevenly
-    (``ValueError``): the ffn, the padded vocabulary, the rnn width, the
-    columns of the query and KV heads and of the xLSTM's projections,
-    or (under EP, ``ep``) the experts.  Head counts themselves are not
-    among them: a rank computes its whole heads (``Shards.heads``:
+    Training (the default): packed (``QLinear``, ``QLinearGroup``)
+    leaves in ``params`` (``NotImplementedError``: the train step takes
+    floating-point parameters).  Serving (``serving``: ``prefill`` and
+    ``decode_step`` with ``shards``) runs every block kind and the
+    encoder-decoder model (its cross K/V context-sharded where its
+    run-time KV heads do not divide tp), on packed leaves unfused or
+    fused (``QLinearGroup``: ``wqkv``, ``wgu``).  Both: tensor-parallel
+    shards that would cut a stored leaf unevenly (``ValueError``): the
+    ffn, the padded vocabulary, the rnn width, the columns of the query
+    and KV heads and of the xLSTM's projections, or (under EP, ``ep``)
+    the experts.  The reference's placement refuses these too: JAX
+    places only even shards (``jit``'s ``in_shardings`` and
+    ``device_put`` of ``declare_quantized``'s specs raise its
+    "should be divisible" ``ValueError``), so padding them would be a
+    feature the reference lacks.  Head counts themselves are not among
+    them: a rank computes its whole heads (``Shards.heads``:
     phi4-mini's 24 query heads, llava's 56, recurrentgemma's 10 and the
     RG-LRU's 8 gate heads, the xLSTM's 4, at tp 16), and the byte rows
     of packed leaves take uneven chunks
     (``distributed.sharding.qlinear_local``)."""
     kinds = {k for s in cfg.stages for k in s.pattern}
     tp = par.tp
-    if serving:
-        if params is not None and _holds(params, lambda x: isinstance(
-                x, QLinearGroup) and isinstance(x.inner, QLinear)):
-            raise NotImplementedError(
-                f"{cfg.name}: fused QLinearGroup leaves (wqkv, wgu) wait "
-                f"for {FUSED_QUEUE}; quantize with fuse=False")
-        if cfg.enc_dec and par.kv_heads_run(cfg.n_kv_heads,
-                                            cfg.n_heads) % tp:
-            raise NotImplementedError(
-                f"{cfg.name}: cross K/V caches whose run-time KV heads do "
-                f"not divide tp={tp} wait for {L.CTX_QUEUE}")
-    elif params is not None and _holds(params, lambda x: isinstance(
-            x, (QLinear, QLinearGroup))):
+    if not serving and params is not None and _holds(
+            params, lambda x: isinstance(x, (QLinear, QLinearGroup))):
         raise NotImplementedError(
             f"{cfg.name}: the sharded train step takes floating-point "
             "parameters, not packed QLinear leaves")
@@ -470,11 +457,15 @@ def declare_caches(cfg: ArchConfig, par: Parallel, batch: int,
 
 
 def decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
-                pos: torch.Tensor, caches, max_seq: int, shards=None):
+                pos: torch.Tensor, caches, max_seq: int, shards=None,
+                enc_len: Optional[int] = None):
     """One decode step over the ring caches, every row.  token/pos (B,)
     int32.  Returns (logits (B, V), caches).  With ``shards``, as
     :func:`prefill`: this rank's rows, leaves and caches, the logits of
-    the whole vocabulary."""
+    the whole vocabulary.  ``enc_len``: an encoder-decoder model's
+    encoder positions, which tell a rank whose run-time KV heads tp does
+    not divide whether its cross K/V are its chunk of them or all of
+    them (required there: ``layers.attention_cross_decode``)."""
     if shards is None:
         x = embed_tokens(cfg, params, token[:, None])
     else:
@@ -483,7 +474,7 @@ def decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
                                             caches)):
         x, _ = T.stage_step(
             cfg, stage, sp, x, pos, c, max_seq, shards,
-            None if shards is None else shards.specs["stages"][si])
+            None if shards is None else shards.specs["stages"][si], enc_len)
     if shards is not None:
         return _logits_sharded(cfg, params, x, shards)[:, 0], caches
     return logits_fn(cfg, params, x)[:, 0], caches
@@ -491,17 +482,20 @@ def decode_step(cfg: ArchConfig, params: Tree, token: torch.Tensor,
 
 def shard_for_serving(cfg: ArchConfig, par: Parallel, params: Tree,
                       specs: Tree, mesh):
-    """Place ``params`` (whole on every rank; packed leaves unfused) on
-    ``mesh`` by ``specs`` (``launch.qdeclare.declare_quantized``'s, or
-    ``distributed.sharding.specs_for_tree(..., params=params)``) and
-    return (``Shards``, this rank's tree for :func:`prefill` and
-    :func:`decode_step`): local tensors, each packed leaf as its
-    ``qlinear_local`` view (the row views' O(K) vectors gathered over
-    "model" once here; a query projection's columns those of the rank's
-    whole heads, ``head_count``) and each packed expert leaf as its
-    ``expert_local`` one (wg / wu over ffn, wd whole, gathered once
-    here whatever the storage spec).  Refuses what sharded serving does
-    not run (:func:`check_shardable` with ``serving``)."""
+    """Place ``params`` (whole on every rank; packed leaves unfused or
+    fused) on ``mesh`` by ``specs`` (``launch.qdeclare.declare_quantized``'s,
+    or ``distributed.sharding.specs_for_tree(..., params=params)``: the
+    unfused leaves' specs in both) and return (``Shards``, this rank's
+    tree for :func:`prefill` and :func:`decode_step`): local tensors,
+    each packed leaf as its ``qlinear_local`` view (the row views' O(K)
+    vectors gathered over "model" once here; a query projection's
+    columns those of the rank's whole heads, ``head_count``), each
+    packed expert leaf as its ``expert_local`` one (wg / wu over ffn,
+    wd whole, gathered once here whatever the storage spec), and each
+    fused group (``wqkv``, ``wgu``) as its ``group_local`` one: its
+    members placed by the specs of the unfused leaves of their names,
+    their views side by side along N.  Refuses what sharded serving
+    does not run (:func:`check_shardable` with ``serving``)."""
     check_shardable(cfg, par, params, serving=True)
     shards = Shards(mesh, par, specs)
     placed = distribute_tree(params, specs, mesh)

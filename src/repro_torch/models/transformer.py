@@ -424,10 +424,11 @@ def _xlstm_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
 
 def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
                pos: torch.Tensor, cache: Tree, max_seq: int, layer: int,
-               shards=None):
+               shards=None, enc_len: Optional[int] = None):
     """One decode step of one block against its stacked caches at
     ``layer``; with ``shards`` (sharded serving, every kind), as
-    :func:`block_prefill`."""
+    :func:`block_prefill` (``enc_len``: the encoder positions of the
+    cross K/V, ``layers.attention_cross_decode``)."""
     _check_kind(kind)
     if kind in XLSTM_KINDS:
         return _xlstm_step(cfg, kind, p, x, cache, layer, shards), cache
@@ -443,14 +444,14 @@ def block_step(cfg: ArchConfig, kind: str, p: Tree, x: torch.Tensor,
     if cross:
         x = x + L.attention_cross_decode(
             cfg, p["xattn"], L.apply_norm(cfg, p["ln_x"], x),
-            cache["xk"][layer], cache["xv"][layer], shards)
+            cache["xk"][layer], cache["xv"][layer], shards, enc_len)
     return x + _ffn(cfg, kind, p["mlp"], L.apply_norm(cfg, p["ln2"], x),
                     shards), cache
 
 
 def stage_step(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
                pos: torch.Tensor, caches, max_seq: int, shards=None,
-               sspec=None):
+               sspec=None, enc_len: Optional[int] = None):
     """Decode walk over a stage; each layer writes its slot of the
     stacked ring caches in place.  With ``shards`` and the stage's
     ``sspec``, as :func:`stage_prefill`."""
@@ -459,7 +460,7 @@ def stage_step(cfg: ArchConfig, stage: Stage, sparams, x: torch.Tensor,
             lp = shards.gather_tree(lp, sspec[layer])
         for i, kind in enumerate(stage.pattern):
             x, _ = block_step(cfg, kind, lp[i], x, pos, caches[i], max_seq,
-                              layer, shards)
+                              layer, shards, enc_len)
     return x, caches
 
 
@@ -498,8 +499,12 @@ def declare_stage_cache(cfg: ArchConfig, par, stage: Stage, batch: int,
     heads over "model" where they divide tp, else the window over
     "ctx" (each rank holds every run-time KV head over its chunk of the
     window, which ``layers.attention_full`` fills and
-    ``layers.attention_decode`` reads), else replicated; an encoder-decoder block's cross K/V beside
-    them (``enc_len`` positions); a recurrent block's state."""
+    ``layers.attention_decode`` reads), else replicated; an
+    encoder-decoder block's cross K/V beside them (``enc_len``
+    positions: the KV heads over "model" where they divide tp, else
+    the positions over "ctx" where tp divides them, else replicated;
+    ``layers._cross_ctx`` fills them, ``layers.attention_cross_decode``
+    reads them); a recurrent block's state."""
     per_pos = []
     for kind in stage.pattern:
         _check_kind(kind)

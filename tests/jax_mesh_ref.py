@@ -23,8 +23,8 @@ places them.  It writes ``OUT_DIR/NAME.npz``: ``loss`` and the
 gradients ``g0``, ``g1``, ... in the order of ``jax.tree.leaves`` of
 the parameters.
 
-    python tests/jax_mesh_ref.py serve OUT_DIR INPUTS \
-        NAME:ARCH:REPEATS:DATA:MODEL:EP:PACKED ...
+    python tests/jax_mesh_ref.py serve OUT_DIR INPUTS [--export=NAME,...] \
+        NAME:ARCH:REPEATS:DATA:MODEL:EP:PACKED[:FUSED] ...
 
 For each case, the reference's ``M.prefill`` of the prompts of the
 ``.npz`` file INPUTS (``tokens``, ``positions``, ``frames`` for an
@@ -40,7 +40,20 @@ eagerly as the one-device tests run them; else each jitted under a
 (DATA, MODEL) mesh of ("data", "model"), the weights placed by
 ``launch.qdeclare.declare_quantized``'s specs (EP with EP) and the
 batch over "data".  It writes ``OUT_DIR/NAME.npz``: ``prefill`` (B, V),
-``step<i>`` (B, V) and ``token<i>`` (B,).
+``step<i>`` (B, V) and ``token<i>`` (B,); a case whose weights
+``OUT_DIR/NAME.weights.pkl`` holds (:func:`start_serve`) serves those.
+With ``--export=NAME,...`` first, those cases' weights are made
+and written there before INPUTS is read (INPUTS may appear later).
+FUSED (default 0) "1"
+quantizes with ``fuse=True``: the fused group leaves, which the
+declared specs do not name, are placed replicated (a jitted function's
+values do not depend on where its inputs lie); "refuse" runs nothing
+and writes ``OUT_DIR/NAME.txt``, the text of the ``ValueError`` that
+``jit``'s ``in_shardings`` of the declared specs raise on lowering over
+the case's abstract packed weights (``declare_quantized``'s), or ""
+where none is raised: every leaf whose uneven dim is a packed leaf's
+byte rows or O(K) vectors placed replicated, as above, and one whose
+uneven dim is the d_ff (a stored split) as declared.
 
     python tests/jax_mesh_ref.py dryrun OUT_DIR \
         NAME:ARCH:KIND:BATCH:SEQ:DATA:MODEL ...
@@ -59,7 +72,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -76,8 +91,10 @@ def _case(spec: str):
             int(seq[0]) if seq else None)
 
 
+@functools.lru_cache(maxsize=None)
 def params_f32(cfg):
-    """The reduced model's parameters from ``PRNGKey(0)``, in f32."""
+    """The reduced model's parameters from ``PRNGKey(0)``, in f32;
+    cached per config (callers do not change what it returns)."""
     import jax
     from repro.models import model as RM
     from repro.models.common import Parallel
@@ -146,15 +163,46 @@ def serve_qcfg():
     return QuantConfig(use_kernel=True, ratio=ratio, multiple=multiple)
 
 
-def serve_params(cfg):
-    """:func:`params_f32` of ``cfg`` quantized data-free, unfused, with
-    the reference's kernel route (``SERVE_QUANT``)."""
+@functools.lru_cache(maxsize=None)
+def serve_params(cfg, fuse: bool = False):
+    """:func:`params_f32` of ``cfg`` quantized data-free, unfused (or
+    with ``fuse``, QKV and gate+up fused), with the reference's kernel
+    route (``SERVE_QUANT``); cached per config (callers do not change
+    what it returns).  The fused quantization runs under ``jax.jit``
+    (eager dispatch of the quantizer takes seconds a layer on a process
+    of four host devices; the f32 sums of its α's may round otherwise
+    than eagerly)."""
     import jax
     import jax.numpy as jnp
     from repro.core.pipeline import quantize_params_data_free
     p = jax.tree.map(jnp.asarray, params_f32(cfg))
-    return quantize_params_data_free(p, serve_qcfg(), min_dim=SERVE_QUANT[2],
-                                     fuse=False)
+
+    def quantize(w):
+        return quantize_params_data_free(w, serve_qcfg(),
+                                         min_dim=SERVE_QUANT[2], fuse=fuse)
+    return jax.jit(quantize)(p) if fuse else quantize(p)
+
+
+def fused_shardings(mesh, weights, pspec):
+    """``named_shardings`` of the spec tree ``pspec`` for ``weights``,
+    whose fused groups (``wqkv``, ``wgu``) ``pspec`` does not name:
+    every leaf of a group replicated."""
+    import jax
+    from jax.sharding import NamedSharding, PartitionSpec as PS
+    from repro.core.qlinear import QLinearGroup
+    from repro.distributed.sharding import named_shardings
+    rep = NamedSharding(mesh, PS())
+
+    def walk(w, sp):
+        if isinstance(w, QLinearGroup):
+            return jax.tree.map(lambda _: rep, w)
+        if isinstance(w, dict):
+            return {k: walk(v, sp[k]) if k in sp else
+                    jax.tree.map(lambda _: rep, v) for k, v in w.items()}
+        if isinstance(w, (list, tuple)):
+            return type(w)(walk(a, b) for a, b in zip(w, sp))
+        return named_shardings(mesh, sp)
+    return walk(weights, pspec)
 
 
 def kernel_route(patch) -> None:
@@ -173,11 +221,12 @@ def kernel_route(patch) -> None:
     patch(rops, "_kernel_choice", choice)
 
 
-def placeable(mesh, tree, shardings):
+def placeable(mesh, tree, shardings, keep=()):
     """``shardings`` with each leaf whose spec cuts a dim that its mesh
     dims do not divide (a packed leaf's byte rows) replicated instead:
     JAX places only even shards, and a jitted function's values do not
-    depend on where its inputs lie."""
+    depend on where its inputs lie.  A leaf whose uneven dim has a size
+    in ``keep`` keeps its sharding."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as PS
 
@@ -187,7 +236,7 @@ def placeable(mesh, tree, shardings):
             n = 1
             for name in names:
                 n *= mesh.shape[name]
-            if size % n:
+            if size % n and size not in keep:
                 return NamedSharding(mesh, PS())
         return sh
     return jax.tree.map(one, tree, shardings)
@@ -217,6 +266,26 @@ def serve_eager(cfg, params, batch, max_seq: int, steps: int, chunk: int
     return res
 
 
+@contextlib.contextmanager
+def given_encoder(enc_out):
+    """The reference's ``model.encode`` returning ``enc_out`` (B, S_enc,
+    D) in the body, whatever the frames (a module attribute, read at
+    every call of its prefill)."""
+    import jax.numpy as jnp
+    from repro.models import model as RM
+    plain = RM.encode
+
+    def encode(cfg, par, params, frames):
+        b, s = enc_out.shape[:2]
+        pos = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32), (b, s))
+        return jnp.asarray(enc_out), pos
+    RM.encode = encode
+    try:
+        yield
+    finally:
+        RM.encode = plain
+
+
 def read_serve(path) -> dict:
     """A serve-mode ``.npz`` as {"prefill", "steps": [...], "tokens":
     [...]}."""
@@ -228,18 +297,85 @@ def read_serve(path) -> dict:
 
 
 def serve_main(argv) -> int:
-    out, inp = Path(argv[0]), np.load(argv[1])
+    out = Path(argv[0])
     kernel_route(setattr)
-    for spec in argv[2:]:
-        name, arch, repeats, dp, tp, ep, packed = spec.split(":")
+    specs = argv[2:]
+    if specs and specs[0].startswith("--export="):
+        export = specs[0].split("=", 1)[1].split(",")
+        specs = specs[1:]
+        for spec in specs:
+            name, arch, repeats, _, _, _, packed, *fused = spec.split(":")
+            if name in export:
+                _export_weights(out, name, reduced(arch, int(repeats)),
+                                packed == "1", fused == ["1"])
+    while not Path(argv[1]).exists():       # given later (:func:`give_serve`)
+        time.sleep(0.02)
+    inp = np.load(argv[1])
+    for spec in specs:
+        name, arch, repeats, dp, tp, ep, packed, *fused = spec.split(":")
+        fused = fused[0] if fused else "0"
         with rg_heads(arch):
-            _serve_case(out, inp, name, arch, int(repeats), int(dp), int(tp),
-                        ep, packed)
+            if fused == "refuse":
+                _refuse_case(out, name, arch, int(repeats), int(dp), int(tp))
+            else:
+                _serve_case(out, inp, name, arch, int(repeats), int(dp),
+                            int(tp), ep, packed, fused == "1")
     return 0
 
 
-def _serve_case(out, inp, name, arch, repeats, dp, tp, ep, packed) -> None:
-    """One case of the serve mode (its spec's fields)."""
+def _export_weights(out, name, cfg, packed: bool, fused: bool) -> None:
+    """``OUT_DIR/NAME.weights.pkl``: the weights the case serves
+    (:func:`serve_params`, or :func:`params_f32` unpacked) as numpy
+    arrays, for :func:`made_weights`; the file appears whole."""
+    import jax
+    w = serve_params(cfg, fused) if packed else params_f32(cfg)
+    path = out / f"{name}.weights.pkl"
+    with open(path.with_name(path.name + ".part"), "wb") as f:
+        pickle.dump(jax.tree.map(np.asarray, w), f)
+    os.replace(path.with_name(path.name + ".part"), path)
+
+
+def _refuse_case(out, name, arch, repeats, dp, tp) -> None:
+    """The serve mode's "refuse" case: ``jit`` with ``in_shardings`` of
+    ``declare_quantized``'s specs (those that cut byte rows or O(K)
+    vectors unevenly replicated, those that cut the d_ff kept) lowered
+    over its abstract packed weights, and the text of the
+    ``ValueError`` it raises ("" where none)."""
+    import jax
+    from repro.distributed.sharding import named_shardings, rules_for_mesh
+    from repro.launch.mesh import compat_make_mesh
+    from repro.launch.qdeclare import declare_quantized
+    from repro.models.common import Parallel
+    cfg = reduced(arch, repeats)
+    mesh = compat_make_mesh((dp, tp), ("data", "model"))
+    par = Parallel(tp=tp, dp=dp, sp=tp > 1, remat=False)
+    abstract, pspec = declare_quantized(cfg, par, serve_qcfg(),
+                                        rules_for_mesh(mesh),
+                                        min_dim=SERVE_QUANT[2])
+    shardings = placeable(mesh, abstract, named_shardings(mesh, pspec),
+                          keep=(cfg.d_ff,))
+    text = ""
+    try:
+        with mesh:
+            jax.jit(lambda p: p, in_shardings=(shardings,)).lower(abstract)
+    except ValueError as e:
+        text = str(e)
+    (out / f"{name}.txt").write_text(text)
+
+
+def _serve_case(out, inp, name, arch, repeats, dp, tp, ep, packed,
+                fused=False) -> None:
+    """One case of the serve mode (its spec's fields); INPUTS'
+    ``frames_NAME``, where given, are the case's ``frames``, and its
+    ``enc_out_NAME`` the encoder output the decoder runs from
+    (:func:`given_encoder`)."""
+    files = inp.files if hasattr(inp, "files") else list(inp)
+    if f"enc_out_{name}" in files:
+        with given_encoder(inp[f"enc_out_{name}"]):
+            return _serve_case(out, {k: inp[k] for k in files
+                                     if k != f"enc_out_{name}"},
+                               name, arch, repeats, dp, tp, ep, packed,
+                               fused)
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as PS
@@ -252,15 +388,21 @@ def _serve_case(out, inp, name, arch, repeats, dp, tp, ep, packed) -> None:
     max_seq, steps, chunk = (int(inp[k]) for k in ("max_seq", "steps",
                                                    "attn_chunk"))
     cfg = reduced(arch, repeats)
-    weights = (serve_params(cfg) if packed == "1" else
-               jax.tree.map(jnp.asarray, params_f32(cfg)))
+    given = out / f"{name}.weights.pkl"
+    if given.exists():
+        with open(given, "rb") as f:
+            weights = jax.tree.map(jnp.asarray, pickle.load(f))
+    else:
+        weights = (serve_params(cfg, fused) if packed == "1" else
+                   jax.tree.map(jnp.asarray, params_f32(cfg)))
     names = ("tokens", "positions") + (("frames",) if cfg.enc_dec
                                        else ()) + tuple(
         k for k in ("vision_embeds",)
-        if k in inp.files and cfg.frontend == "vision")
+        if k in files and cfg.frontend == "vision")
+    inp = {k: inp[f"frames_{name}" if k == "frames" and f"frames_{name}"
+                  in files else k] for k in names}
     if dp * tp == 1:
-        res = serve_eager(cfg, weights, {k: inp[k] for k in names},
-                          max_seq, steps, chunk)
+        res = serve_eager(cfg, weights, inp, max_seq, steps, chunk)
         np.savez(out / f"{name}.npz", **res)
         return
     mesh = compat_make_mesh((dp, tp), ("data", "model"))
@@ -275,7 +417,7 @@ def _serve_case(out, inp, name, arch, repeats, dp, tp, ep, packed) -> None:
     res = {}
     with mesh:
         params = jax.device_put(weights, placeable(
-            mesh, weights, named_shardings(mesh, pspec)))
+            mesh, weights, fused_shardings(mesh, weights, pspec)))
         batch = {k: jax.device_put(jnp.asarray(inp[k]), rows)
                  for k in names}
         prefill = jax.jit(lambda p, b: RM.prefill(cfg, par, p, b,
@@ -407,18 +549,59 @@ def _spawn(args, log: Path) -> tuple:
     return proc, log
 
 
-def start_serve(out_dir: Path, tag: str, inputs: dict, cases) -> tuple:
+def start_serve(out_dir: Path, tag: str, inputs: dict, cases,
+                weights=None, export=()) -> tuple:
     """Start the ``serve`` mode on ``cases`` ((name, arch, repeats,
-    data, model, ep, packed), ...) in a process of its own with four
-    host devices; ``inputs`` are the arrays and ints of the INPUTS file
-    (``OUT_DIR/<tag>.serve_inputs.npz``).  Returns (process, log path)
-    for :func:`finish`."""
+    data, model, ep, packed[, fused]), ...) in a process of its own with
+    four host devices; ``inputs`` are the arrays and ints of the INPUTS
+    file (``OUT_DIR/<tag>.serve_inputs.npz``); ``weights`` ({case name:
+    the reference's parameter tree, numpy arrays}) the packed weights
+    those cases serve in place of their own (``OUT_DIR/NAME.weights.pkl``,
+    so both sides hold the same bytes).  With ``inputs`` None the
+    process starts (imports JAX, makes its devices) and waits for
+    :func:`give_serve`.  The cases named in ``export`` make their
+    weights first, before the process waits, and hand them out
+    (:func:`made_weights`).  Returns (process, log path) for
+    :func:`finish`."""
     path = Path(out_dir) / f"{tag}.serve_inputs.npz"
-    np.savez(path, **inputs)
+    if inputs is not None:
+        give_serve(out_dir, tag, inputs, weights)
     return _spawn(["serve", str(out_dir), str(path)]
+                  + ([f"--export={','.join(export)}"] if export else [])
                   + [":".join(str(int(v) if isinstance(v, bool) else v)
                               for v in c) for c in cases],
                   Path(out_dir) / f"jax_mesh_ref.serve.{tag}.log")
+
+
+def give_serve(out_dir: Path, tag: str, inputs: dict, weights=None) -> None:
+    """Hand :func:`start_serve`'s ``inputs`` and ``weights`` to a serve
+    process started without them (``inputs`` None), which waits for its
+    INPUTS file: the weights are written first, and the INPUTS file
+    appears whole (written aside, then renamed)."""
+    for name, tree in (weights or {}).items():
+        with open(Path(out_dir) / f"{name}.weights.pkl", "wb") as f:
+            pickle.dump(tree, f)
+    path = Path(out_dir) / f"{tag}.serve_inputs.npz"
+    part = path.with_name(path.name + ".part.npz")
+    np.savez(part, **inputs)
+    os.replace(part, path)
+
+
+def made_weights(out_dir: Path, name: str, handle) -> dict:
+    """The weights that the serve process ``handle`` of
+    ``start_serve(..., export=(name, ...))`` made for case ``name``
+    (numpy arrays), once they are there; fails with its log's end if
+    the process ends without them."""
+    path = Path(out_dir) / f"{name}.weights.pkl"
+    proc, log = handle
+    while not path.exists():
+        if proc.poll() is not None:
+            raise AssertionError(f"the reference's serve process ended "
+                                 f"(rc {proc.returncode}) without {name}'s "
+                                 f"weights:\n{log.read_text()[-3000:]}")
+        time.sleep(0.02)
+    with open(path, "rb") as f:
+        return pickle.load(f)
 
 
 def start(out_dir: Path, arch: str, batch: int, seq: int, cases,

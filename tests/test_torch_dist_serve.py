@@ -73,7 +73,7 @@ from repro.models.common import Parallel as RParallel  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import registry as t_registry  # noqa: E402
 from repro_torch.core.pipeline import quantize_params_data_free  # noqa: E402
-from repro_torch.core.qlinear import QLinear  # noqa: E402
+from repro_torch.core.qlinear import QLinear, QLinearGroup  # noqa: E402
 from repro_torch.core.qlinear import QuantConfig as TQC  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.common import Parallel  # noqa: E402
@@ -279,35 +279,41 @@ def test_spec_perm_mutant_fails(runs):
 
 def test_check_shardable_refuses_what_sharded_serving_does_not_run():
     """Sharded serving admits every block kind and the encoder-decoder
-    model on unfused packed leaves; it refuses fused ``QLinearGroup``
-    leaves (``NotImplementedError``, naming the roadmap item) and stored
-    splits that do not divide tp (``ValueError``: here the d_ff); head
-    counts that tp does not divide pass (each rank computes its whole
-    heads); the train step still refuses packed leaves."""
+    model on packed leaves, unfused or fused (``QLinearGroup``: wqkv,
+    wgu), at every tp where the unfused tree passes; it refuses stored
+    splits that do not divide tp (``ValueError``: here the d_ff, as the
+    reference's placement does); head counts that tp does not divide
+    pass (each rank computes its whole heads); the train step still
+    refuses packed leaves, fused ones too."""
     par = Parallel(tp=2)
     qc = TQC(**QCFG)
     dense = W.serve_cfg(MODELS["qwen3"])
     fp = TM.init_params(dense)
     TM.check_shardable(dense, par, quantize_params_data_free(
         fp, qc, min_dim=32), serving=True)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        TM.check_shardable(dense, par, quantize_params_data_free(
-            fp, qc, min_dim=32, fuse=True), serving=True)
-    with pytest.raises(NotImplementedError):     # training stays refused
-        TM.check_shardable(dense, par, quantize_params_data_free(
-            fp, qc, min_dim=32))
+    fused = quantize_params_data_free(fp, qc, min_dim=32, fuse=True)
+    TM.check_shardable(dense, par, fused, serving=True)
+    for bad in (quantize_params_data_free(fp, qc, min_dim=32), fused):
+        with pytest.raises(NotImplementedError):  # training stays refused
+            TM.check_shardable(dense, par, bad)
     for arch in ("granite-moe-1b-a400m", "recurrentgemma-2b", "xlstm-1.3b",
                  "seamless-m4t-medium"):
         cfg = t_registry.get(arch).reduced()
         packed = quantize_params_data_free(TM.init_params(cfg), qc,
                                            min_dim=32)
+        fused = quantize_params_data_free(TM.init_params(cfg), qc,
+                                          min_dim=32, fuse=True)
         for tp in (1, 2, 4):
             TM.check_shardable(cfg, Parallel(tp=tp), packed, serving=True)
+            TM.check_shardable(cfg, Parallel(tp=tp), fused, serving=True)
         if arch != "xlstm-1.3b":       # the xLSTM projections never fuse
-            with pytest.raises(NotImplementedError, match="queue 1"):
-                TM.check_shardable(cfg, par, quantize_params_data_free(
-                    TM.init_params(cfg), qc, min_dim=32, fuse=True),
-                    serving=True)
+            assert TM._holds(fused, lambda x: isinstance(x, QLinearGroup))
+        if arch == "seamless-m4t-medium":    # 2 KV heads of 6 at tp 4:
+            TM.check_shardable(dataclasses.replace(cfg, n_heads=6),
+                               Parallel(tp=4), fused, serving=True)  # "ctx"
+        with pytest.raises(ValueError):      # an uneven d_ff, fused too
+            TM.check_shardable(dataclasses.replace(cfg, d_ff=136),
+                               Parallel(tp=16), fused, serving=True)
     local = dataclasses.replace(dense, stages=(
         W.Stage(("dense", "local"), 1),))
     TM.check_shardable(local, par, serving=True)

@@ -4,11 +4,14 @@ checks.
 Started by ``tests/test_torch_dist_train.py``,
 ``tests/test_torch_dist_kinds.py``, ``tests/test_torch_dist_serve.py``,
 ``tests/test_torch_dist_serve_kinds.py``,
-``tests/test_torch_dist_uneven.py``, ``tests/test_torch_dist_sp.py``
-and ``tests/test_torch_pipeline.py``,
+``tests/test_torch_dist_uneven.py``, ``tests/test_torch_dist_sp.py``,
+``tests/test_torch_dist_fused.py`` and ``tests/test_torch_pipeline.py``,
 one process per rank, with its rank,
 the world size, a rendezvous file under the test's ``tmp_path``, the
-case file the parent wrote and an output directory.  It imports torch
+case file's path and an output directory.  The parent writes the cases
+in parts, ``CASE_FILE.0``, ``CASE_FILE.1``, ... (:func:`give`); a rank
+waits for each part in turn, runs its cases, and stops after the part
+that says no more follow.  It imports torch
 and the port only (never JAX): the parent holds the reference's side
 and compares.  Each rank runs on one intra-op thread, and its process
 group times out after 60 s, so a lost rank fails the test instead of
@@ -31,6 +34,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -39,7 +43,8 @@ from repro_torch import pytree
 from repro_torch.configs import registry
 from repro_torch.configs.base import Stage
 from repro_torch.core.pipeline import quantize_params_data_free
-from repro_torch.core.qlinear import FIELDS, QLinear, QuantConfig
+from repro_torch.core.qlinear import (FIELDS, QLinear, QLinearGroup,
+                                      QuantConfig)
 from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
 from repro_torch.distributed.compression import (CompressionConfig,
                                                  init_residual)
@@ -357,11 +362,15 @@ def pipeline_case(case, rank):
 
 
 def pack_tree(tree):
-    """A tree with packed ``QLinear`` leaves -> plain dicts, lists and
-    tensors (the case file is loaded with ``weights_only``)."""
+    """A tree with packed ``QLinear`` leaves and fused ``QLinearGroup``
+    ones -> plain dicts, lists and tensors (the case file is loaded with
+    ``weights_only``)."""
     if isinstance(tree, QLinear):
         return {"__qlinear__": [getattr(tree, f) for f in FIELDS],
                 "ksn": [tree.k_s, tree.k, tree.n]}
+    if isinstance(tree, QLinearGroup):
+        return {"__group__": pack_tree(tree.inner),
+                "splits": list(tree.splits)}
     if isinstance(tree, dict):
         return {k: pack_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -373,6 +382,9 @@ def unpack_tree(tree):
     if isinstance(tree, dict) and "__qlinear__" in tree:
         k_s, k, n = tree["ksn"]
         return QLinear(*tree["__qlinear__"], k_s=k_s, k=k, n=n)
+    if isinstance(tree, dict) and "__group__" in tree:
+        return QLinearGroup(unpack_tree(tree["__group__"]),
+                            tuple(tree["splits"]))
     if isinstance(tree, dict):
         return {k: unpack_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -428,7 +440,9 @@ def serve_tokens(cfg, params, batch, max_seq: int, steps: int,
     """Whole-prompt prefill of ``batch``, then ``steps`` greedy decode
     steps over the ring caches: the prefill's last logits and each
     step's logits (B, V) and tokens (B,); with ``keep_caches``, the
-    caches after the prefill and after each step."""
+    caches after the prefill and after each step.  A batch with
+    ``frames`` decodes with their length as ``enc_len``."""
+    enc_len = batch["frames"].shape[1] if "frames" in batch else None
     with torch.no_grad():
         logits, caches = M.prefill(cfg, params, batch, max_seq, attn_chunk,
                                    shards=shards)
@@ -441,7 +455,8 @@ def serve_tokens(cfg, params, batch, max_seq: int, steps: int,
                 out["caches"].append(clone_tree(caches))
             out["tokens"].append(tok.clone())
             logits, caches = M.decode_step(cfg, params, tok, pos, caches,
-                                           max_seq, shards=shards)
+                                           max_seq, shards=shards,
+                                           enc_len=enc_len)
             out["steps"].append(logits.clone())
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             pos = pos + 1
@@ -529,11 +544,72 @@ def encoder_output(record: list, given=None):
         M.encode = plain
 
 
+@contextlib.contextmanager
+def even_group_mutant():
+    """A faulty fused view: each rank takes an even cut of the fused
+    group's N (rank 0 the first N / tp columns, all of them wq's), not
+    its members' columns, under the true view's splits."""
+    plain = sharding.group_local
+
+    def mutant(g, specs, shards, heads=None, names=()):
+        view = plain(g, specs, shards, heads, names)
+        whole = QLinearGroup.fuse([m.map(full) for m in g.members]).inner
+        lo, hi = sharding.chunk_range(whole.n, shards.tp, shards.tp_rank)
+        cut = lambda t: t[..., lo:hi].contiguous()  # noqa: E731
+        return QLinearGroup(dataclasses.replace(
+            whole, w4=cut(whole.w4), bits=cut(whole.bits),
+            alpha_s=cut(whole.alpha_s), alpha_r1=cut(whole.alpha_r1),
+            n=hi - lo), view.splits)
+    sharding.group_local = mutant
+    try:
+        yield
+    finally:
+        sharding.group_local = plain
+
+
+def group_bytes(fused, unfused, whole, shards, n_heads: int) -> list:
+    """(path, equal) of every fused group view of a rank's tree
+    ``fused``: its bytes and scales against the views of its members in
+    the same rank's tree of the unfused leaves ``unfused``, those of
+    ``w4``, ``bits``, ``alpha_s`` and ``alpha_r1`` concatenated along N,
+    the shared vectors the first member's, and the splits the members'
+    widths; and against ``sharding.group_view`` of the whole group in
+    ``whole`` (``n_heads`` the query member's heads)."""
+    out = []
+
+    def same(a, b):
+        return a.splits == b.splits and all(
+            torch.equal(getattr(a.inner, x), getattr(b.inner, x))
+            for x in FIELDS)
+
+    def walk(f, u, w, path):
+        if isinstance(f, dict):
+            for k, v in f.items():
+                if isinstance(v, QLinearGroup):
+                    names = sharding.GROUP_MEMBERS[k]
+                    view = sharding.group_view(
+                        w[k], shards.tp_rank, shards.tp,
+                        (n_heads,) if k == "wqkv" else ())
+                    out.append((f"{path}/{k}", same(QLinearGroup.fuse(
+                        [u[n] for n in names]), v) and same(view, v)))
+                else:
+                    walk(v, u[k], w[k], f"{path}/{k}")
+        elif isinstance(f, (list, tuple)):
+            for i, (a, b, c) in enumerate(zip(f, u, w)):
+                walk(a, b, c, f"{path}/{i}")
+    walk(fused, unfused, whole, "")
+    return out
+
+
 def packed_widths(tree, path: str = "") -> list:
-    """(path, n, k) of every packed leaf of a rank's tree: the widths of
-    its views."""
+    """(path, n, k) of every packed leaf of a rank's tree, and of every
+    member (``path:i``) of a packed fused group: the widths of its
+    views."""
     if isinstance(tree, QLinear):
         return [(path, tree.n, tree.k)]
+    if isinstance(tree, QLinearGroup) and isinstance(tree.inner, QLinear):
+        return [(f"{path}:{i}", m.n, m.k)
+                for i, m in enumerate(tree.members())]
     if isinstance(tree, dict):
         return [w for k, v in tree.items()
                 for w in packed_widths(v, f"{path}/{k}")]
@@ -553,7 +629,10 @@ def serve_kinds_case(case, rank):
     step and an encoder-decoder model's encoder output (``enc_out``);
     given the case's ``enc_out``, the same again with the decoder run
     from it (``fixed``); the widths of its packed views
-    (:func:`packed_widths`).  ``mutant``: :func:`whole_batch_moe`.
+    (:func:`packed_widths`); with ``group_bytes``, its fused views held
+    against its views of the unfused members (:func:`group_bytes`).
+    ``mutant``: True for :func:`whole_batch_moe`, "even_group" for
+    :func:`even_group_mutant`.
     ``sp`` (when the case gives it) sets ``Parallel.sp``; with
     ``record`` the shapes of the stream entering each block of the
     prefill come back under ``layout`` (:func:`stream_log`); the
@@ -571,14 +650,16 @@ def serve_kinds_case(case, rank):
             min_dim=case["min_dim"])
     else:
         specs = sharding.specs_for_tree(M.declare_params(cfg, par), rules)
-    shards, lp = M.shard_for_serving(cfg, par, params, specs, mesh)
+    with (even_group_mutant() if case.get("mutant") == "even_group"
+          else contextlib.nullcontext()):
+        shards, lp = M.shard_for_serving(cfg, par, params, specs, mesh)
     rows = shards.rows(case["tokens"].shape[0])
     batch = {k: case[k][rows] for k in ("tokens", "positions", "frames",
                                         "vision_embeds") if k in case}
     args = (cfg, lp, batch, case["max_seq"], case["steps"],
             case["attn_chunk"], shards)
     layout = {}
-    with (whole_batch_moe() if case.get("mutant")
+    with (whole_batch_moe() if case.get("mutant") is True
           else contextlib.nullcontext()), encoder_output([]) as enc, \
             (stream_log(layout) if case.get("record")
              else contextlib.nullcontext()):
@@ -590,6 +671,11 @@ def serve_kinds_case(case, rank):
         with encoder_output([], case["enc_out"][rows]):
             out["fixed"] = serve_tokens(*args)
     out["widths"] = packed_widths(lp)
+    if case.get("group_bytes"):
+        _, members = M.shard_for_serving(
+            cfg, par, T.unfuse_params_for_oracle(params), specs, mesh)
+        out["group_bytes"] = group_bytes(lp, members, params, shards,
+                                         cfg.n_heads)
     out["rows"] = (rows.start, rows.stop)
     out["coords"] = mesh.get_coordinate()
     return out
@@ -608,12 +694,17 @@ def main(argv) -> int:
                             world_size=world,
                             timeout=datetime.timedelta(seconds=60))
     try:
-        cases = torch.load(case_file, weights_only=True)
-        results = {}
-        for name, case in cases.items():
-            with rg_heads(case.get("rg_heads")):
-                results[name] = TASKS[case["task"]](case, rank)
-            dist.barrier()
+        results, more, k = {}, True, 0
+        while more:            # the parts of the cases, in order (give)
+            part = f"{case_file}.{k}"
+            while not os.path.exists(part):
+                time.sleep(0.02)
+            given = torch.load(part, weights_only=True)
+            cases, more, k = given["cases"], given["more"], k + 1
+            for name, case in cases.items():
+                with rg_heads(case.get("rg_heads")):
+                    results[name] = TASKS[case["task"]](case, rank)
+                dist.barrier()
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     except BaseException:
         traceback.print_exc()
@@ -632,23 +723,38 @@ def launch(cases: dict, tmp: Path, world: int = 4,
     return finish(start(cases, tmp, world), deadline_s)
 
 
-def start(cases: dict, tmp: Path, world: int = 4) -> tuple:
+def start(cases: Optional[dict], tmp: Path, world: int = 4) -> tuple:
     """Start :func:`launch`'s ranks and return at once; :func:`finish`
-    waits for them."""
+    waits for them.  With ``cases`` None the ranks start (import, join
+    the process group) and wait for :func:`give` to hand them the
+    cases."""
     tmp = Path(tmp)
     case_file, out = tmp / "cases.pt", tmp / "out"
     out.mkdir()
-    torch.save(cases, case_file)
+    handle = [], [], tmp, out
+    if cases is not None:
+        give(handle, cases)
     src = str(Path(__file__).resolve().parents[1] / "src")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen(
+    handle[0].extend(subprocess.Popen(
         [sys.executable, __file__, str(r), str(world), str(tmp / "rdv"),
          str(case_file), str(out)], stdout=logs[r],
-        stderr=subprocess.STDOUT, env=env) for r in range(world)]
-    return procs, logs, tmp, out
+        stderr=subprocess.STDOUT, env=env) for r in range(world))
+    handle[1].extend(logs)
+    return handle
+
+
+def give(handle, cases: dict, more: bool = False) -> None:
+    """Hand ``cases`` to the ranks of :func:`start`, which run them
+    after those given before; with ``more`` they then wait for the next
+    part.  A part's file appears whole (written aside, then renamed)."""
+    tmp = handle[2]
+    k = sum(1 for _ in tmp.glob("cases.pt.[0-9]*"))
+    torch.save({"cases": cases, "more": more}, tmp / "cases.pt.next")
+    os.replace(tmp / "cases.pt.next", tmp / f"cases.pt.{k}")
 
 
 def finish(handle, deadline_s: float = 240.0) -> list:
