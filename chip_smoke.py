@@ -48,7 +48,24 @@ Phases, each of which raises on failure:
    (wqkv 7168 → 9216, wgu 7168 → 40960, wo 7168², wd 20480 → 7168) at
    ``VLM_ROWS`` (``[vlm mixed_matmul M=...]``) and both attention
    kernels at GQA group 7, head dim 128 (``[vlm paged_attention]``,
-   ``[vlm paged_prefill]``, ``[vlm plan]``);
+   ``[vlm paged_prefill]``, ``[vlm plan]``); and at command-r-35b's:
+   its fused layer (wqkv 8192 → 10240, wgu 8192 → 45056, wo 8192², wd
+   22528 → 8192) at ``CMDR_ROWS`` and both attention kernels at GQA
+   group 8 (``[cmdr mixed_matmul M=...]``, ``[cmdr paged_attention]``,
+   ``[cmdr paged_prefill]``, ``[cmdr plan]``); and at mixtral-8x22b's:
+   its wqkv (6144 → 8192) and wo (6144²) at ``MIXTRAL_ROWS``, the decode
+   kernel at GQA group 6 under its 4096-key window over contexts of up
+   to 4907 keys with a freed page, and the prefill kernel under the
+   window at ``MIXTRAL_PREFILL_CASES``: 64- and 512-row chunks starting
+   past the window, whose context pages below it are dropped (``[mixtral
+   ...]``); and both attention kernels at qwen3-4b's group 4,
+   phi4-mini-3.8b's group 3 and qwen2.5-3b's 16 / 2 heads (``[qwen3
+   paged_attention]``, ``[phi4 paged_prefill]``, ...).  The decode
+   kernel is also held at each served wave's own launch (``[... wave
+   paged_attention]``): 4 slots over a 32-page table (mixtral under its
+   window and the three engine waves), 8 (command-r), and the long
+   wave's 2 slots over 4877 and 4828 keys of a 308-page table under the
+   window; every launch plan held goes into ``HELD_PLANS``;
 4. agreement on a small input: the reduced LLaMA config served on the
    card (kernels) and on the CPU (plain versions) from the same weights
    gives the same logits within tolerance; the calibrated pipeline run
@@ -72,7 +89,12 @@ Phases, each of which raises on failure:
    the CPU's caches) and reduced llava (``[vlm reference]``: the same
    with 8 vision embeddings, and the greedy tokens of its engines), and
    ``launch.serve.run --arch llava-next-34b --reduced`` through the
-   paged chunked-prefill engine (``[vlm serve]``);
+   paged chunked-prefill engine (``[vlm serve]``); then reduced
+   command-r-35b and mixtral-8x22b (``[cmdr reference]``, ``[mixtral
+   reference]``: logits and the engines' greedy tokens card = CPU; on
+   mixtral, with a window of 32, chunks past the window run the
+   windowed prefill kernel) and ``launch.serve.run --reduced`` of each
+   (``[cmdr serve]``, ``[mixtral serve]``);
 5. the data-free main path: LLaMA-7B at full width and full depth (32
    layers), data-free PTQ1.61 with fused QKV / gate+up, served through
    the paged chunked-prefill engine; every request must finish and every
@@ -213,7 +235,9 @@ Phases, each of which raises on failure:
    prefill of 8 x 256 tokens and 32 greedy decode steps through
    ``model.shard_for_serving`` bit-identical to one device, with the
    same mixed_matmul launches; then the tp 4 / 16 split arithmetic of
-   its column and row views on the card (``[dist serve split]``);
+   its column and row views on the card (``[dist serve split]``); the
+   fused weights also serve ``ENGINE_WAVE`` through the paged
+   chunked-prefill engine with all three kernels (``[qwen3 engine]``);
 17. sharded serving of the other block kinds the same way (``[dist
    serve kinds moe|rg|xl|s2t]``): granite-moe-1b-a400m at full width
    and depth (EP), recurrentgemma-2b, xlstm-1.3b and
@@ -229,9 +253,11 @@ Phases, each of which raises on failure:
    depth, quantized data-free unfused, its prefill of 8 x 256 tokens
    and 16 greedy steps through ``model.shard_for_serving`` as one NCCL
    rank bit-identical to one device with equal mixed_matmul launches
-   and no paged launch, and its sharded train step at full width and 4
-   of its 32 layers (2 steps of 4 x 512 tokens) bit-identical to one
-   device with no launch; then the tp-16 split arithmetic rank after
+   and no paged launch, and its sharded train step at full width and
+   4 of its 32 layers (2 steps of 4 x 512 tokens) bit-identical to one
+   device with no launch; the served weights then take ``ENGINE_WAVE``
+   through the paged chunked-prefill engine (``[phi4 engine]``); then
+   the tp-16 split arithmetic rank after
    rank (``[dist uneven split ...]``): phi4-mini's and llava-next-34b's
    layer 0 attention (query head views with empty ranks, every KV head,
    wo's row partials), recurrentgemma-2b's first rglru layer (each gate
@@ -246,7 +272,8 @@ Phases, each of which raises on failure:
    unfused, prefill of 8 x 256 tokens and 16 greedy steps) as one NCCL
    rank with ``Parallel.sp`` on and off, each bit-identical to one
    device (the stream's entry and exit are identities at one rank;
-   their calls are counted); then the split arithmetic of tp 4 and 16
+   their calls are counted), and ``ENGINE_WAVE`` through the paged
+   chunked-prefill engine (``[qwen2.5 engine]``); then the split arithmetic of tp 4 and 16
    rank after rank on one full-width block of qwen2.5-3b and one of
    phi4-mini-3.8b over 2 x 4096 positions (``[dist sp split ...]``):
    each rank's chunk of the norms and residual adds bit-identical to
@@ -267,8 +294,25 @@ Phases, each of which raises on failure:
    (``FlopCounterMode`` plus 2·M·K·N per packed launch) and packed
    launches by shape equal, the card's peak within 15% of the
    predicted, the step's wall ms beside the roofline bound;
-21. check that every (M, K, N) the packed matmul launched at in phases
-   5-20 was held against its plain version in phase 3, 6, 8, 9, 10, 16,
+21. the two widest models at full width and depth, after the earlier
+   phases freed their weights (what they still hold is printed),
+   each built one layer at a time (``build_layerwise``: a layer's bf16
+   weights, data-free fused PTQ1.61, freed) and its bytes held against
+   ``launch.qdeclare``'s declaration: command-r-35b, all 40 layers,
+   served through the paged chunked-prefill engine on the prompts of
+   phase 5 (``[cmdr]``: bits, build seconds and peak, tokens/s, TTFT,
+   decode step beside its weight-read bound, busy share, launches);
+   mixtral-8x22b, all 56 layers (an out-of-memory error fails the
+   phase), on ``MIXTRAL_WAVE`` (``[mixtral]``: the same, and the expert
+   dequantization's device ms per step beside its bound) and on
+   ``MIXTRAL_LONG`` (``[mixtral long]``: chunks that start past the
+   4096-key window must launch paged_prefill and decode steps over more
+   than 4096 keys paged_attention); every logit finite, and every
+   attention launch of these waves and of the engine waves of phases
+   16, 18 and 19 at a (rows, heads, table pages, window) and plan that
+   phase 3 held against the plain version (``held_plans``);
+22. check that every (M, K, N) the packed matmul launched at in phases
+   5-21 was held against its plain version in phase 3, 6, 8, 9, 10, 16,
    17, 18 or 19, then print the ``kernels`` JSON line (six entries, one per TPU
    kernel: the five wrappers and the perm gather of ``mixed_matmul``)
    and the result line.  Each phase's wall seconds print as it ends
@@ -281,6 +325,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -374,6 +419,52 @@ S2T_ROWS = (8, 512, 8192)
 VLM_ARCH = "llava-next-34b"
 VLM_DEPTH, VLM_VISION, VLM_TEXT, VLM_STEPS = 60, 576, 64, 16
 VLM_ROWS = (8, 64, 5120)
+# The two widest models (phases 3, 4 and 21), each built one layer at a
+# time (``build_layerwise``) at full width and depth and served through
+# the paged chunked-prefill engine.  command-r-35b (64 / 8 heads of 128,
+# d_ff 22528, layernorm, a 256000-wide untied head): the prompts of
+# phase 5 at 8 slots, so the packed matmul runs at CMDR_ROWS (8-slot
+# decode, 64-token chunks).  mixtral-8x22b (48 / 8 heads of 128, 8
+# experts of 6144 -> 16384, top-2, a 4096-key window): MIXTRAL_WAVE, and
+# MIXTRAL_LONG, whose 512-token chunks start past the window (a chunk
+# start past 4096 needs a prompt of more than 4608 tokens) and whose
+# decode steps attend more than 4096 keys; the packed matmul (the
+# attention projections: the experts are dequantized, as the reference's
+# einsum) at MIXTRAL_ROWS (2- and 4-slot decode, 64- and 512-token
+# chunks).  Phase 3 holds both attention kernels at their heads: the
+# decode kernel over MIXTRAL_ATT_LENS keys under the window, the prefill
+# kernel at MIXTRAL_PREFILL_CASES (the chunks of the long wave past the
+# window, a block table of MIXTRAL_LONG's max_seq).
+CMDR_ARCH, MIXTRAL_ARCH = "command-r-35b", "mixtral-8x22b"
+CMDR_ROWS, MIXTRAL_ROWS = (8, 64), (2, 4, 64, 512)
+MIXTRAL_WAVE = dict(prompts=4, lengths=(200, 400), slots=4, max_new=8)
+MIXTRAL_LONG = dict(prompts=2, lengths=(4700, 4900), slots=2, max_seq=4928,
+                    chunk=512, max_new=8)
+# the busy share of mixtral's decode step: a forward call takes over a
+# second there (every expert dequantized), so 2 steps at 4 slots over
+# one 64-token chunk each
+MIXTRAL_BUSY_STEPS, MIXTRAL_BUSY_CONTEXT = 2, 64
+MIXTRAL_ATT_LENS = (4907, 4700, 4400, 4097, 4096, 1500, 64, 0)
+MIXTRAL_PREFILL_CASES = ((64, 192, 64, 1), (64, 256, 37, None),
+                         (64, 4160, 64, 1), (512, 4096, 512, 3),
+                         (512, 4608, 229, None))
+# Phase 3's decode cases at the served waves' own launches: by slots,
+# the lengths over the 32-page table of a 512-token max_seq (4 slots:
+# MIXTRAL_WAVE and ENGINE_WAVE; 8: [cmdr]), and the lengths the long
+# wave's 2 slots reach over its table of MIXTRAL_LONG's max_seq
+WAVE_ATT_LENS = {4: (408, 330, 215, 0),
+                 8: (432, 400, 377, 301, 256, 219, 64, 0)}
+MIXTRAL_LONG_ATT_LENS = (4877, 4828)
+# Attention launches held against their plain versions in phase 3:
+# (kernel, rows, hq, hkv, dh, table pages, window) -> the launch plan
+# (``SplitPlan._asdict()``).  Every launch a watched wave makes must be
+# one of them, with the same plan (``held_plans``).
+HELD_PLANS: dict = {}
+# The engine wave of the three models that had run model-level only
+# (qwen3-4b in phase 16, phi4-mini-3.8b in 18, qwen2.5-3b in 19), on the
+# weights each phase builds: paged chunked prefill with all three
+# kernels; the packed shapes new to it are held in the phase.
+ENGINE_WAVE = dict(prompts=4, lengths=(200, 400), slots=4, max_new=8)
 # packed projections per block kind (an attention block's 7)
 KIND_PROJECTIONS = {"rglru": 6, "mlstm": 5, "slstm": 4}
 # Sharded serving (phase 16, ``[dist serve]``): qwen3-4b at full width
@@ -538,9 +629,10 @@ def bound_ms(nbytes: float, flops: float, peaks):
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions at LLaMA-7B shapes
 # ---------------------------------------------------------------------------
-def llama_projections(torch, cfg, gen):
-    """The four packed projections of one LLaMA-7B layer as the main path
-    quantizes them (data-free, QKV and gate+up fused)."""
+def llama_projections(torch, cfg, gen, names=("wqkv", "wgu", "wo", "wd")):
+    """The four packed projections of one LLaMA-7B layer (or of ``cfg``'s
+    layer) as the main path quantizes them (data-free, QKV and gate+up
+    fused); those of ``names``."""
     from repro_torch.core.qlinear import (QuantConfig, quantize_linear,
                                           quantize_linear_group)
     qcfg = QuantConfig(ratio=0.2, multiple=16)
@@ -552,13 +644,15 @@ def llama_projections(torch, cfg, gen):
         return (torch.randn((k, n), generator=gen, device="cuda")
                 / math.sqrt(k)).to(torch.bfloat16)
 
-    return {
-        "wqkv": quantize_linear_group([w(d, hd), w(d, kvd), w(d, kvd)],
-                                      None, qcfg).inner,
-        "wgu": quantize_linear_group([w(d, f), w(d, f)], None, qcfg).inner,
-        "wo": quantize_linear(w(hd, d), None, qcfg),
-        "wd": quantize_linear(w(f, d), None, qcfg),
+    make = {
+        "wqkv": lambda: quantize_linear_group(
+            [w(d, hd), w(d, kvd), w(d, kvd)], None, qcfg).inner,
+        "wgu": lambda: quantize_linear_group([w(d, f), w(d, f)], None,
+                                             qcfg).inner,
+        "wo": lambda: quantize_linear(w(hd, d), None, qcfg),
+        "wd": lambda: quantize_linear(w(f, d), None, qcfg),
     }
+    return {name: make[name]() for name in names}
 
 
 def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64),
@@ -584,6 +678,8 @@ def check_mixed_matmul(torch, projs, timer, peaks, gen, ms=(1, 8, 64),
                    "max_abs_err": err, "ok": bool(ok)}
             if not ok:
                 _fail(f"mixed_matmul {row}")
+            if not torch.equal(y, mixed_matmul(*args, perm=q.perm)):
+                _fail(f"mixed_matmul: a repeated call gave other bits {row}")
             dense = q.to_dense(torch.bfloat16)
             nbytes = (x.numel() * 2 + q.perm.numel() * 4
                       + q.w4.numel() + q.bits.numel()
@@ -918,10 +1014,13 @@ def check_spans(torch, projs, timer, peaks, gen):
     return rows
 
 
-def _paged_case(torch, gen, b, hkv, rep, dh, ps, lens, dtype):
-    """Random pools and block tables for ragged ``lens``: each row's
+def _paged_case(torch, gen, b, hkv, rep, dh, ps, lens, dtype, nblk=None):
+    """Random pools and block tables of ``nblk`` pages (one more than
+    the longest row needs by default) for ragged ``lens``: each row's
     pages are distinct pool pages."""
-    nblk = max(-(-n // ps) for n in lens) + 1
+    nblk = nblk or max(-(-n // ps) for n in lens) + 1
+    if nblk * ps < max(lens):
+        _fail(f"a table of {nblk} pages cannot hold {max(lens)} keys")
     need = sum(-(-n // ps) for n in lens)
     pages = torch.randperm(need + 4, generator=gen, device="cuda")
     bt = torch.full((b, nblk), -1, dtype=torch.int32, device="cuda")
@@ -941,20 +1040,26 @@ def _paged_case(torch, gen, b, hkv, rep, dh, ps, lens, dtype):
 
 def check_paged_attention(torch, cfg, timer, peaks, gen,
                           lens=(1000, 777, 513, 300, 129, 64, 17, 0),
-                          window=None, freed=(0, 20), f32: bool = False):
-    """The decode kernel at ``cfg``'s heads over 8 slots of ``lens``
-    keys (pages of 16; page ``freed`` (slot, block) of the table set to
-    -1) with ``window``, against its plain version in bf16 (and with
-    ``f32`` in f32 too), timed beside the plain version and SDPA over
-    the gathered context under the same mask."""
+                          window=None, freed=(0, 20), f32: bool = False,
+                          nblk=None):
+    """The decode kernel at ``cfg``'s heads over one slot for each of
+    ``lens`` (pages of 16, a table of ``nblk`` pages; page ``freed``
+    (slot, block) of the table set to -1) with ``window``, against its
+    plain version in bf16 (and with ``f32`` in f32 too), timed beside
+    the plain version and SDPA over the gathered context under the same
+    mask.  The bf16 launch's plan goes into ``HELD_PLANS``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.paged_attention import (launch_plan,
+                                                     paged_attention)
     lens = list(lens)
     b, ps, dh = len(lens), 16, cfg.head_dim_
     hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     q, kp, vp, bt = _paged_case(torch, gen, b, hkv, rep, dh, ps, lens,
-                                torch.bfloat16)
+                                torch.bfloat16, nblk)
+    nblk = bt.shape[1]
+    plan = launch_plan(b, hkv, rep, dh, nblk, ps, True,
+                       q.get_device())._asdict()
     bt[freed] = -1                                  # freed page mid-table
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     errs = {}
@@ -996,8 +1101,10 @@ def check_paged_attention(torch, cfg, timer, peaks, gen,
     prof = call_profile(torch, call)
     if not prof["bit_identical"]:
         _fail("paged_attention: a repeated call gave other bits")
-    return {"B": b, "hq": hq, "hkv": hkv, "dh": dh, "ps": ps,
-            "lens": lens, "window": window, "freed": list(freed),
+    HELD_PLANS[("paged_attention", b, hq, hkv, dh, nblk, window)] = plan
+    return {"B": b, "hq": hq, "hkv": hkv, "dh": dh, "ps": ps, "nblk": nblk,
+            "plan": plan, "lens": lens, "window": window,
+            "freed": list(freed),
             "max_abs_err": max(errs.values()), "max_abs_err_by_dtype": errs,
             **prof, "ms": timer.ms(call),
             "plain_ms": timer.ms(
@@ -1009,19 +1116,33 @@ def check_paged_attention(torch, cfg, timer, peaks, gen,
             "bound_ms": bnd, "bound_by": by, "bytes": nbytes}
 
 
-def check_paged_prefill(torch, cfg, timer, peaks, gen):
+# (C, start, length, masked chunk page) of ``check_paged_prefill``: a
+# context over 12 pages with a full chunk whose second page is shared
+# (writable row -1), and a ragged final chunk over 16 context pages
+PREFILL_CASES = ((64, 192, 64, 1), (64, 256, 37, None))
+
+
+def check_paged_prefill(torch, cfg, timer, peaks, gen, window=None,
+                        cases=PREFILL_CASES, nblk: int = 32):
+    """The chunked-prefill kernel at ``cfg``'s heads (layer 1 of a
+    2-layer pool, pages of 16, a block table of ``nblk`` pages) for each
+    chunk of ``cases`` (chunk rows C, start, live length, the chunk page
+    whose writable entry is -1 or None) under ``window``, against its
+    plain version: the output rows, the pool bytes it writes, a shared
+    page left alone, the same bits on repeat; timed beside the plain
+    version and causal SDPA over the gathered context under the same
+    mask.  With a window, the context pages below the chunk's first
+    row's window are neither read nor counted in the bound.  Each
+    chunk's launch plan goes into ``HELD_PLANS``."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_prefill import paged_prefill
-    c, ps, dh = 64, 16, cfg.head_dim_
+    from repro_torch.kernels.paged_prefill import launch_plan, paged_prefill
+    ps, dh = 16, cfg.head_dim_
     hkv, rep = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
     hq = hkv * rep
-    nlayers, nblk, pool_pages = 2, 32, 40
+    nlayers, pool_pages = 2, nblk + 8
     results = []
-    # (start, length, masked chunk page): a context over 12 pages with a
-    # full chunk whose second page is shared (writable row -1), and a
-    # ragged final chunk over 16 context pages
-    for start, length, masked in ((192, 64, 1), (256, 37, None)):
+    for c, start, length, masked in cases:
         shape = (nlayers, pool_pages + 1, ps, hkv, dh)
         kp = torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
@@ -1042,9 +1163,10 @@ def check_paged_prefill(torch, cfg, timer, peaks, gen):
             torch.bfloat16)
         kk, vk = kp.clone(), vp.clone()
         kr, vr = kp.clone(), vp.clone()
-        o = paged_prefill(q, kn, vn, kk, vk, bt, btw, start, length, layer=1)
+        o = paged_prefill(q, kn, vn, kk, vk, bt, btw, start, length, layer=1,
+                          window=window)
         o_ref = ref.paged_prefill_ref(q, kn, vn, kr, vr, bt, btw, start,
-                                      length, layer=1)
+                                      length, layer=1, window=window)
         torch.cuda.synchronize()
         err = (o[:length] - o_ref[:length]).abs().max().item()
         if not torch.allclose(o[:length], o_ref[:length], rtol=ATT_RTOL,
@@ -1060,10 +1182,16 @@ def check_paged_prefill(torch, cfg, timer, peaks, gen):
             _fail("paged_prefill rewrote a shared page")
         live_pages = sum(1 for cp in range(c // ps)
                          if cp * ps < length and int(btw[start // ps + cp]) >= 0)
+        # context pages wholly below the first row's window are dropped
+        dropped = (max(start + 1 - window, 0) // ps) if window else 0
         nbytes = (q.numel() * 2 + 2 * kn.numel() * 2
-                  + start * hkv * dh * 2 * 2 + live_pages * ps * hkv * dh * 4
+                  + (start - dropped * ps) * hkv * dh * 2 * 2
+                  + live_pages * ps * hkv * dh * 4
                   + 2 * nblk * 4 + c * hq * dh * 4)
-        pairs = length * start + length * (length + 1) // 2
+        # (query, key) pairs: each live row sees itself and the keys
+        # before it, at most ``window`` of them in all
+        pairs = sum(min(start + i + 1, window or start + i + 1)
+                    for i in range(length))
         bnd, by = bound_ms(nbytes, 4.0 * hq * dh * pairs, peaks)
         s = start + c
         kc = torch.cat([kp[1][bt[:start // ps].long()].reshape(start, hkv, dh),
@@ -1071,20 +1199,30 @@ def check_paged_prefill(torch, cfg, timer, peaks, gen):
         vc = torch.cat([vp[1][bt[:start // ps].long()].reshape(start, hkv, dh),
                         vn]).transpose(0, 1)[None]
         qi = torch.arange(c, device="cuda")[:, None] + start
-        mask = (torch.arange(s, device="cuda")[None, :] <= qi)[None, None]
+        kpos = torch.arange(s, device="cuda")[None, :]
+        mask = kpos <= qi
+        if window:
+            mask &= qi - kpos < window
+        mask = mask[None, None]
         qs = q.transpose(0, 1)[None]
         prof = call_profile(torch, lambda: paged_prefill(
-            q, kn, vn, kk, vk, bt, btw, start, length, layer=1))
+            q, kn, vn, kk, vk, bt, btw, start, length, layer=1,
+            window=window))
         if not prof["bit_identical"]:
             _fail(f"paged_prefill: a repeated call gave other bits "
                   f"(start={start})")
+        plan = launch_plan(c, hq, hkv, dh, nblk, ps, q.get_device())._asdict()
+        HELD_PLANS[("paged_prefill", c, hq, hkv, dh, nblk, window)] = plan
         results.append({
             "C": c, "start": start, "length": length, "hq": hq, "hkv": hkv,
-            "dh": dh, "ps": ps, "max_abs_err": err, **prof,
+            "dh": dh, "ps": ps, "nblk": nblk, "plan": plan, "window": window,
+            "dropped_pages": dropped, "max_abs_err": err, **prof,
             "ms": timer.ms(lambda: paged_prefill(q, kn, vn, kk, vk, bt, btw,
-                                                 start, length, layer=1)),
+                                                 start, length, layer=1,
+                                                 window=window)),
             "plain_ms": timer.ms(lambda: ref.paged_prefill_ref(
-                q, kn, vn, kr, vr, bt, btw, start, length, layer=1)),
+                q, kn, vn, kr, vr, bt, btw, start, length, layer=1,
+                window=window)),
             "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                 qs, kc, vc, attn_mask=mask, enable_gqa=rep > 1)),
             "bound_ms": bnd, "bound_by": by, "bytes": nbytes})
@@ -1569,21 +1707,29 @@ def serve_wave(torch, cfg, engine, prompts, kernels, path_kernels, tag: str,
 
 
 def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
-                  engine_kw, max_new: int = 32) -> dict:
-    """Serve 8 synthetic prompts of 200-400 tokens, 32 new tokens each,
-    at 8 slots and max_seq 512, through the engine in the mode
-    ``engine_kw`` (``serve_wave``)."""
+                  engine_kw, max_new: int = 32, prompts: int = 8,
+                  lengths=(200, 400), slots: int = 8, max_seq: int = 512,
+                  chunk=None, watch=None) -> dict:
+    """Serve ``prompts`` synthetic prompts of ``lengths`` (low, high)
+    tokens, ``max_new`` new tokens each, at ``slots`` slots and
+    ``max_seq``, through the engine in the mode ``engine_kw`` (with
+    ``chunk`` its prefill chunk; ``serve_wave``).  ``watch`` is called
+    with the engine before the wave (``watch_attention``)."""
     import numpy as np
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     from repro_torch.runtime.engine import Engine
 
-    engine = Engine(cfg, qparams, n_slots=8, max_seq=512, seed=0,
+    if chunk is not None:
+        engine_kw = dict(engine_kw, prefill_chunk=chunk)
+    engine = Engine(cfg, qparams, n_slots=slots, max_seq=max_seq, seed=0,
                     device="cuda", **engine_kw)
+    if watch is not None:
+        watch(engine)
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=0))
     rng = np.random.default_rng(0)
-    prompts = [corpus.document(10_000 + i, int(rng.integers(200, 400)))
-               for i in range(8)]
-    _, run = serve_wave(torch, cfg, engine, prompts, kernels, path_kernels,
+    texts = [corpus.document(10_000 + i, int(rng.integers(*lengths)))
+             for i in range(prompts)]
+    _, run = serve_wave(torch, cfg, engine, texts, kernels, path_kernels,
                         tag, max_new)
     snap = engine.metrics.snapshot()
     print(f"[{tag} engine_metrics] " + json.dumps(snap), flush=True)
@@ -1612,6 +1758,100 @@ def serve_prompts(torch, cfg, qparams, kernels, path_kernels, tag: str,
                                         in shapes else None)}
             for b in buckets}
     return engine, summary
+
+
+def engine_wave(torch, cfg, qparams, kernels, tag: str) -> dict:
+    """``ENGINE_WAVE`` through the paged chunked-prefill engine on a
+    phase's own weights, all three kernels launched, every logit
+    finite (``serve_prompts``), every attention launch one that phase
+    3 held (``held_plans``)."""
+    seen = {}
+    engine, summary = serve_prompts(
+        torch, cfg, qparams, kernels, ("mixed_matmul", "paged_attention",
+                                       "paged_prefill"), tag, CHUNKED,
+        watch=watch_attention(torch, kernels, seen), **ENGINE_WAVE)
+    summary["attention_plans"] = held_plans(tag, seen)
+    del engine
+    gc.collect()                    # the watch's closures form a cycle
+    print(f"[{tag}] " + json.dumps(summary), flush=True)
+    return summary
+
+
+def watch_attention(torch, kernels, seen: dict):
+    """A ``serve_prompts`` ``watch``: wraps the paged backend's chunk and
+    decode calls to record, in ``seen``, each chunk's (start, length,
+    paged_prefill launches of the call), each decode step's (the
+    longest live context of the step, paged_attention launches of the
+    call), and the launch plan of every call that launched a kernel,
+    keyed as ``HELD_PLANS`` is (``held_plans``); and to fail on a
+    non-finite logit of any call."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_prefill as pf
+
+    def watch(engine):
+        be, cfg = engine.backend, engine.cfg
+        chunk, decode = be.prefill_chunk, be.decode
+        pool = next(c["k"] for stage in be.caches for c in stage
+                    if isinstance(c, dict) and "k" in c)
+        dev, bf16 = pool.get_device(), pool.dtype == torch.bfloat16
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        ps, nblk = be.page_size, be.tables.max_blocks
+        seen.update(chunks=[], decodes=[], plans={})
+
+        def finite(what, logits):
+            if not bool(torch.isfinite(logits).all()):
+                _fail(f"{engine.cfg.name}: a non-finite logit in a {what} "
+                      "call")
+            return logits
+
+        def on_chunk(params, toks, slot, start, length):
+            n = kernels["paged_prefill"].launches
+            out = finite("prefill chunk", chunk(params, toks, slot, start,
+                                                length))
+            n = kernels["paged_prefill"].launches - n
+            seen["chunks"].append((int(start), int(length), n))
+            c = toks.shape[-1]
+            if n:
+                seen["plans"][("paged_prefill", c, hq, hkv, dh, nblk,
+                               cfg.attn_window)] = (
+                    pf.launch_plan(c, hq, hkv, dh, nblk, ps, dev)._asdict()
+                    if bf16 else None)
+            return out
+
+        def on_decode(params, toks, pos, active=None):
+            lens = be.tables.context_lens()
+            if active is not None:
+                lens = lens * active
+            n = kernels["paged_attention"].launches
+            out = finite("decode", decode(params, toks, pos, active))
+            n = kernels["paged_attention"].launches - n
+            seen["decodes"].append((int(lens.max()), n))
+            b = len(toks)
+            if n:
+                seen["plans"][("paged_attention", b, hq, hkv, dh, nblk,
+                               cfg.attn_window)] = pa.launch_plan(
+                    b, hkv, hq // hkv, dh, nblk, ps, bf16, dev)._asdict()
+            return out
+        be.prefill_chunk, be.decode = on_chunk, on_decode
+    return watch
+
+
+def held_plans(tag: str, seen: dict) -> list:
+    """Every attention launch plan a watched wave used (``seen`` of
+    ``watch_attention``) must be one that phase 3 held against its
+    plain version at the same shape and window (``HELD_PLANS``), or the
+    phase fails.  Returns the plans, keyed by shape."""
+    for key, plan in seen["plans"].items():
+        if key not in HELD_PLANS:
+            _fail(f"{tag}: {key[0]} launched at (rows, hq, hkv, dh, table "
+                  f"pages, window) {key[1:]} with plan {plan}, a launch "
+                  "phase 3 never held against its plain version")
+        if HELD_PLANS[key] != plan:
+            _fail(f"{tag}: {key[0]} at {key[1:]} launched with plan {plan},"
+                  f" phase 3 held it with {HELD_PLANS[key]}")
+    return [{"kernel": k[0], "rows": k[1], "hq": k[2], "hkv": k[3],
+             "dh": k[4], "nblk": k[5], "window": k[6], "plan": plan}
+            for k, plan in sorted(seen["plans"].items(), key=str)]
 
 
 def _union_us(intervals) -> float:
@@ -1670,9 +1910,11 @@ def step_busy_share(torch, step, steps: int = 4) -> dict:
             "kernels_per_step": n / steps}
 
 
-def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
-    """Device-busy share of a data-free decode step at 8 slots: 8 prompts
-    of 256 tokens are admitted and prefilled; then ``steps`` engine ticks
+def decode_busy_share(torch, cfg, engine, steps: int = 4,
+                      requests: int = 8, context: int = 256) -> dict:
+    """Device-busy share of a data-free decode step at ``requests``
+    slots (8 by default): that many prompts of ``context`` tokens are
+    admitted and prefilled; then ``steps`` engine ticks
     (one batched decode step each) run twice, once timed on the host's
     clock and once under torch.profiler for the CUDA kernels' intervals
     (the profiler slows the host).  The share is the union of the kernel
@@ -1680,13 +1922,13 @@ def decode_busy_share(torch, cfg, engine, steps: int = 4) -> dict:
     synchronized."""
     from repro_torch.data.synthetic import CorpusConfig, SyntheticCorpus
     corpus = SyntheticCorpus(CorpusConfig(vocab=cfg.vocab, seed=1))
-    reqs = [engine.submit(corpus.document(20_000 + i, 256),
-                          max_new=2 * steps + 4) for i in range(8)]
+    reqs = [engine.submit(corpus.document(20_000 + i, context),
+                          max_new=2 * steps + 4) for i in range(requests)]
     while not all(r.out_tokens for r in reqs):
         engine.tick()
     busy = step_busy_share(torch, engine.tick, steps)
     engine.run()
-    return {"slots": 8, "context_tokens": 256, **busy}
+    return {"slots": requests, "context_tokens": context, **busy}
 
 
 def prefill_busy_share(torch, cfg, qparams, buckets=(256, 512),
@@ -3243,39 +3485,52 @@ def _weight_bytes(qparams) -> int:
     return total[0] + head.numel() * head.element_size()
 
 
-def build_vlm(torch, cfg, depth: int):
-    """llava-next-34b's data-free fused PTQ1.61 model built one layer at
-    a time on the card: each layer's bf16 weights are materialized
-    (``materialize`` with the layer's path, so they are those of a
-    whole ``init_params``), quantized with QKV and gate+up fused, and
-    freed.  Returns (qparams, seconds)."""
+def build_layerwise(torch, cfg, depth: int, device="cuda"):
+    """A decoder's data-free fused PTQ1.61 model (ratio 0.2, multiple 16,
+    min dim 32, QKV and gate+up fused, a MoE layer's stacked experts
+    too), built one layer at a time on ``device``: each layer's bf16
+    weights are materialized (``materialize`` with the layer's path, so
+    they are those of a whole ``init_params``), quantized and freed
+    before the next, so the bf16 model is never whole.  The first
+    ``depth`` layers, stage by stage; the embedding, head and final
+    norm stay as ``init_params`` makes them.  Returns (qparams, build
+    seconds, the build's peak GB on a CUDA device, None elsewhere)."""
     from repro_torch.core.pipeline import quantize_params_data_free
     from repro_torch.core.qlinear import QuantConfig
     from repro_torch.models import model as M
     from repro_torch.models.param import materialize
     qcfg = QuantConfig(ratio=0.2, multiple=16)
+    cuda = torch.device(device).type == "cuda"
     decl = M.declare_params(cfg)
-    torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     qparams = materialize({k: v for k, v in decl.items() if k != "stages"},
-                          0, "cuda")
-    layers = []
-    for i, lp in enumerate(decl["stages"][0][:depth]):
-        block = materialize(lp, 0, "cuda", prefix=("stages", 0, i))
-        layers.append(quantize_params_data_free(
-            {"stages": [[block]]}, qcfg, min_dim=32,
-            fuse=True)["stages"][0][0])
-        del block
-    qparams["stages"] = [layers]
-    torch.cuda.synchronize()
-    return qparams, time.perf_counter() - t0
+                          0, device)
+    qparams["stages"] = []
+    left = depth
+    for si, stage in enumerate(decl["stages"]):
+        layers = []
+        for i, lp in enumerate(stage[:left]):
+            block = materialize(lp, 0, device, prefix=("stages", si, i))
+            layers.append(quantize_params_data_free(
+                {"stages": [[block]]}, qcfg, min_dim=32,
+                fuse=True)["stages"][0][0])
+            del block
+        qparams["stages"].append(layers)
+        left -= len(layers)
+    if cuda:
+        torch.cuda.synchronize()
+    return (qparams, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
 
 
 def run_vlm_path(torch, registry, kernels, path_kernels, peaks) -> dict:
     """llava-next-34b at full width (d 7168, 56/8 heads of 128, d_ff
     20480, vocab 64000, untied head) and ``VLM_DEPTH`` of its 60
     layers, random bf16 weights of seed 0 built and quantized layer by
-    layer (``build_vlm``): the model-level ``prefill`` of 8 rows of
+    layer (``build_layerwise``): the model-level ``prefill`` of 8 rows of
     ``VLM_VISION`` stub vision embeddings (from the seed) and
     ``VLM_TEXT`` text tokens, ``VLM_STEPS`` greedy ``decode_step``s
     beside the decode step's weight-read bound, then the engine on text
@@ -3292,9 +3547,7 @@ def run_vlm_path(torch, registry, kernels, path_kernels, peaks) -> dict:
           f"{cfg.n_layers} (frontend stub: {cfg.frontend_tokens} vision "
           "embeddings)", flush=True)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    qparams, t_build = build_vlm(torch, cfg, VLM_DEPTH)
-    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    qparams, t_build, build_peak = build_layerwise(torch, cfg, VLM_DEPTH)
     print(f"[vlm] {VLM_DEPTH} layers built and quantized one at a time in "
           f"{t_build:.1f}s, peak {build_peak:.2f} GB", flush=True)
     bits = check_moe_bits(qparams, 0.2, 16, "vlm")
@@ -3358,24 +3611,231 @@ def run_vlm_path(torch, registry, kernels, path_kernels, peaks) -> dict:
     return {"vlm model": model, "vlm": summary}
 
 
-def run_vlm_serve(torch, kernels) -> dict:
-    """``repro_torch.launch.serve.run --arch llava-next-34b --reduced``
-    on the card (serve materializes a whole tree: the reduced config),
-    fused data-free weights through the paged chunked-prefill engine."""
+def run_reduced_serve(torch, kernels, arch: str, tag: str) -> dict:
+    """``repro_torch.launch.serve.run --arch ARCH --reduced`` on the card
+    (serve materializes a whole tree: the reduced config), fused
+    data-free weights through the paged chunked-prefill engine."""
     from repro_torch.launch.serve import parse_args, run
     _reset(kernels)
-    out = run(parse_args(["--arch", VLM_ARCH, "--reduced", "--fused",
+    out = run(parse_args(["--arch", arch, "--reduced", "--fused",
                           "--paged", "--chunked-prefill", "--prefill-chunk",
                           "16", "--max-new", "8"]))
     launches = _launches(kernels)
     if not out["all_done"] or out["cache_backend"] != "paged":
-        _fail("vlm serve: not every request finished on the paged backend")
+        _fail(f"{tag}: not every request finished on the paged backend")
     for name in ("mixed_matmul", "paged_attention", "paged_prefill"):
         if launches[name] <= 0:
-            _fail(f"vlm serve: kernel {name} was not launched")
+            _fail(f"{tag}: kernel {name} was not launched")
     return {k: out[k] for k in ("requests", "generated_tokens",
                                 "tokens_per_s", "bits_per_weight",
                                 "cache_backend")} | {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: command-r-35b and mixtral-8x22b at full width and depth
+# ---------------------------------------------------------------------------
+def declared_bytes(torch, cfg) -> dict:
+    """What ``launch.qdeclare.declare_quantized`` declares for ``cfg``'s
+    data-free model on meta tensors, unfused, at the settings of
+    ``build_layerwise`` (ratio 0.2, multiple 16, min dim 32): the bytes
+    of every packed field of the stages (``packed``), of the head (the
+    embedding where tied), of every floating leaf (``floats``: the
+    embedding, head and norms), the quantized weights, and one layer's
+    bf16 bytes (what the build holds beside the packed layers).  No
+    device memory is touched."""
+    from repro_torch.core.qlinear import FIELDS, QLinear, QuantConfig
+    from repro_torch.core.select import map_tree
+    from repro_torch.distributed.sharding import Rules
+    from repro_torch.launch.qdeclare import declare_quantized
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Parallel
+    from repro_torch.models.param import count_params
+    abstract, _ = declare_quantized(cfg, Parallel(),
+                                    QuantConfig(ratio=0.2, multiple=16),
+                                    Rules(), min_dim=32)
+    out = {"packed": 0, "floats": 0, "weights": 0}
+
+    def visit(_, x):
+        if isinstance(x, QLinear):
+            out["packed"] += sum(getattr(x, f).numel()
+                                 * getattr(x, f).element_size()
+                                 for f in FIELDS)
+            out["weights"] += math.prod(x.perm.shape[:-1]) * x.k * x.n
+        elif isinstance(x, torch.Tensor):
+            out["floats"] += x.numel() * x.element_size()
+        return x
+    map_tree(abstract, visit)
+    head = abstract.get("lm_head", abstract["embed"])
+    layer = M.declare_params(cfg)["stages"][0][0]
+    return dict(out, head=head.numel() * head.element_size(),
+                resident=out["packed"] + out["floats"],
+                layer_bf16=2 * count_params(layer))
+
+
+def _fusion_shared_bytes(qparams) -> int:
+    """Bytes that fusion saves against the unfused leaves: a group of m
+    members keeps one ``perm``, ``s4``, ``z4`` and ``alpha_r2`` (the
+    K-sized vectors) where the unfused leaves keep m, per expert."""
+    from repro_torch.core.qlinear import QLinear, QLinearGroup
+    from repro_torch.core.select import map_tree
+    total = [0]
+
+    def visit(_, x):
+        if isinstance(x, QLinearGroup) and isinstance(x.inner, QLinear):
+            q = x.inner
+            vec = sum(getattr(q, f).numel() * getattr(q, f).element_size()
+                      for f in ("perm", "s4", "z4", "alpha_r2"))
+            total[0] += (len(x.splits) - 1) * vec
+        return x
+    map_tree(qparams, visit)
+    return total[0]
+
+
+def _built(torch, tag: str, cfg, depth: int, held_gb: float, peaks):
+    """``build_layerwise`` of ``cfg`` on the card, its bits, and its bytes
+    held against ``declared_bytes``: the packed stages and the head that
+    a decode step reads (``_weight_bytes``), with the K-sized vectors
+    that fusion shares added back, equal to the declaration to the byte.
+    Returns (qparams, a summary)."""
+    decl = declared_bytes(torch, cfg)
+    qparams, t_build, build_peak = build_layerwise(torch, cfg, depth)
+    resident = torch.cuda.memory_allocated() / 1e9 - held_gb
+    nbytes = _weight_bytes(qparams)
+    shared = _fusion_shared_bytes(qparams)
+    want = decl["packed"] + decl["head"]
+    print(f"[{tag}] {depth} layers built and quantized one at a time in "
+          f"{t_build:.1f}s, build peak {build_peak:.2f} GB with {held_gb:.2f}"
+          f" GB held by earlier phases; resident {resident:.2f} GB against "
+          f"{decl['resident'] / 1e9:.2f} GB declared; a decode step reads "
+          f"{nbytes / 1e9:.3f} GB, {shared:,} bytes below the unfused "
+          f"declaration's {want / 1e9:.3f} GB (the vectors fusion shares)",
+          flush=True)
+    if nbytes + shared != want:
+        _fail(f"{tag}: the built model's packed bytes and head, {nbytes} "
+              f"plus {shared} shared by fusion, differ from the declared "
+              f"{want}")
+    bits = check_moe_bits(qparams, 0.2, 16, tag)
+    bound, _ = bound_ms(nbytes, 0.0, peaks)
+    return qparams, {
+        "layers": depth, "of_layers": cfg.n_layers, "build_s": t_build,
+        "build_peak_gb": build_peak, "held_by_earlier_phases_gb": held_gb,
+        "resident_gb": resident,
+        "declared_resident_gb": decl["resident"] / 1e9,
+        "weight_bytes_per_step": nbytes, "declared_packed_and_head": want,
+        "fusion_shared_bytes": shared,
+        "weight_bytes_rel_gap_unfused": (want - nbytes) / want,
+        "decode_bound_ms": bound, **bits}
+
+
+def _watched_past(tag: str, seen: dict, window: int) -> dict:
+    """What ``watch_attention`` saw past the window: a chunk starting
+    past it must have launched paged_prefill, and a decode step over
+    more keys than it paged_attention, or the phase fails."""
+    chunks = [c for c in seen["chunks"] if c[0] > window and c[2] > 0]
+    steps = [d for d in seen["decodes"] if d[0] > window and d[1] > 0]
+    if not chunks:
+        _fail(f"{tag}: no chunk past the {window}-key window launched "
+              f"paged_prefill: {seen['chunks']}")
+    if not steps:
+        _fail(f"{tag}: no decode step over more than {window} keys launched"
+              f" paged_attention: {seen['decodes']}")
+    return {"chunk_starts": sorted({c[0] for c in seen["chunks"]}),
+            "chunks_past_window": [list(c) for c in chunks],
+            "decode_steps_past_window": len(steps),
+            "decode_longest": max(d[0] for d in seen["decodes"]),
+            "decode_shortest_past_window": min((d[0] for d in steps),
+                                               default=None)}
+
+
+def run_cmdr_path(torch, registry, kernels, path_kernels, peaks,
+                  held_gb: float) -> dict:
+    """``[cmdr]``: command-r-35b at full width and all 40 layers, random
+    bf16 weights of seed 0 built and quantized layer by layer
+    (``build_layerwise``), served through the paged chunked-prefill
+    engine on the prompts of phase 5 with all three kernels, every logit
+    finite and every attention launch one that phase 3 held
+    (``held_plans``), and the busy share of its decode step beside the
+    step's weight-read bound."""
+    cfg = registry.get(CMDR_ARCH)
+    print(f"[cmdr] {CMDR_ARCH} d_model={cfg.d_model} heads={cfg.n_heads} "
+          f"kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_} "
+          f"d_ff={cfg.d_ff} norm={cfg.norm} vocab={cfg.vocab} "
+          f"layers={cfg.n_layers}", flush=True)
+    qparams, built = _built(torch, "cmdr", cfg, cfg.n_layers, held_gb, peaks)
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+    engine, summary = serve_prompts(torch, cfg, qparams, kernels,
+                                    path_kernels, "cmdr", CHUNKED,
+                                    watch=watch_attention(torch, kernels,
+                                                          seen))
+    summary["decode_busy"] = decode_busy_share(torch, cfg, engine)
+    summary["attention_plans"] = held_plans("cmdr", seen)
+    summary.update(built)
+    print(f"[cmdr] decode step {summary['decode_step_ms']:.1f} ms beside "
+          f"its weight-read bound {built['decode_bound_ms']:.2f} ms; "
+          + json.dumps(summary), flush=True)
+    del engine, qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def run_mixtral_path(torch, registry, kernels, path_kernels, peaks,
+                     held_gb: float) -> dict:
+    """``[mixtral]``: mixtral-8x22b at full width and all 56 layers,
+    random bf16 weights of seed 0 built and quantized layer by layer,
+    served through the paged chunked-prefill engine (MIXTRAL_WAVE) with
+    all three kernels, the busy share of a decode step and the device
+    time of the expert dequantization (``expert_costs``); ``[mixtral
+    long]``: the same weights on MIXTRAL_LONG, whose chunks past the
+    4096-key window must launch paged_prefill and whose decode steps
+    over more than 4096 keys paged_attention; every logit finite and
+    every attention launch of both waves one that phase 3 held
+    (``held_plans``)."""
+    cfg = registry.get(MIXTRAL_ARCH)
+    print(f"[mixtral] {MIXTRAL_ARCH} d_model={cfg.d_model} heads="
+          f"{cfg.n_heads} kv_heads={cfg.n_kv_heads} head_dim={cfg.head_dim_}"
+          f" experts={cfg.moe.n_experts} top_k={cfg.moe.top_k} expert d_ff="
+          f"{cfg.d_ff} window={cfg.attn_window} vocab={cfg.vocab} layers="
+          f"{cfg.n_layers}", flush=True)
+    qparams, built = _built(torch, "mixtral", cfg, cfg.n_layers, held_gb,
+                            peaks)
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+    engine, out["mixtral"] = serve_prompts(
+        torch, cfg, qparams, kernels, path_kernels, "mixtral", CHUNKED,
+        watch=watch_attention(torch, kernels, seen), **MIXTRAL_WAVE)
+    out["mixtral"]["decode_busy"] = decode_busy_share(
+        torch, cfg, engine, steps=MIXTRAL_BUSY_STEPS,
+        requests=MIXTRAL_WAVE["slots"], context=MIXTRAL_BUSY_CONTEXT)
+    out["mixtral"]["attention_plans"] = held_plans("mixtral", seen)
+    del engine
+    gc.collect()
+    out["mixtral"]["expert"] = expert_costs(torch, cfg, qparams, peaks)
+    out["mixtral"].update(built)
+    print(f"[mixtral] decode step {out['mixtral']['decode_step_ms']:.1f} ms "
+          f"beside its weight-read bound {built['decode_bound_ms']:.2f} ms "
+          "and the expert dequantization's bound "
+          f"{out['mixtral']['expert']['dequant_bound_ms_per_step']:.1f} ms; "
+          + json.dumps(out["mixtral"]), flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    seen = {}
+    engine, out["mixtral long"] = serve_prompts(
+        torch, cfg, qparams, kernels, path_kernels, "mixtral long", CHUNKED,
+        watch=watch_attention(torch, kernels, seen), **MIXTRAL_LONG)
+    del engine
+    gc.collect()
+    out["mixtral long"].update(
+        window=cfg.attn_window, **_watched_past("mixtral long", seen,
+                                                cfg.attn_window),
+        attention_plans=held_plans("mixtral long", seen))
+    print("[mixtral long] " + json.dumps(out["mixtral long"]), flush=True)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4563,6 +5023,7 @@ def run_dist_serve(torch, kernels, smi: str, peaks, checked) -> dict:
         _fail("[dist serve fused] a paged attention kernel launched on the "
               "contiguous path")
     del fone, fsh
+    fout["engine"] = engine_wave(torch, cfg, fused, kernels, "qwen3 engine")
     timer = Timer(torch)
     new = [shape for shape, c in KERNEL.shapes.items()
            if c > before.get(shape, 0)]
@@ -5544,6 +6005,8 @@ def run_dist_uneven(torch, kernels, smi: str, peaks, checked) -> dict:
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+    out["phi4 engine"] = engine_wave(torch, cfg, qparams, kernels,
+                                     "phi4 engine")
     new = [sh_ for sh_, c in KERNEL.shapes.items() if c > before.get(sh_, 0)]
     held = hold_new_shapes(torch, qparams, new, checked, timer, peaks, gen,
                            "phi4")
@@ -5891,6 +6354,8 @@ def run_dist_sp(torch, kernels, smi: str, peaks, checked) -> dict:
     print(f"[dist sp serve] {smi}: " + json.dumps(out["serve"]), flush=True)
     del one, batch, ref
     torch.cuda.empty_cache()
+    out["engine"] = engine_wave(torch, serve_cfg, qparams, kernels,
+                                "qwen2.5 engine")
     new = [sh_ for sh_, c in KERNEL.shapes.items() if c > before.get(sh_, 0)]
     held = hold_new_shapes(torch, qparams, new, checked, timer, peaks, gen,
                            "sp")
@@ -6653,6 +7118,86 @@ def main() -> int:
         ms=QWEN3_ROWS, host=True)
     print_rows("qwen3 mixed_matmul", "the 5 unfused projection shapes",
                q3_mm, QWEN3_ROWS)
+    # command-r-35b's fused layer and both attention kernels at its GQA
+    # group of 8 (64 / 8 heads, dh 128)
+    ccfg = registry.get(CMDR_ARCH)
+    print("[cmdr plan] attention split plans at command-r's heads: "
+          + json.dumps(attention_plans(torch, ccfg)), flush=True)
+    cmdr_mm = check_mixed_matmul(
+        torch, llama_projections(
+            torch, ccfg, torch.Generator(device="cuda").manual_seed(51)),
+        timer, peaks, torch.Generator(device="cuda").manual_seed(52),
+        ms=CMDR_ROWS, host=True)
+    print_rows("cmdr mixed_matmul", "one fused layer", cmdr_mm, CMDR_ROWS)
+    cgen = torch.Generator(device="cuda").manual_seed(53)
+    cmdr_pa = check_paged_attention(torch, ccfg, timer, peaks, cgen)
+    print(f"[cmdr paged_attention] (tolerance rtol {ATT_RTOL}, atol "
+          f"{ATT_ATOL}) " + json.dumps(cmdr_pa), flush=True)
+    cmdr_pf = check_paged_prefill(torch, ccfg, timer, peaks, cgen)
+    print(f"[cmdr paged_prefill] (tolerance rtol {ATT_RTOL}, atol "
+          f"{ATT_ATOL}) " + json.dumps(cmdr_pf), flush=True)
+    # the decode launches of the served waves, each at its own slots,
+    # table pages and window
+    wave_pa = {"cmdr": check_paged_attention(
+        torch, ccfg, timer, peaks, cgen, lens=WAVE_ATT_LENS[8], nblk=32)}
+    # mixtral-8x22b's attention projections (its experts are dequantized,
+    # as the reference's einsum) and both attention kernels at its GQA
+    # group of 6 under its 4096-key window, past the window
+    mcfg = registry.get(MIXTRAL_ARCH)
+    print("[mixtral plan] attention split plans at mixtral's heads: "
+          + json.dumps(attention_plans(torch, mcfg)), flush=True)
+    mixtral_mm = check_mixed_matmul(
+        torch, llama_projections(
+            torch, mcfg, torch.Generator(device="cuda").manual_seed(54),
+            names=("wqkv", "wo")),
+        timer, peaks, torch.Generator(device="cuda").manual_seed(55),
+        ms=MIXTRAL_ROWS, host=True)
+    print_rows("mixtral mixed_matmul", "wqkv+wo", mixtral_mm, MIXTRAL_ROWS)
+    mgen = torch.Generator(device="cuda").manual_seed(56)
+    mixtral_pa = check_paged_attention(
+        torch, mcfg, timer, peaks, mgen, lens=MIXTRAL_ATT_LENS,
+        window=mcfg.attn_window, freed=(0, 150))
+    print(f"[mixtral paged_attention] (tolerance rtol {ATT_RTOL}, atol "
+          f"{ATT_ATOL}) " + json.dumps(mixtral_pa), flush=True)
+    mixtral_pf = check_paged_prefill(
+        torch, mcfg, timer, peaks, mgen, window=mcfg.attn_window,
+        cases=MIXTRAL_PREFILL_CASES,
+        nblk=MIXTRAL_LONG["max_seq"] // 16)
+    # [mixtral]'s 64-token chunks over its 32-page table, windowed
+    mixtral_pf += check_paged_prefill(torch, mcfg, timer, peaks, mgen,
+                                      window=mcfg.attn_window)
+    print(f"[mixtral paged_prefill] (tolerance rtol {ATT_RTOL}, atol "
+          f"{ATT_ATOL}) " + json.dumps(mixtral_pf), flush=True)
+    wave_pa["mixtral"] = check_paged_attention(
+        torch, mcfg, timer, peaks, mgen, lens=WAVE_ATT_LENS[4],
+        window=mcfg.attn_window, nblk=32)
+    wave_pa["mixtral long"] = check_paged_attention(
+        torch, mcfg, timer, peaks, mgen, lens=MIXTRAL_LONG_ATT_LENS,
+        window=mcfg.attn_window, freed=(0, 150),
+        nblk=MIXTRAL_LONG["max_seq"] // 16)
+    # the GQA groups of the engine waves of phases 16, 18 and 19:
+    # qwen3-4b's 4 (32 / 8 heads), phi4-mini's 3 (24 / 8) and
+    # qwen2.5-3b's 8 (16 / 2), dh 128, and each wave's 4-slot decode
+    group_att = {}
+    for arch, seed in ((DIST_SERVE_ARCH, 57), (UNEVEN_ARCH, 58),
+                       (TRAIN_ARCH, 59)):
+        gcfg_ = registry.get(arch)
+        ggen = torch.Generator(device="cuda").manual_seed(seed)
+        tag = arch.split("-")[0]
+        group_att[tag] = (check_paged_attention(torch, gcfg_, timer, peaks,
+                                                ggen),
+                          check_paged_prefill(torch, gcfg_, timer, peaks,
+                                              ggen))
+        print(f"[{tag} paged_attention] (tolerance rtol {ATT_RTOL}, atol "
+              f"{ATT_ATOL}) " + json.dumps(group_att[tag][0]), flush=True)
+        print(f"[{tag} paged_prefill] (tolerance rtol {ATT_RTOL}, atol "
+              f"{ATT_ATOL}) " + json.dumps(group_att[tag][1]), flush=True)
+        wave_pa[tag] = check_paged_attention(
+            torch, gcfg_, timer, peaks, ggen, lens=WAVE_ATT_LENS[4], nblk=32)
+    for tag, row in wave_pa.items():
+        print(f"[{tag} wave paged_attention] the wave's own launch "
+              f"(tolerance rtol {ATT_RTOL}, atol {ATT_ATOL}) "
+              + json.dumps(row), flush=True)
     spans = check_spans(torch, projs, timer, peaks,
                         torch.Generator(device="cuda").manual_seed(1))
     for name, rows in spans.items():
@@ -6755,8 +7300,22 @@ def main() -> int:
           flush=True)
     print("[vlm reference] reduced llava, f32, greedy tokens: "
           + json.dumps(check_small_engines(torch, VLM_ARCH)), flush=True)
-    vlm_serve = run_vlm_serve(torch, kernels)
+    vlm_serve = run_reduced_serve(torch, kernels, VLM_ARCH, "vlm serve")
     print("[vlm serve] " + json.dumps(vlm_serve), flush=True)
+    # reduced command-r (layernorm with a bias, untied head) and mixtral
+    # (4 experts, top-2, a 32-key window: chunks of 16 past it run the
+    # windowed prefill kernel), then serve on each
+    big_serve = {}
+    for arch, tag in ((CMDR_ARCH, "cmdr"), (MIXTRAL_ARCH, "mixtral")):
+        worst = check_small_reference(torch, registry, arch)
+        print(f"[{tag} reference] reduced {arch}, f32: card vs CPU logits "
+              f"agree to {worst:.2e} (relative, limit {REF_RTOL})",
+              flush=True)
+        print(f"[{tag} reference] reduced {arch}, f32, greedy tokens: "
+              + json.dumps(check_small_engines(torch, arch)), flush=True)
+        big_serve[tag] = run_reduced_serve(torch, kernels, arch,
+                                           f"{tag} serve")
+        print(f"[{tag} serve] " + json.dumps(big_serve[tag]), flush=True)
 
     laps("4")
     # -- 5. the data-free main path, then whole-prompt prefill -------------
@@ -6923,7 +7482,22 @@ def main() -> int:
     dryrun = run_dryrun(torch, kernels, smi)
 
     laps("20")
-    # -- 21. every packed-matmul shape of the paths was checked; the kernels
+    # -- 21. command-r-35b and mixtral-8x22b at full width and depth, built
+    # a layer at a time, served through the paged chunked engine ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[big] earlier phases still hold {held_gb:.3f} GB allocated "
+          f"({torch.cuda.memory_reserved() / 1e9:.3f} GB reserved)",
+          flush=True)
+    cmdr = run_cmdr_path(torch, registry, kernels, path_kernels, peaks,
+                         held_gb)
+    mixtral = run_mixtral_path(torch, registry, kernels, path_kernels, peaks,
+                               held_gb)
+    checked |= {(r["M"], r["K"], r["N"]) for r in cmdr_mm + mixtral_mm}
+
+    laps("21")
+    # -- 22. every packed-matmul shape of the paths was checked; the kernels
     # line and the result ---------------------------------------------------
     launched = dict(mixed_matmul.KERNEL.shapes)
     unchecked = sorted(set(launched) - checked)
@@ -6933,7 +7507,7 @@ def main() -> int:
     by_shape = {f"{m}x{k}x{n}": c for (m, k, n), c in sorted(
         launched.items())}
     print("[mixed_matmul shapes] every (M, K, N) the packed matmul launched "
-          "at in phases 5-20 was held against its plain version in phase 3, "
+          "at in phases 5-21 was held against its plain version in phase 3, "
           "6, 8, 9, 10, 16, 17, 18 or 19; launches by shape: "
           + json.dumps(by_shape), flush=True)
     launches = {"datafree": summary["launches"],
@@ -6998,7 +7572,15 @@ def main() -> int:
                     sp_run["serve"]["replicated"]["launches"],
                 "dryrun prefill": dryrun["prefill"]["launches"],
                 "dryrun decode": dryrun["decode"]["launches"],
-                "dryrun train": dryrun["train"]["launches"]}
+                "dryrun train": dryrun["train"]["launches"],
+                "qwen3 engine": dist_serve["fused"]["engine"]["launches"],
+                "phi4 engine": uneven["phi4 engine"]["launches"],
+                "qwen2.5 engine": sp_run["engine"]["launches"],
+                "cmdr serve": big_serve["cmdr"]["launches"],
+                "mixtral serve": big_serve["mixtral"]["launches"],
+                "cmdr": cmdr["launches"],
+                "mixtral": mixtral["mixtral"]["launches"],
+                "mixtral long": mixtral["mixtral long"]["launches"]}
     decode_mm = [r for r in mm if r["M"] == 8]
     bm = spans["binary_matmul"]
     im = spans["int4_matmul"]
@@ -7008,20 +7590,25 @@ def main() -> int:
                + moe_cal["layer0_mixed_matmul"] + rg_mm
                + rg_cal["layer0_mixed_matmul"] + xl_mm
                + xl_cal["layer0_mixed_matmul"] + s2t_mm + vlm_mm + q3_mm
+               + cmdr_mm + mixtral_mm
                + [{"max_abs_err": ragged["max_abs_err"]}], decode_mm,
                launches, "one decode layer at M=8: wqkv+wgu+wo+wd"),
         dict(_entry("mixed_matmul", "src/repro/kernels/mixed_matmul.py:166",
                     mm + mm_rows + moe_mm + rg_mm + xl_mm + s2t_mm + vlm_mm
-                    + q3_mm, gather, launches,
+                    + q3_mm + cmdr_mm + mixtral_mm, gather, launches,
                     "the perm gather (gather_kernel) of a decode call at "
                     "M=8, wqkv+wgu+wo+wd; one per mixed_matmul launch, "
                     "held through the product"),
              name="mixed_matmul(perm)"),
         _entry("paged_attention", "src/repro/kernels/paged_attention.py:245",
-               [pa, moe_pa, rg_pa, vlm_pa], [pa], launches,
+               [pa, moe_pa, rg_pa, vlm_pa, cmdr_pa, mixtral_pa]
+               + [r[0] for r in group_att.values()]
+               + list(wave_pa.values()), [pa], launches,
                "B=8 hkv=32 dh=128 ps=16, lens up to 1000"),
         _entry("paged_prefill", "src/repro/kernels/paged_prefill.py:258",
-               pf + moe_pf + vlm_pf, pf[:1], launches,
+               pf + moe_pf + vlm_pf + cmdr_pf + mixtral_pf
+               + [x for r in group_att.values() for x in r[1]], pf[:1],
+               launches,
                "C=64 over 192 context tokens, hkv=32 dh=128"),
         _entry("binary_matmul", "src/repro/kernels/binary_matmul.py:75",
                bm, [r for r in bm if r["M"] == 8], launches,
@@ -7034,7 +7621,7 @@ def main() -> int:
                "(K=2208, N=4096); off the serving path; the packed-matmul "
                "body with the binary span empty", source="mixed_matmul"),
     ]
-    laps("21")
+    laps("22")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
